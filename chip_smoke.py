@@ -32,11 +32,6 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
-# operations/s on the CUDA cores (the kernels run float32 without tensor cores)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-
 TOL = {"spline": 1e-5, "gcn_fwd": 1e-4, "attn_fwd": 1e-4}
 PREDICTOR_TOL = 5e-4
 LAUNCHES_PER_BATCH = {"spline": 2, "gcn_fwd": 4, "attn_fwd": 6}
@@ -67,49 +62,6 @@ def norm_err(got, want):
     return (got - want).abs().max().item() / (scale if scale > 0 else 1.0)
 
 
-def time_ms(torch, fn, reps=20, warmup=3):
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warmup."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(torch, fn, symbol, reps=10):
-    """Median device time (ms) of one launch of the CUDA kernel whose name
-    contains ``symbol``, from a profiler trace of ``reps`` calls of ``fn``
-    (the wrapper's host-side preparation is not in it)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.name]
-    # a trace can miss a launch record (seen once: 9 of 10); it cannot gain one
-    require(reps // 2 <= len(times) <= reps,
-            f"profiler saw {len(times)} launches of {symbol}, expected {reps}")
-    return statistics.median(times) / 1e3
-
-
-def bound_ms(n_bytes, n_flops):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -126,6 +78,7 @@ def card_line():
 
 def check_spline(torch, dev, gen):
     from paddlexde_tpu_torch.ops import spline
+    from paddlexde_tpu_torch.ops.timing import bound_ms, device_ms, time_ms
 
     b, n, t_len, d = 32, 170, 2016, 3
     series = torch.randn(b, n, t_len, d, generator=gen, device=dev)
@@ -140,9 +93,9 @@ def check_spline(torch, dev, gen):
         torch.cuda.synchronize()
         require(torch.isfinite(got).all().item(), "spline kernel: non-finite output")
         errs.append(norm_err(got, want))
-    ms = device_ms(torch, lambda: spline.gather_eval_kernel(series, t, q), KERNEL_NAMES["spline"])
-    wrapper_ms = time_ms(torch, lambda: spline.gather_eval_kernel(series, t, q))
-    plain_ms = time_ms(torch, lambda: spline.gather_eval_plain(series, t, q))
+    ms = device_ms(lambda: spline.gather_eval_kernel(series, t, q), KERNEL_NAMES["spline"])
+    wrapper_ms = time_ms(lambda: spline.gather_eval_kernel(series, t, q))
+    plain_ms = time_ms(lambda: spline.gather_eval_plain(series, t, q))
     idx, _, _ = spline._prep(series, t, q)
     rows_read = set()
     for i in idx.tolist():
@@ -155,6 +108,7 @@ def check_spline(torch, dev, gen):
 
 def check_gcn(torch, dev, gen):
     from paddlexde_tpu_torch.ops import gcn
+    from paddlexde_tpu_torch.ops.timing import bound_ms, device_ms, gcn_work, time_ms
 
     b, n, t_len, d = 32, 170, 12, 128
     x = torch.randn(b, n, t_len, d, generator=gen, device=dev)
@@ -170,17 +124,17 @@ def check_gcn(torch, dev, gen):
     err64 = norm_err(got.double(), gcn.gcn_spatial_mix_plain(x.double(), gate.double(), scale2,
                                                              dtype_name="float64"))
     require(err64 <= TOL["gcn_fwd"], f"gcn kernel vs float64 plain: {err64:.3e}")
-    ms = device_ms(torch, lambda: gcn.gcn_spatial_mix_kernel(x, gate, scale2), KERNEL_NAMES["gcn_fwd"])
-    wrapper_ms = time_ms(torch, lambda: gcn.gcn_spatial_mix_kernel(x, gate, scale2))
-    plain_ms = time_ms(torch, lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2))
-    n_bytes = 4 * (2 * x.numel() + gate.numel())
-    n_flops = b * t_len * (4 * n * n * d + 5 * n * n)
+    ms = device_ms(lambda: gcn.gcn_spatial_mix_kernel(x, gate, scale2), KERNEL_NAMES["gcn_fwd"])
+    wrapper_ms = time_ms(lambda: gcn.gcn_spatial_mix_kernel(x, gate, scale2))
+    plain_ms = time_ms(lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2))
     return dict(err=err, err64=err64, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                bound=bound_ms(n_bytes, n_flops), shape=f"x [{b},{n},{t_len},{d}], gate [{n},{n}]")
+                bound=bound_ms(*gcn_work(b, n, t_len, d)),
+                shape=f"x [{b},{n},{t_len},{d}], gate [{n},{n}]")
 
 
 def check_attn(torch, dev, gen):
     from paddlexde_tpu_torch.ops import attn
+    from paddlexde_tpu_torch.ops.timing import attn_work, bound_ms, device_ms, time_ms
 
     b, n, t_len, d, heads, ks = 32, 170, 12, 128, 8, 3
     mq, mk, vs = (torch.randn(b, n, t_len, d, generator=gen, device=dev) for _ in range(3))
@@ -201,18 +155,15 @@ def check_attn(torch, dev, gen):
             *[a.double() for a in args[:11]], *flags, heads, dtype_name="float64")
         errs64.append(norm_err(got.double(), want64))
         require(errs64[-1] <= TOL["attn_fwd"], f"attention kernel vs float64 plain: {errs64[-1]:.3e}")
-        times.append(device_ms(torch, lambda: attn.fused_temporal_attention_kernel(*args),
+        times.append(device_ms(lambda: attn.fused_temporal_attention_kernel(*args),
                                KERNEL_NAMES["attn_fwd"]))
-        wrapper_times.append(time_ms(torch, lambda: attn.fused_temporal_attention_kernel(*args)))
-        plain_times.append(time_ms(torch, lambda: attn.fused_temporal_attention_plain(*args)))
-    dh = d // heads
-    per_row = 4 * 2 * ks * d * d * t_len + 4 * heads * t_len * t_len * dh + 3 * heads * t_len * t_len
-    n_flops = b * n * per_row
-    n_bytes = 4 * (4 * b * n * t_len * d + 4 * (ks * d * d + d))
+        wrapper_times.append(time_ms(lambda: attn.fused_temporal_attention_kernel(*args)))
+        plain_times.append(time_ms(lambda: attn.fused_temporal_attention_plain(*args)))
     return dict(err=max(errs), err64=max(errs64), ms=statistics.mean(times),
                 wrapper_ms=statistics.mean(wrapper_times),
                 plain_ms=statistics.mean(plain_times),
-                bound=bound_ms(n_bytes, n_flops), per_flags=list(zip(errs, times, plain_times)),
+                bound=bound_ms(*attn_work(b, n, t_len, d, heads, ks)),
+                per_flags=list(zip(errs, times, plain_times)),
                 shape=f"[{b},{n},{t_len},{d}], H={heads}, K={ks}, 3 flag sets")
 
 
@@ -273,11 +224,20 @@ def predictor_phase(torch, dev):
 
     import numpy as np
 
+    from paddlexde_tpu_torch import history_index
     from paddlexde_tpu_torch.models.d3stn import Predictor, load_config
     from paddlexde_tpu_torch.ops import _build
+    from paddlexde_tpu_torch.ops.timing import time_ms
+
+    class PlainPredictor(Predictor):
+        """The reference: the spline class in place of the spline kernel."""
+
+        def _history(self, lags, src):
+            return history_index(lags, src, self.his_span, interpolation="cubic",
+                                 use_kernel=False)
 
     cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"))
-    plain_cfg = dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla", spline_impl="xla")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla")
     n, his = cfg.num_nodes, cfg.his_len
     rng = np.random.default_rng(0)
     a = rng.random((n, n))
@@ -289,7 +249,7 @@ def predictor_phase(torch, dev):
 
     pred = Predictor(cfg, None, enc, dec, adj, sc, batch_size=32, device=dev,
                      generator=torch.Generator().manual_seed(0))
-    plain = Predictor(plain_cfg, None, enc, dec, adj, sc, batch_size=32, device=dev,
+    plain = PlainPredictor(plain_cfg, None, enc, dec, adj, sc, batch_size=32, device=dev,
                       generator=torch.Generator().manual_seed(0))
     plain.model.load_state_dict(pred.model.state_dict())
     n_params = sum(p.numel() for p in pred.model.parameters())
@@ -337,8 +297,8 @@ def predictor_phase(torch, dev):
 
     # steady-state device latency of one resident batch of 32
     src = torch.as_tensor(windows[:32]).to(dev)
-    fwd_ms = time_ms(torch, lambda: pred.forward(src), reps=10)
-    plain_fwd_ms = time_ms(torch, lambda: plain.forward(src), reps=10)
+    fwd_ms = time_ms(lambda: pred.forward(src), reps=10)
+    plain_fwd_ms = time_ms(lambda: plain.forward(src), reps=10)
     print(f"  Predictor.forward, resident batch of 32 (CUDA events, median of 10): "
           f"kernels {fwd_ms:.3f} ms ({32e3 / fwd_ms:.1f} samples/s), "
           f"plain {plain_fwd_ms:.3f} ms ({32e3 / plain_fwd_ms:.1f} samples/s)", flush=True)

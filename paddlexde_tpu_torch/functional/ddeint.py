@@ -13,8 +13,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
+from .._device import input_device, place
 from ..xde.history import history_index
 from ..xde.term import dde_term
 from .solve import integrate_term
@@ -39,19 +40,20 @@ def ddeint(
     interpolation: str = "cubic",
     damping: float = 1e-3,
     time_axis: int = -2,
-    use_kernel: Optional[bool] = None,
 ):
     """Integrate a delay DE; returns ``(solution, y_lags)``.
 
     ``his_processed=True`` takes ``lags`` as the already evaluated history.
-    ``use_kernel`` is passed to :func:`history_index` (``None``: the spline
-    kernel for a cubic lookup on a CUDA history).
+    Tensors keep their device; numpy/list data follows the first tensor
+    among ``his``, ``lags`` and ``y0``, else goes to the card. A host
+    ``t_span`` keeps the solve free of device-to-host syncs.
     """
+    device = input_device(his, lags, *tree_leaves(y0))
+    y0 = tree_map(lambda a: place(a, device), y0)
     if his_processed:
-        y_lags = torch.as_tensor(lags)
+        y_lags = place(lags, device)
     else:
-        y_lags = history_index(lags, his, his_span, interpolation=interpolation,
-                               use_kernel=use_kernel)
+        y_lags = history_index(lags, place(his, device), his_span, interpolation=interpolation)
 
     term = dde_term(func, lags, y_lags, damping=damping)
     solution = integrate_term(

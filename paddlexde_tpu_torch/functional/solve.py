@@ -13,8 +13,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
+from .._device import input_device, place
 from ..solver.fixed import solve_fixed
 from ..solver.registry import SolverSpec, require_ported, resolve_solver
 from ..utils.norms import rms_norm
@@ -33,9 +34,13 @@ _ADAMS_KEYS = {"implicit", "max_iters", "max_order", "step_size", "grid_construc
                "grid", "time_dtype", "norm"}
 
 
-def _is_decreasing(t_span) -> bool:
-    t_span = torch.as_tensor(t_span)
-    return t_span.numel() >= 2 and float(t_span[-1]) < float(t_span[0])
+def _is_decreasing(t_span: torch.Tensor) -> bool:
+    """One host read of the two ends (a device-to-host sync only when the
+    caller put ``t_span`` on the card)."""
+    if t_span.numel() < 2:
+        return False
+    first, last = t_span[[0, -1]].tolist()
+    return last < first
 
 
 def _reversed_term(term: XDETerm) -> XDETerm:
@@ -60,8 +65,8 @@ def _negate_time_options(options: dict) -> dict:
 
 def _canonicalize_direction(term, t_span, options):
     if _is_decreasing(t_span):
-        return _reversed_term(term), -torch.as_tensor(t_span), _negate_time_options(options)
-    return term, torch.as_tensor(t_span), options
+        return _reversed_term(term), -t_span, _negate_time_options(options)
+    return term, t_span, options
 
 
 def format_solution(solution, time_axis: int = -2):
@@ -82,6 +87,13 @@ def _solve(term, y0, t_span, method, options, time_axis):
         raise NotImplementedError(
             "options['checkpoint'] (per-step rematerialisation) is not ported yet (ROADMAP.md)"
         )
+    # time stays where the caller put it: numpy/list times become host
+    # tensors (the grid is read on the host; a 0-dim host time mixes freely
+    # with device states); the state goes to the device of its first tensor
+    # leaf, else to the card
+    t_span = torch.as_tensor(t_span)
+    device = input_device(*tree_leaves(y0))
+    y0 = tree_map(lambda a: place(a, device), y0)
     term, t_span, options = _canonicalize_direction(term, t_span, options)
     kw = {k: v for k, v in options.items() if k in _FIXED_KEYS - {"checkpoint"}}
     return format_solution(solve_fixed(term, y0, t_span, method=method, **kw), time_axis)

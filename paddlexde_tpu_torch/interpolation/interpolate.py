@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .._device import input_device
+
 __all__ = [
     "InterpolationBase",
     "LinearInterpolation",
@@ -26,7 +28,9 @@ class InterpolationBase:
     """Shared machinery: knot bookkeeping + vectorised segment lookup."""
 
     def __init__(self, series, t=None):
-        series = torch.as_tensor(series)
+        # tensors keep their device; a numpy/list series follows a tensor
+        # ``t``, else goes to the card (raising without one)
+        series = torch.as_tensor(series, device=input_device(series, t))
         if t is None:
             t = torch.arange(series.shape[-2], dtype=series.dtype, device=series.device)
         t = torch.as_tensor(t, device=series.device).to(series.dtype).contiguous()

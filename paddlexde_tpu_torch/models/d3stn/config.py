@@ -55,7 +55,6 @@ class D3STNConfig:
     compute_dtype: str = "float32"  # "bfloat16" is not ported yet (ROADMAP.md)
     gcn_impl: str = "auto"  # spatial-attention GCN: kernel K2 or plain
     attn_impl: str = "auto"  # temporal-context attention: kernel K4 or plain
-    spline_impl: str = "auto"  # history lookup: kernel K1 or the spline class
 
     # train
     learning_rate: float = 1e-3
@@ -86,7 +85,6 @@ class D3STNConfig:
         for field, allowed in (
             ("gcn_impl", ("auto", "xla", "pallas")),
             ("attn_impl", ("auto", "xla", "pallas")),
-            ("spline_impl", ("auto", "xla", "pallas")),
             ("attention", ("Corr", "Vanilla")),
             ("compute_dtype", ("float32",)),
         ):

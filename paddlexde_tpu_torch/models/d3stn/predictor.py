@@ -7,7 +7,8 @@ the device, and serves ``[B, N, his_len, 3]`` histories as de-scaled
 ``[B, N, tgt_len]`` forecasts. One request batch runs
 
     history_index(dec_idx)  -> spline kernel        (decoder input y0)
-    ddeint(euler, t=[0, 1]) -> history_index(enc_idx) -> spline kernel
+    history_index(enc_idx)  -> spline kernel        (encoder input y_lags)
+    ddeint(euler, t=[0, 1], his_processed=True)
                             -> D3STN once: 6 attention + 4 GCN kernel launches
 
 PyTorch runs eagerly, so a ragged tail batch runs at its own size (the JAX
@@ -33,8 +34,6 @@ from .model import D3STN
 from .weights import load_flax_params
 
 __all__ = ["Predictor"]
-
-_USE_KERNEL = {"auto": None, "xla": False, "pallas": True}
 
 
 class Predictor:
@@ -76,7 +75,9 @@ class Predictor:
         self.enc_idx = torch.as_tensor(np.asarray(enc_idx), device=self.device)
         self.dec_idx = torch.as_tensor(np.asarray(dec_idx), device=self.device)
         self.his_span = torch.arange(cfg.his_len, dtype=torch.float32, device=self.device)
-        self.t_span = torch.arange(2.0, dtype=torch.float32, device=self.device)
+        # the solver reads its grid on the host: keeping t_span there spares
+        # a device-to-host sync per batch
+        self.t_span = torch.arange(2.0, dtype=torch.float32)
         self._series_dev = None  # predict_series upload cache (id-keyed)
         self._series_src = None
 
@@ -103,16 +104,19 @@ class Predictor:
                    scaler=scaler, batch_size=batch_size, device=device)
 
     # ----------------------------------------------------------------- serve
+    def _history(self, lags: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+        """The history at the lags: the spline kernel on the card."""
+        return history_index(lags, src, self.his_span, interpolation="cubic")
+
     @torch.no_grad()
     def forward(self, src: torch.Tensor) -> torch.Tensor:
         """``src [B, N, his_len, 3]`` on the device -> ``[B, N, tgt_len]``."""
-        use_kernel = _USE_KERNEL[self.cfg.spline_impl]
-        y0 = history_index(self.dec_idx, src, self.his_span, interpolation="cubic",
-                           use_kernel=use_kernel)
+        y0 = self._history(self.dec_idx, src)
+        enc_in = self._history(self.enc_idx, src)
         sol, _ = ddeint(
-            lambda y_lags, y: self.model(y_lags, y), y0, self.t_span, self.enc_idx,
-            src, self.his_span, self.cfg.solver, fixed_solver_interp="", time_axis=0,
-            use_kernel=use_kernel,
+            lambda y_lags, y: self.model(y_lags, y), y0, self.t_span, enc_in,
+            src, self.his_span, self.cfg.solver, his_processed=True,
+            fixed_solver_interp="", time_axis=0,
         )
         return sol[1][..., 0]
 

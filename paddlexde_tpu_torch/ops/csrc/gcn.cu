@@ -157,7 +157,10 @@ constexpr int LD = D + 4;
 constexpr int WARPS = 4;
 constexpr int RPW = 8;              // rows per warp
 constexpr int ROWS = WARPS * RPW;   // rows per CTA
-constexpr int FULL_MAX = 256;       // the full-slice kernel's largest N
+#ifndef PXT_GCN_FULL_MAX  // a build with 0 runs every N on the tiled kernel (ops/sweep.py)
+#define PXT_GCN_FULL_MAX 256
+#endif
+constexpr int FULL_MAX = PXT_GCN_FULL_MAX;  // the full-slice kernel's largest N
 constexpr int MT = 64;              // nodes per tile of the tiled kernel
 constexpr int TJ = MT / 32;         // node slots per lane per tile
 
@@ -450,18 +453,20 @@ int launch(const void* x, const void* gate, void* y, int b, int n, int t_len, fl
 
 int dispatch(const void* x, const void* gate, void* y, int b, int n, int t_len, float scale1,
              float scale2, cudaStream_t stream) {
+  if (n > FULL_MAX) {
+    const int smem = tiled_smem_floats() * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(gcn_fwd_d128_tiled_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((n + ROWS - 1) / ROWS, t_len, b);
+    gcn_fwd_d128_tiled_kernel<<<grid, WARPS * 32, smem, stream>>>(
+        (const float*)x, (const float*)gate, (float*)y, n, t_len, scale1, scale2);
+    return (int)cudaGetLastError();
+  }
   if (n <= 64) return launch<2>(x, gate, y, b, n, t_len, scale1, scale2, stream);
   if (n <= 128) return launch<4>(x, gate, y, b, n, t_len, scale1, scale2, stream);
   if (n <= 192) return launch<6>(x, gate, y, b, n, t_len, scale1, scale2, stream);
-  if (n <= FULL_MAX) return launch<8>(x, gate, y, b, n, t_len, scale1, scale2, stream);
-  const int smem = tiled_smem_floats() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gcn_fwd_d128_tiled_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + ROWS - 1) / ROWS, t_len, b);
-  gcn_fwd_d128_tiled_kernel<<<grid, WARPS * 32, smem, stream>>>(
-      (const float*)x, (const float*)gate, (float*)y, n, t_len, scale1, scale2);
-  return (int)cudaGetLastError();
+  return launch<8>(x, gate, y, b, n, t_len, scale1, scale2, stream);
 }
 
 }  // namespace d128

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from .._device import input_device
 from . import _build
 
 __all__ = ["hermite_gather_eval", "gather_eval_plain", "gather_eval_kernel"]
@@ -128,7 +129,9 @@ class _HermiteGatherEval(torch.autograd.Function):
 
 def hermite_gather_eval(series, t, queries):
     """Cubic-Hermite evaluation of ``series [..., T, D]`` at ``queries [L]``;
-    returns ``[..., L, D]``. Gradients reach ``queries`` only."""
+    returns ``[..., L, D]``. Gradients reach ``queries`` only. A numpy/list
+    ``series`` follows a tensor ``queries``, else goes to the card."""
+    series = torch.as_tensor(series, device=input_device(series, queries))
     t = torch.as_tensor(t, device=series.device)
     queries = torch.as_tensor(queries, device=series.device)
     return _HermiteGatherEval.apply(series, t, queries)

@@ -132,7 +132,8 @@ def solve_fixed(
         # output times coincide with grid nodes: every mode is the step endpoint
         return ys_all
 
-    direction = 1 if float(grid[-1]) >= float(grid[0]) else -1
+    first, last = grid[[0, -1]].tolist()
+    direction = 1 if last >= first else -1
     idx = (
         torch.searchsorted((direction * grid).contiguous(), (direction * t_span).contiguous(),
                            right=True) - 1
@@ -152,7 +153,7 @@ def solve_fixed(
 
 def _expand(tvec, leaf):
     """Broadcast per-output-time scalars [T] against a time-first leaf [T, ...]."""
-    return tvec.reshape(tvec.shape + (1,) * (leaf.dim() - 1)).to(leaf.dtype)
+    return tvec.reshape(tvec.shape + (1,) * (leaf.dim() - 1)).to(leaf.device, leaf.dtype)
 
 
 def _linear(t0, y0, t1, y1, t):

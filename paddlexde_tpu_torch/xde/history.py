@@ -16,6 +16,7 @@ from typing import Optional, Union
 
 import torch
 
+from .._device import input_device
 from ..interpolation.interpolate import (
     BezierSpline,
     CubicHermiteSpline,
@@ -50,8 +51,11 @@ def history_index(
     ``None`` (default): on whenever ``his`` lies on a CUDA device and
     gradients to ``his`` are off; ``False``: the spline class on any device;
     ``True``: the kernel (``his`` must be a CUDA tensor).
+
+    Tensors keep their device; a numpy/list ``his`` goes to the device of
+    ``lags`` when that is a tensor, else to the card (raising without one).
     """
-    his = torch.as_tensor(his)
+    his = torch.as_tensor(his, device=input_device(his, lags))
     if stop_his_gradient:
         his = his.detach()
     lags = torch.as_tensor(lags, device=his.device)

@@ -11,8 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from paddlexde_tpu_torch import resolve_device
+from paddlexde_tpu_torch import (
+    CubicHermiteSpline,
+    ddeint,
+    history_index,
+    integrate_term,
+    ode_term,
+    resolve_device,
+)
 from paddlexde_tpu_torch.models.d3stn import D3STNConfig, Predictor
+from paddlexde_tpu_torch.ops.spline import hermite_gather_eval
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "paddlexde_tpu", "paddlexde"}
@@ -71,3 +79,32 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     pred = Predictor(cfg, None, lags, lags, eye, eye, device="cpu")
     assert pred.device == torch.device("cpu")
+
+
+def _field(y_lags, y):
+    return -y + y_lags.mean(dim=-2, keepdim=True)
+
+
+_NUMPY_CALLS = {
+    "history_index": lambda his, lags, y0: history_index(lags, his),
+    "ddeint": lambda his, lags, y0: ddeint(_field, y0, [0.0, 1.0], lags, his, None),
+    "integrate_term": lambda his, lags, y0: integrate_term(
+        ode_term(lambda t, y: -y), y0, [0.0, 0.5, 1.0], "euler"),
+    "CubicHermiteSpline": lambda his, lags, y0: CubicHermiteSpline(his).evaluate(lags),
+    "hermite_gather_eval": lambda his, lags, y0: hermite_gather_eval(his, np.arange(16.0), lags),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NUMPY_CALLS))
+def test_numpy_inputs_default_to_cuda(monkeypatch, name):
+    """numpy data goes to the card (raising without one), never quietly to
+    the CPU; CPU tensors are the explicit ask for the plain versions."""
+    rng = np.random.RandomState(0)
+    his, lags, y0 = rng.randn(2, 16, 3), np.array([1.5, 7.25, 14.0]), rng.randn(2, 1, 3)
+    call = _NUMPY_CALLS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        call(his, lags, y0)
+    out = call(torch.tensor(his), torch.tensor(lags), torch.tensor(y0))
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.device == torch.device("cpu") and torch.isfinite(out).all()
