@@ -37,7 +37,7 @@ PREDICTOR_TOL = 5e-4
 LAUNCHES_PER_BATCH = {"spline": 2, "gcn_fwd": 4, "attn_fwd": 6}
 KERNEL_NAMES = {  # CUDA symbol substrings in a profiler trace
     "spline": "hermite_gather_kernel",
-    "gcn_fwd": "gcn_fwd_",  # gcn_fwd_d128_kernel (D=128) or gcn_fwd_kernel
+    "gcn_fwd": "gcn_fwd_",  # gcn_fwd_d128_tiled_kernel (D=128) or gcn_fwd_kernel
     "attn_fwd": "attn_fwd_",  # attn_fwd_d3stn_kernel (D3STN shape) or attn_fwd_kernel
 }
 SOURCES = {

@@ -137,17 +137,17 @@ gcn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// D = 128 (every configuration the repo ships except the synthetic one):
-// register-tiled versions, the whole slice staged for N <= 256 and node
-// tiles with an online softmax above (gcn_fwd_d128_tiled_kernel). Same CTA
-// grid (32 rows of one (b, t) slice per CTA), 4 warps of 8 rows. For the
-// whole-slice kernel below: scores: lane l holds rows x nodes
-// {l, l+32, ...} (8 x N/32 accumulators), reading 4 channels per float4 from
-// the staged slice (row stride D+4 floats: 16-byte aligned and free of bank
-// conflicts for the lane-distinct rows). Softmax by warp shuffles; the
-// gated probabilities go to a per-warp shared buffer. Mix: lane l holds the
-// 8 rows x features 4l..4l+3 and reads 4 nodes of probabilities and 4 rows of
-// X per step. The slice is staged with cp.async.
+// D = 128 (every configuration the repo ships except the synthetic one): a
+// register-tiled kernel for any N. Same CTA grid (32 rows of one (b, t)
+// slice per CTA), 4 warps of 8 rows. The CTA's rows are staged once; the
+// nodes stream through shared memory in tiles of MT = 64 (row stride D+4
+// floats: 16-byte aligned, conflict-free float4 reads), staged with
+// cp.async. Scores: lane l holds 8 rows x nodes {l, l+32} of the tile.
+// Softmax online across tiles; the gated exponentials go to a per-warp
+// shared buffer. Mix: lane l holds the 8 rows x features 4l..4l+3 and reads
+// 4 nodes of probabilities and 4 rows of X per step. (A variant that staged
+// the whole slice for N <= 256 was slower at N=170 and no faster at N=80 on
+// an H100; PERF.md.)
 // ---------------------------------------------------------------------------
 
 namespace d128 {
@@ -157,21 +157,11 @@ constexpr int LD = D + 4;
 constexpr int WARPS = 4;
 constexpr int RPW = 8;              // rows per warp
 constexpr int ROWS = WARPS * RPW;   // rows per CTA
-#ifndef PXT_GCN_FULL_MAX  // a build with 0 runs every N on the tiled kernel (ops/sweep.py)
-#define PXT_GCN_FULL_MAX 256
-#endif
-constexpr int FULL_MAX = PXT_GCN_FULL_MAX;  // the full-slice kernel's largest N
-constexpr int MT = 64;              // nodes per tile of the tiled kernel
+constexpr int MT = 64;              // nodes per tile
 constexpr int TJ = MT / 32;         // node slots per lane per tile
 
-__host__ __device__ constexpr int padded(int n) { return (n + 3) & ~3; }
-
-__host__ __device__ constexpr int smem_floats(int n) { return padded(n) * LD + ROWS * padded(n); }
-
-__host__ __device__ constexpr int tiled_smem_floats() { return (ROWS + MT) * LD + ROWS * MT; }
-
-__host__ __device__ constexpr int smem_bytes(int n) {
-  return (n <= FULL_MAX ? smem_floats(n) : tiled_smem_floats()) * (int)sizeof(float);
+__host__ __device__ constexpr int smem_bytes() {
+  return ((ROWS + MT) * LD + ROWS * MT) * (int)sizeof(float);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -189,126 +179,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-template <int NJ>  // node slots per lane actually used (N <= 32 * NJ)
-__global__ void __launch_bounds__(WARPS * 32)
-gcn_fwd_d128_kernel(const float* __restrict__ x, const float* __restrict__ gate,
-                    float* __restrict__ y, int n, int t_len, float scale1, float scale2) {
-  extern __shared__ __align__(16) float smem128[];
-  const int np = padded(n);
-  float* sx = smem128;            // [np][LD]
-  float* sp = smem128 + np * LD;  // [ROWS][np]
-  const int t = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int64_t node_stride = (int64_t)t_len * D;
-  const float* xbt = x + (b * n * t_len + t) * (int64_t)D;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  for (int m = warp; m < np; m += WARPS) {
-    float* dst = sx + m * LD + lane * 4;
-    if (m < n)
-      cp_async16(dst, xbt + m * node_stride + lane * 4);
-    else
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-
-  const int row0 = blockIdx.x * ROWS + warp * RPW;
-  int rows[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) rows[i] = min(row0 + i, n - 1);
-
-  // scores s[i][j] = X[rows[i]] . X[lane + 32 j]
-  float acc[RPW][NJ];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  for (int c = 0; c < D; c += 4) {
-    float4 xr[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) xr[i] = *reinterpret_cast<const float4*>(sx + rows[i] * LD + c);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int m = min(lane + 32 * j, np - 1);
-      const float4 xm = *reinterpret_cast<const float4*>(sx + m * LD + c);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        float a = acc[i][j];
-        a = fmaf(xr[i].x, xm.x, a);
-        a = fmaf(xr[i].y, xm.y, a);
-        a = fmaf(xr[i].z, xm.z, a);
-        a = fmaf(xr[i].w, xm.w, a);
-        acc[i][j] = a;
-      }
-    }
-  }
-
-  // row softmax, * scale2 * gate; rows of this warp into sp
-  float* pw = sp + warp * RPW * np;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      acc[i][j] *= scale1;
-      if (lane + 32 * j < n) mx = fmaxf(mx, acc[i][j]);
-    }
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float e = lane + 32 * j < n ? expf(acc[i][j] - mx) : 0.f;
-      acc[i][j] = e;
-      sum += e;
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float* grow = gate + (int64_t)rows[i] * n;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int m = lane + 32 * j;
-      if (m < n) pw[i * np + m] = acc[i][j] / sum * scale2 * grow[m];
-      else if (m < np) pw[i * np + m] = 0.f;
-    }
-  }
-  __syncwarp();
-
-  // y[rows[i]][4 lane + e] = sum_m p[i][m] X[m][4 lane + e]
-  float out[RPW][4];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[i][e] = 0.f;
-  for (int m = 0; m < np; m += 4) {
-    float4 xv[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) xv[u] = *reinterpret_cast<const float4*>(sx + (m + u) * LD + lane * 4);
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const float4 p4 = *reinterpret_cast<const float4*>(pw + i * np + m);
-      const float pu[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        out[i][0] = fmaf(pu[u], xv[u].x, out[i][0]);
-        out[i][1] = fmaf(pu[u], xv[u].y, out[i][1]);
-        out[i][2] = fmaf(pu[u], xv[u].z, out[i][2]);
-        out[i][3] = fmaf(pu[u], xv[u].w, out[i][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    if (row0 + i >= n) break;
-    *reinterpret_cast<float4*>(y + ((b * n + row0 + i) * t_len + t) * (int64_t)D + lane * 4) =
-        make_float4(out[i][0], out[i][1], out[i][2], out[i][3]);
-  }
-}
-
-// N above FULL_MAX: the nodes stream through shared memory in tiles of MT
-// and each row's softmax is taken online (running max and sum, the
-// accumulated output rescaled when the max grows), as in flash attention:
+// Each row's softmax is taken online (running max and sum, the accumulated
+// output rescaled when the max grows), as in flash attention:
 // y = scale2 / sum_m e_m * sum_m e_m gate[n, m] X[m], e_m = exp(s_m - max).
 // Any N fits in 59 KB of shared memory.
 __global__ void __launch_bounds__(WARPS * 32)
@@ -438,41 +310,21 @@ gcn_fwd_d128_tiled_kernel(const float* __restrict__ x, const float* __restrict__
   }
 }
 
-template <int NJ>
 int launch(const void* x, const void* gate, void* y, int b, int n, int t_len, float scale1,
            float scale2, cudaStream_t stream) {
-  const int smem = smem_floats(n) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gcn_fwd_d128_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(gcn_fwd_d128_tiled_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes());
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + ROWS - 1) / ROWS, t_len, b);
-  gcn_fwd_d128_kernel<NJ><<<grid, WARPS * 32, smem, stream>>>(
+  gcn_fwd_d128_tiled_kernel<<<grid, WARPS * 32, smem_bytes(), stream>>>(
       (const float*)x, (const float*)gate, (float*)y, n, t_len, scale1, scale2);
   return (int)cudaGetLastError();
-}
-
-int dispatch(const void* x, const void* gate, void* y, int b, int n, int t_len, float scale1,
-             float scale2, cudaStream_t stream) {
-  if (n > FULL_MAX) {
-    const int smem = tiled_smem_floats() * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(gcn_fwd_d128_tiled_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((n + ROWS - 1) / ROWS, t_len, b);
-    gcn_fwd_d128_tiled_kernel<<<grid, WARPS * 32, smem, stream>>>(
-        (const float*)x, (const float*)gate, (float*)y, n, t_len, scale1, scale2);
-    return (int)cudaGetLastError();
-  }
-  if (n <= 64) return launch<2>(x, gate, y, b, n, t_len, scale1, scale2, stream);
-  if (n <= 128) return launch<4>(x, gate, y, b, n, t_len, scale1, scale2, stream);
-  if (n <= 192) return launch<6>(x, gate, y, b, n, t_len, scale1, scale2, stream);
-  return launch<8>(x, gate, y, b, n, t_len, scale1, scale2, stream);
 }
 
 }  // namespace d128
 
 extern "C" int pxt_gcn_fwd_smem_bytes(int n, int d) {
-  if (d == d128::D) return d128::smem_bytes(n);
+  if (d == d128::D) return d128::smem_bytes();
   return (n * (d + 1) + kRowsPerCta * n) * (int)sizeof(float);
 }
 
@@ -482,7 +334,7 @@ extern "C" int pxt_gcn_fwd_f32(const void* x, const void* gate, void* y, int b,
   if (d % 32 != 0 || d > 32 * kMaxDk) return (int)cudaErrorInvalidValue;
   if ((int64_t)b * n * t_len == 0) return 0;
   if (d == d128::D)
-    return d128::dispatch(x, gate, y, b, n, t_len, scale1, scale2, (cudaStream_t)stream);
+    return d128::launch(x, gate, y, b, n, t_len, scale1, scale2, (cudaStream_t)stream);
   const int smem = pxt_gcn_fwd_smem_bytes(n, d);
   cudaError_t err = cudaFuncSetAttribute(
       gcn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

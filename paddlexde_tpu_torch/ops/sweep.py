@@ -8,10 +8,8 @@ For each configuration in ``examples/configs`` at batch 32 and T=12, the
 GCN kernel (K2) and the attention kernel (K4) are held against their plain
 PyTorch versions (normalised max-abs error <= 1e-4, TF32 off) and timed:
 device time of one launch (profiler trace), the plain version's time (CUDA
-events) and the bound (``ops/timing.py``). At D=128 and N <= 256, where the
-whole-slice GCN kernel runs, a second build of ``csrc/gcn.cu`` with
-``-DPXT_GCN_FULL_MAX=0`` times the node-tiled kernel on the same inputs.
-Shapes other than D3STN's at D=128 (SYNTH) take the generic kernels.
+events) and the bound (``ops/timing.py``). Shapes other than D3STN's at
+D=128 (SYNTH) take the generic kernels.
 
 Prints the card line, one line per configuration, and a JSON list of the
 measurements as the last line. Exits non-zero when a kernel disagrees.
@@ -19,9 +17,6 @@ measurements as the last line. Exits non-zero when a kernel disagrees.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
-import hashlib
 import json
 import math
 import subprocess
@@ -37,8 +32,6 @@ from .timing import attn_work, bound_ms, device_ms, gcn_work, time_ms
 CONFIGS = ("SYNTH", "HZME_OUTFLOW", "PEMS08", "PEMS04", "PEMS03", "PEMS07")
 BATCH, T_LEN = 32, 12
 TOL = 1e-4
-TILED_DEFINE = "-DPXT_GCN_FULL_MAX=0"
-FULL_MAX = 256  # csrc/gcn.cu's default PXT_GCN_FULL_MAX
 
 
 def _norm_err(got, want):
@@ -46,31 +39,7 @@ def _norm_err(got, want):
     return (got - want).abs().max().item() / (scale if scale > 0 else 1.0)
 
 
-def _start_tiled_build():
-    """Start nvcc on the tiled-only build of gcn.cu; returns (target, process)."""
-    src = _build.CSRC / "gcn.cu"
-    flags = (*_build.NVCC_FLAGS, TILED_DEFINE)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    target = _build.BUILD_DIR / f"gcn_tiled_{digest}.so"
-    if target.exists():
-        return target, None
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *flags, "-o", str(target), str(src)]
-    return target, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-@contextlib.contextmanager
-def _gcn_library(lib):
-    """Route the GCN wrapper through ``lib`` for the duration."""
-    saved = _build.library("gcn")
-    _build._libs["gcn"] = lib
-    try:
-        yield
-    finally:
-        _build._libs["gcn"] = saved
-
-
-def _gcn(name, n, d, gen, dev, tiled_lib):
+def _gcn(name, n, d, gen, dev):
     x = torch.randn(BATCH, n, T_LEN, d, generator=gen, device=dev)
     gate = 0.5 * torch.rand(n, n, generator=gen, device=dev)
     scale2 = 1.0 / math.sqrt(d)
@@ -79,14 +48,9 @@ def _gcn(name, n, d, gen, dev, tiled_lib):
     res = {"err": _norm_err(run(), want), "ms": device_ms(run, "gcn_fwd_"),
            "plain_ms": time_ms(lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2)),
            "bound_ms": bound_ms(*gcn_work(BATCH, n, T_LEN, d))[0],
-           "kernel": "generic" if d != 128 else ("whole-slice" if n <= FULL_MAX else "tiled")}
-    if d == 128 and n <= FULL_MAX:
-        with _gcn_library(tiled_lib):
-            res["tiled_err"] = _norm_err(run(), want)
-            res["tiled_ms"] = device_ms(run, "gcn_fwd_")
-    for key in ("err", "tiled_err"):
-        if res.get(key, 0.0) > TOL:
-            raise RuntimeError(f"{name}: GCN {key} {res[key]:.3e} > {TOL:g}")
+           "kernel": "d128" if d == 128 else "generic"}
+    if res["err"] > TOL:
+        raise RuntimeError(f"{name}: GCN error {res['err']:.3e} > {TOL:g}")
     return res
 
 
@@ -120,13 +84,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    target, proc = _start_tiled_build()
     _build.build_all()
-    if proc is not None:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the tiled build of gcn.cu:\n{out}")
-    tiled_lib = ctypes.CDLL(str(target))
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -135,11 +93,10 @@ def main():
     for name in CONFIGS:
         cfg = load_config(str(root / "examples" / "configs" / f"{name}.json"))
         n, d, heads, ks = cfg.num_nodes, cfg.d_model, cfg.head, cfg.kernel_size
-        g = _gcn(name, n, d, gen, dev, tiled_lib)
+        g = _gcn(name, n, d, gen, dev)
         a = _attn(name, n, d, heads, ks, gen, dev)
-        tiled = f", tiled {g['tiled_ms']:.4f} ms (err {g['tiled_err']:.2e})" if "tiled_ms" in g else ""
         print(f"{name} [B={BATCH}, N={n}, T={T_LEN}, D={d}, H={heads}]: "
-              f"gcn {g['kernel']} {g['ms']:.4f} ms (err {g['err']:.2e}){tiled}, plain "
+              f"gcn {g['kernel']} {g['ms']:.4f} ms (err {g['err']:.2e}), plain "
               f"{g['plain_ms']:.4f} ms, bound {g['bound_ms']:.4f} ms; "
               f"attn {a['kernel']} {a['ms']:.4f} ms (err {a['err']:.2e}), plain "
               f"{a['plain_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms", flush=True)

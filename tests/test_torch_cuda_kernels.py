@@ -40,9 +40,9 @@ def test_spline_kernel(dev, dtype, tol, derivative):
     assert _norm_err(got, spline.gather_eval_plain(series, t, q, derivative)) <= tol
 
 
-# D=128 takes the register-tiled kernels (whole slice: node slots per lane
-# 2, 4, 6, 8 by N; node tiles with an online softmax above N=256: PEMS04,
-# PEMS03, PEMS07 sizes); other D the generic one
+# D=128 takes the register-tiled kernel (node tiles of 64 with an online
+# softmax; N within one tile, across tiles, and at the PEMS04, PEMS03 and
+# PEMS07 sizes); other D the generic one
 @pytest.mark.parametrize("shape", [(2, 17, 3, 32), (1, 45, 2, 128), (2, 100, 2, 128),
                                    (1, 170, 3, 128), (1, 200, 1, 128), (1, 307, 2, 128),
                                    (1, 358, 2, 128), (1, 883, 1, 128), (2, 33, 1, 256)])
