@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .._device import input_device
+from .._device import input_device, place
 
 __all__ = [
     "InterpolationBase",
@@ -30,7 +30,7 @@ class InterpolationBase:
     def __init__(self, series, t=None):
         # tensors keep their device; a numpy/list series follows a tensor
         # ``t``, else goes to the card (raising without one)
-        series = torch.as_tensor(series, device=input_device(series, t))
+        series = place(series, input_device(series, t))
         if t is None:
             t = torch.arange(series.shape[-2], dtype=series.dtype, device=series.device)
         t = torch.as_tensor(t, device=series.device).to(series.dtype).contiguous()

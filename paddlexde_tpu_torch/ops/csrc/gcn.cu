@@ -145,9 +145,10 @@ gcn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
 // cp.async. Scores: lane l holds 8 rows x nodes {l, l+32} of the tile.
 // Softmax online across tiles; the gated exponentials go to a per-warp
 // shared buffer. Mix: lane l holds the 8 rows x features 4l..4l+3 and reads
-// 4 nodes of probabilities and 4 rows of X per step. (A variant that staged
-// the whole slice for N <= 256 was slower at N=170 and no faster at N=80 on
-// an H100; PERF.md.)
+// 4 nodes of probabilities and 4 rows of X per step. Tiles beat staging the
+// whole slice even where it fits: 59 KB admit 3 CTAs per SM, and an H100
+// measured the whole-slice variant slower at N=170, no faster at N=80
+// (PERF.md).
 // ---------------------------------------------------------------------------
 
 namespace d128 {

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from .._device import input_device
+from .._device import input_device, place
 from . import _build
 
 __all__ = ["hermite_gather_eval", "gather_eval_plain", "gather_eval_kernel"]
@@ -131,7 +131,7 @@ def hermite_gather_eval(series, t, queries):
     """Cubic-Hermite evaluation of ``series [..., T, D]`` at ``queries [L]``;
     returns ``[..., L, D]``. Gradients reach ``queries`` only. A numpy/list
     ``series`` follows a tensor ``queries``, else goes to the card."""
-    series = torch.as_tensor(series, device=input_device(series, queries))
+    series = place(series, input_device(series, queries))
     t = torch.as_tensor(t, device=series.device)
     queries = torch.as_tensor(queries, device=series.device)
     return _HermiteGatherEval.apply(series, t, queries)

@@ -16,7 +16,7 @@ from typing import Optional, Union
 
 import torch
 
-from .._device import input_device
+from .._device import input_device, place
 from ..interpolation.interpolate import (
     BezierSpline,
     CubicHermiteSpline,
@@ -55,7 +55,7 @@ def history_index(
     Tensors keep their device; a numpy/list ``his`` goes to the device of
     ``lags`` when that is a tensor, else to the card (raising without one).
     """
-    his = torch.as_tensor(his, device=input_device(his, lags))
+    his = place(his, input_device(his, lags))
     if stop_his_gradient:
         his = his.detach()
     lags = torch.as_tensor(lags, device=his.device)
