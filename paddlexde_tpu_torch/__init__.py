@@ -6,9 +6,10 @@ unless the caller passes ``device="cpu"``; every TPU kernel on a ported path
 is a hand-written CUDA kernel for Hopper (``ops/csrc``), built at first use,
 with a plain PyTorch version beside it for CPU tensors.
 
-Ported so far: D3STN serving (``models.d3stn.Predictor``) and what it runs:
-``ddeint`` on the fixed-grid solvers, ``history_index`` and the splines, and
-three kernels (spline gather, spatial GCN, temporal attention; forward).
+Ported so far: D3STN serving (``models.d3stn.Predictor``) and training
+(``models.d3stn.Trainer``) and what they run: ``ddeint`` on the fixed-grid
+solvers, ``history_index`` and the splines, and five kernels (spline
+gather; spatial GCN and temporal attention, forward and backward).
 """
 
 from . import ops  # noqa: F401

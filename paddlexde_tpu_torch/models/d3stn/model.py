@@ -16,8 +16,10 @@ Kept from the JAX model:
   lets it run as one fused kernel (``ops/attn.py``);
 - LayerNorm epsilon 1e-5.
 
-Serving only: the kernels are forward-only, and dropout in training mode is
-not ported (ROADMAP.md).
+Trains and serves with ``dropout == 0`` (every shipped config): on the card
+the GCN and attention blocks run their forward and backward kernels. Dropout
+in training mode is not ported (the kernels have no dropout input yet,
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -284,6 +286,7 @@ class D3STN(nn.Module):
         if self.training and self.cfg.dropout > 0:
             raise NotImplementedError(
                 "dropout in training mode is not ported (the kernels have no "
-                "dropout input yet, ROADMAP.md); call .eval() to serve"
+                "dropout input yet, ROADMAP.md); train with dropout=0 or call "
+                ".eval() to serve"
             )
         return self.decode(self.encode(src), tgt)

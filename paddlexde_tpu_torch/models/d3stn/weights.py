@@ -1,4 +1,4 @@
-"""Load a JAX (flax) D3STN parameter tree into the port's modules.
+"""Move D3STN parameters between a JAX (flax) tree and the port's modules.
 
 The flax tree is nested dicts of arrays (numpy, or anything ``np.asarray``
 takes), as the JAX Trainer pickles it; an outer ``{"params": ...}`` wrapper
@@ -12,7 +12,9 @@ is mechanical:
   ``embed``; ``scale`` -> ``weight``; ``Embed_0/embedding`` -> ``embed.weight``.
 
 Every parameter of the module must be set exactly once and with the right
-shape, or the load raises.
+shape, or the load raises. :func:`to_flax_params` is the inverse: it gives
+the tree the JAX Trainer pickles, so either package reads the checkpoints
+the other writes.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_flax_params"]
+__all__ = ["load_flax_params", "to_flax_params"]
 
 _MODULE_RENAMES = {"Conv_0": None, "Dense_0": "proj", "LayerNorm_0": "norm", "Embed_0": "embed"}
+_FLAX_NAMES = {"proj": "Dense_0", "norm": "LayerNorm_0", "embed": "Embed_0"}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -78,3 +81,32 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
                 )
             param.copy_(torch.tensor(np.array(value), dtype=param.dtype))
     return model
+
+
+def to_flax_params(model: nn.Module) -> dict:
+    """The model's parameters as a flax D3STN tree of float32 numpy arrays
+    (nested dicts, no ``{"params": ...}`` wrapper), the inverse of
+    :func:`load_flax_params`."""
+    from .model import ConvBank
+
+    tree: dict = {}
+    for name, param in model.named_parameters():
+        *mods, leaf = name.split(".")
+        owner = model.get_submodule(".".join(mods))
+        value = param.detach().cpu().numpy()
+        path = [_FLAX_NAMES.get(m, m) for m in mods]
+        if isinstance(owner, ConvBank):
+            path.append("Conv_0")
+            if leaf == "kernel":
+                value = value[None]
+        elif isinstance(owner, nn.Linear) and leaf == "weight":
+            leaf, value = "kernel", value.T
+        elif isinstance(owner, nn.LayerNorm) and leaf == "weight":
+            leaf = "scale"
+        elif isinstance(owner, nn.Embedding):
+            leaf = "embedding"
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.array(value, dtype=np.float32)
+    return tree

@@ -13,7 +13,8 @@ Python wrappers raise on a non-zero code (:func:`check`).
 
 ``LAUNCHES`` counts kernel launches per kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. The backward wrappers (``gcn_bwd``,
+``attn_bwd``) launch several CUDA kernels per call and count the call once.
 """
 
 from __future__ import annotations
@@ -32,13 +33,13 @@ __all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
-SOURCES = ("spline.cu", "gcn.cu", "attn.cu")
+SOURCES = ("spline.cu", "gcn.cu", "gcn_bwd.cu", "attn.cu", "attn_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-LAUNCHES: Dict[str, int] = {"spline": 0, "gcn_fwd": 0, "attn_fwd": 0}
+LAUNCHES: Dict[str, int] = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

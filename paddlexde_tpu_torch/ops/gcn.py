@@ -1,15 +1,17 @@
-"""Fused spatial-attention GCN mixing, forward (kernel K2).
+"""Fused spatial-attention GCN mixing: forward (kernel K2) and backward (K3).
 
 Counterpart of ``paddlexde_tpu/ops/gcn_pallas.py``: per (batch, time) slice
 ``x_bt [N, D]`` of ``x [B, N, T, D]``
 
     y = (softmax_rows(x_bt x_bt^T / sqrt(D)) * scale2 (.) gate) @ x_bt
 
-with a static ``gate [N, N]``. A CUDA tensor goes to the hand-written kernel
-(``csrc/gcn.cu``), a CPU tensor to the plain PyTorch version; ``impl="xla"``
-picks the plain version on any device and ``impl="pallas"`` demands the
-kernel. The kernel is forward-only and float32-only in this version; its
-backward (the TPU file's ``_bwd_kernel``) and bfloat16 are still to port.
+with ``gate [N, N]`` (alpha * adj + beta * sc in the model, so it takes a
+gradient). A CUDA tensor goes to the hand-written kernels under a
+``torch.autograd.Function`` (forward ``csrc/gcn.cu``, backward
+``csrc/gcn_bwd.cu``), a CPU tensor to the plain PyTorch version under
+autograd; ``impl="xla"`` picks the plain version on any device and
+``impl="pallas"`` demands the kernels. float32 only; bfloat16 is still to
+port.
 """
 
 from __future__ import annotations
@@ -21,7 +23,13 @@ import torch
 
 from . import _build
 
-__all__ = ["gcn_spatial_mix", "gcn_spatial_mix_plain", "gcn_spatial_mix_kernel"]
+__all__ = [
+    "gcn_spatial_mix",
+    "gcn_spatial_mix_plain",
+    "gcn_spatial_mix_kernel",
+    "gcn_spatial_mix_bwd_plain",
+    "gcn_spatial_mix_bwd_kernel",
+]
 
 _IMPLS = ("auto", "xla", "pallas")
 
@@ -39,17 +47,40 @@ def gcn_spatial_mix_plain(x, gate, scale2: float = 1.0, dtype_name: str = "float
     return torch.einsum("btnm,bmtd->bntd", adj, x.to(dt))
 
 
+def gcn_spatial_mix_bwd_plain(x, gate, g, scale2: float = 1.0):
+    """Plain PyTorch backward ``(dx, dgate)`` of :func:`gcn_spatial_mix_plain`
+    for the output cotangent ``g``, written out as the TPU ``_bwd_kernel``
+    computes it (s and p recomputed; float64 inputs stay float64)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    x, gate, g = x.to(dt), gate.to(dt), g.to(dt)
+    scale1 = 1.0 / math.sqrt(x.shape[-1])
+    p0 = torch.softmax(torch.einsum("bntd,bmtd->btnm", x, x) * scale1, dim=-1)
+    p = p0 * scale2
+    da = torch.einsum("bntd,bmtd->btnm", g, x)  # dL/da = g x^T
+    dx_v = torch.einsum("btnm,bntd->bmtd", p * gate, g)  # a^T g
+    dgate = (p * da).sum(dim=(0, 1))
+    dp0 = gate * da * scale2
+    ds = p0 * (dp0 - (dp0 * p0).sum(dim=-1, keepdim=True))
+    dx_qk = (torch.einsum("btnm,bmtd->bntd", ds, x)
+             + torch.einsum("btnm,bntd->bmtd", ds, x)) * scale1
+    return dx_v + dx_qk, dgate
+
+
+def _check_bwd_shape(x):
+    d = x.shape[-1]
+    if d not in (64, 128):
+        raise ValueError(
+            f"the GCN backward kernel takes D = 64 or 128, got x {tuple(x.shape)}; "
+            "gcn_impl=\"xla\" trains it"
+        )
+
+
 def gcn_spatial_mix_kernel(x, gate, scale2: float = 1.0):
-    """The CUDA kernel (float32, no autograd)."""
+    """The CUDA forward kernel (float32, no autograd)."""
     if not x.is_cuda:
         raise ValueError("gcn_spatial_mix_kernel needs a CUDA tensor")
     if x.dtype != torch.float32 or gate.dtype != torch.float32:
         raise TypeError("the GCN kernel takes float32 x and gate")
-    if torch.is_grad_enabled() and (x.requires_grad or gate.requires_grad):
-        raise NotImplementedError(
-            "the GCN kernel is forward-only: its backward is not ported yet "
-            "(ROADMAP.md, kernel K3); use gcn_impl='xla' to train"
-        )
     if x.dim() != 4:
         raise ValueError(f"x [B, N, T, D] expected, got {tuple(x.shape)}")
     b, n, t_len, d = x.shape
@@ -76,6 +107,59 @@ def gcn_spatial_mix_kernel(x, gate, scale2: float = 1.0):
     return y
 
 
+def gcn_spatial_mix_bwd_kernel(x, gate, g, scale2: float = 1.0):
+    """The CUDA backward kernels: ``(dx, dgate)`` in float32 for the output
+    cotangent ``g``. One call launches the row pass, the column pass and the
+    fixed-order dgate reduction (``csrc/gcn_bwd.cu``) and counts once."""
+    if not x.is_cuda:
+        raise ValueError("gcn_spatial_mix_bwd_kernel needs CUDA tensors")
+    if any(a.dtype != torch.float32 for a in (x, gate, g)):
+        raise TypeError("the GCN backward kernel takes float32 x, gate and g")
+    if x.dim() != 4 or g.shape != x.shape:
+        raise ValueError(f"x and g [B, N, T, D] expected, got {tuple(x.shape)} and {tuple(g.shape)}")
+    b, n, t_len, d = x.shape
+    if gate.shape != (n, n):
+        raise ValueError(f"gate {tuple(gate.shape)} must be [{n}, {n}]")
+    _check_bwd_shape(x)
+    x, g = x.contiguous(), g.contiguous()
+    gate = gate.to(x.device).contiguous()
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx, torch.zeros_like(gate)
+    dgate = torch.empty_like(gate)
+    lib = _build.library("gcn_bwd")
+    lib.pxt_gcn_bwd_scratch_floats.restype = ctypes.c_int64
+    lib.pxt_gcn_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+    scratch = torch.empty(lib.pxt_gcn_bwd_scratch_floats(b, n, t_len), dtype=torch.float32,
+                          device=x.device)
+    fn = lib.pxt_gcn_bwd_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(x.data_ptr(), g.data_ptr(), gate.data_ptr(), dx.data_ptr(), dgate.data_ptr(),
+                  scratch.data_ptr(), b, n, t_len, d, 1.0 / math.sqrt(d), float(scale2), stream)
+    _build.check(lib, code, "gcn_bwd kernels")
+    _build.LAUNCHES["gcn_bwd"] += 1
+    return dx, dgate
+
+
+class _GcnSpatialMix(torch.autograd.Function):
+    """Forward K2, backward K3 (``_vjp_fwd``/``_vjp_bwd`` of the JAX file)."""
+
+    @staticmethod
+    def forward(ctx, x, gate, scale2):
+        ctx.save_for_backward(x, gate)
+        ctx.scale2 = scale2
+        return gcn_spatial_mix_kernel(x, gate, scale2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gate = ctx.saved_tensors
+        dx, dgate = gcn_spatial_mix_bwd_kernel(x, gate, g, ctx.scale2)
+        return dx, dgate.to(gate.dtype), None
+
+
 def gcn_spatial_mix(x, gate, scale2: float = 1.0, dtype_name: str = "float32",
                     impl: str = "auto"):
     """``softmax(x x^T / sqrt(D)) * scale2 (.) gate @ x`` over the node axis
@@ -91,4 +175,7 @@ def gcn_spatial_mix(x, gate, scale2: float = 1.0, dtype_name: str = "float32",
             f"the GCN kernel runs float32 only; compute_dtype={dtype_name!r} "
             "is still to port (ROADMAP.md)"
         )
-    return gcn_spatial_mix_kernel(x, gate, scale2)
+    if not (torch.is_grad_enabled() and (x.requires_grad or gate.requires_grad)):
+        return gcn_spatial_mix_kernel(x, gate, scale2)  # serving: no autograd node
+    _check_bwd_shape(x)
+    return _GcnSpatialMix.apply(x, gate, float(scale2))

@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``: they need an NVIDIA card with ``nvcc`` (the kernels are
 built at first call) and skip elsewhere. Run them on the card with
@@ -75,3 +75,66 @@ def test_attention_kernel(dev, flags, b, n, tq, tk, d, heads):
     got = attn.fused_temporal_attention_kernel(*arrays, *flags, heads)
     want = attn.fused_temporal_attention_plain(*arrays, *flags, heads)
     assert _norm_err(got, want) <= 1e-4
+
+
+def _bitwise_twice(fn):
+    """Run ``fn`` twice; every output must be the same bits both times."""
+    first, second = fn(), fn()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    return first
+
+
+# the backward kernels: D=128 at N within one node tile, across tiles and at
+# PEMS08's N; D=64 for the synthetic configuration
+@pytest.mark.parametrize("shape", [(2, 17, 3, 64), (1, 16, 12, 64), (2, 45, 2, 128),
+                                   (1, 170, 3, 128), (1, 307, 1, 128)])
+def test_gcn_bwd_kernel(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(*shape, generator=g, device=dev)
+    gate = torch.rand(shape[1], shape[1], generator=g, device=dev)
+    cot = torch.randn(*shape, generator=g, device=dev)
+    before = _build.LAUNCHES["gcn_bwd"]
+    dx, dgate = _bitwise_twice(lambda: gcn.gcn_spatial_mix_bwd_kernel(x, gate, cot, 0.3))
+    assert _build.LAUNCHES["gcn_bwd"] == before + 2
+    want = gcn.gcn_spatial_mix_bwd_plain(x.double(), gate.double(), cot.double(), 0.3)
+    assert _norm_err(dx.double(), want[0]) <= 1e-4
+    assert _norm_err(dgate.double(), want[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
+@pytest.mark.parametrize("b,n,d,heads", [(2, 5, 128, 8), (1, 7, 64, 4), (3, 11, 128, 8)])
+def test_attention_bwd_kernel(dev, flags, b, n, d, heads):
+    g = torch.Generator(device=dev).manual_seed(4)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    arrays = [r(b, n, 12, d), r(b, n, 12, d), r(b, n, 12, d)]
+    for _ in range(4):
+        arrays += [r(3, d, d) / d ** 0.5, 0.1 * r(d)]
+    cot = r(b, n, 12, d)
+    got = _bitwise_twice(lambda: attn.fused_temporal_attention_bwd_kernel(*arrays, cot, *flags,
+                                                                          heads))
+    want = attn.fused_temporal_attention_bwd_plain(*[a.double() for a in arrays], cot.double(),
+                                                   *flags, heads)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+    assert max(attn.bwd_errors(got, want)) <= 1e-4
+
+
+def test_autograd_through_the_kernels(dev):
+    """Gradients of the kernel path equal those of the plain path, with
+    ``mk is mq`` (self-attention: autograd adds the two input gradients)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    x = r(2, 9, 12, 64).requires_grad_()
+    gate = torch.rand(9, 9, generator=g, device=dev).requires_grad_()
+    weights = [p.requires_grad_() for _ in range(4) for p in (r(3, 64, 64) / 8, 0.1 * r(64))]
+    grads = []
+    for impl in ("pallas", "xla"):
+        y = gcn.gcn_spatial_mix(x, gate, 0.125, impl=impl)
+        y = attn.fused_temporal_attention(y, y, x, *weights, False, False, False, 4, impl=impl)
+        grads.append(torch.autograd.grad((y * y).sum(), [x, gate, *weights]))
+    (dx, dgate, *dw), (dx_ref, dgate_ref, *dw_ref) = grads
+    assert _norm_err(dx, dx_ref) <= 1e-4 and _norm_err(dgate, dgate_ref) <= 1e-4
+    # the conv gradients as attn.bwd_errors groups them (x stands in for the
+    # three input gradients)
+    assert max(attn.bwd_errors([dx] * 3 + dw, [dx_ref] * 3 + dw_ref)) <= 1e-4

@@ -18,6 +18,18 @@ from paddlexde_tpu.models.d3stn import model as jax_model
 from paddlexde_tpu_torch.models.d3stn import D3STN, D3STNConfig, load_flax_params
 from paddlexde_tpu_torch.models.d3stn import norm_adj_matrix, topk_mix_matrix
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs 6 workers on 8 cores: torch's default of one compute
+    thread per core in each worker (spinning between the tiny ops here)
+    would take cores from the JAX tests beside it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = 1e-4
 N = 10
 

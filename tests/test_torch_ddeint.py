@@ -13,6 +13,18 @@ from paddlexde_tpu.functional.solve import integrate_term as jax_integrate
 from paddlexde_tpu.xde.term import ode_term as jax_ode_term
 from paddlexde_tpu_torch import ddeint, history_index, integrate_term, ode_term
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs 6 workers on 8 cores: torch's default of one compute
+    thread per core in each worker (spinning between the tiny ops here)
+    would take cores from the JAX tests beside it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = 1e-10
 
 

@@ -10,12 +10,25 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from paddlexde_tpu.models.d3stn import D3STN as JaxD3STN
 from paddlexde_tpu.models.d3stn import D3STNConfig as JaxConfig
 from paddlexde_tpu.models.d3stn import Predictor as JaxPredictor
 from paddlexde_tpu.models.d3stn import norm_adj_matrix
 from paddlexde_tpu_torch.models.d3stn import D3STNConfig, Predictor
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs 6 workers on 8 cores: torch's default of one compute
+    thread per core in each worker (spinning between the tiny ops here)
+    would take cores from the JAX tests beside it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 TOL = 1e-4
 N, HIS = 10, 64

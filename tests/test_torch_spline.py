@@ -19,6 +19,18 @@ from paddlexde_tpu.ops import spline_pallas
 from paddlexde_tpu_torch.interpolation import CubicHermiteSpline
 from paddlexde_tpu_torch.ops import spline
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs 6 workers on 8 cores: torch's default of one compute
+    thread per core in each worker (spinning between the tiny ops here)
+    would take cores from the JAX tests beside it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = 1e-12  # float64: same formulas, same operation order
 
 

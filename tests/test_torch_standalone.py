@@ -19,8 +19,20 @@ from paddlexde_tpu_torch import (
     ode_term,
     resolve_device,
 )
-from paddlexde_tpu_torch.models.d3stn import D3STNConfig, Predictor
+from paddlexde_tpu_torch.models.d3stn import D3STNConfig, Predictor, Trainer
 from paddlexde_tpu_torch.ops.spline import hermite_gather_eval
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs 6 workers on 8 cores: torch's default of one compute
+    thread per core in each worker (spinning between the tiny ops here)
+    would take cores from the JAX tests beside it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "paddlexde_tpu", "paddlexde"}
@@ -35,7 +47,10 @@ def test_import_loads_no_jax():
     code = (
         "import sys, paddlexde_tpu_torch, paddlexde_tpu_torch.models.d3stn, "
         "paddlexde_tpu_torch.ops.spline, paddlexde_tpu_torch.ops.gcn, "
-        "paddlexde_tpu_torch.ops.attn\n"
+        "paddlexde_tpu_torch.ops.attn, paddlexde_tpu_torch.ops.timing, "
+        "paddlexde_tpu_torch.models.d3stn.trainer, paddlexde_tpu_torch.models.d3stn.dataset, "
+        "paddlexde_tpu_torch.models.d3stn.metrics, paddlexde_tpu_torch.models.d3stn.train_utils, "
+        "paddlexde_tpu_torch.models.d3stn.weights\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -79,6 +94,18 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     pred = Predictor(cfg, None, lags, lags, eye, eye, device="cpu")
     assert pred.device == torch.device("cpu")
+
+
+def test_trainer_defaults_to_cuda_and_refuses_a_mesh(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, _, eye = _tiny()
+    cfg.save_dir = str(tmp_path)
+    data = np.random.RandomState(0).rand(288, 4, 1).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Trainer(cfg, data=data, adj_matrix=eye, sc_matrix=eye)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Trainer(cfg, data=data, adj_matrix=eye, sc_matrix=eye, mesh=object(), device="cpu")
+    assert Trainer(cfg, data=data, adj_matrix=eye, sc_matrix=eye, device="cpu").device.type == "cpu"
 
 
 def _field(y_lags, y):
