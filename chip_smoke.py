@@ -6,7 +6,10 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It builds the five hand-written Hopper kernels from ``paddlexde_tpu_torch/
-ops/csrc`` and runs three phases (TF32 off throughout):
+ops/csrc``, prints the compiler's registers, spills and shared memory of
+the attention kernels and the count of tensor-core instructions in their
+libraries (it fails if either has none), and runs three phases (PyTorch's
+TF32 off throughout; the attention kernels run their products in 3xTF32):
 
 1. each kernel against its plain PyTorch version at the PEMS08 shapes: the
    forward kernels against the float32 and float64 plain versions, the
@@ -26,8 +29,8 @@ traces. It prints:
 
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-  main paths (serving and the two-epoch train), error, time, bound,
-  plain-version time and library time;
+  main paths (serving and the two-epoch train), error, time, bound (the
+  3xTF32 bound of ``ops/timing.py``), plain-version time and library time;
 - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result lines. With no CUDA card, or
@@ -58,9 +61,9 @@ KERNEL_NAMES = {
     "spline": ("hermite_gather_kernel",),
     "gcn_fwd": ("gcn_fwd_",),  # gcn_fwd_d128_tiled_kernel (D=128) or gcn_fwd_kernel
     "gcn_bwd": ("gcn_bwd_row_kernel", "gcn_bwd_col_kernel", "gcn_bwd_dgate_kernel"),
-    "attn_fwd": ("attn_fwd_",),  # attn_fwd_d3stn_kernel (D3STN shape) or attn_fwd_kernel
-    "attn_bwd": ("attn_bwd_wt_kernel", "attn_bwd_row_kernel", "attn_bwd_dw_kernel",
-                 "attn_bwd_sum_kernel"),
+    "attn_fwd": ("attn_fwd_wsplit_kernel", "attn_fwd_d3stn_kernel"),  # D3STN's shape
+    "attn_bwd": ("attn_bwd_wt_kernel", "attn_bwd_qkv_conv_kernel", "attn_bwd_core_kernel",
+                 "attn_bwd_dx_conv_kernel", "attn_bwd_dw_kernel", "attn_bwd_sum_kernel"),
 }
 SOURCES = {
     "spline": ("paddlexde_tpu_torch/ops/csrc/spline.cu", "paddlexde_tpu/ops/spline_pallas.py:84"),
@@ -96,6 +99,49 @@ def card_line():
     return out[0]
 
 
+def ptxas_report(log):
+    """``[(kernel, registers, spill stores, spill loads, stack bytes)]`` from
+    the ``-Xptxas -v`` lines of an nvcc log (kernel names mangled)."""
+    import re
+
+    rows, name, spill = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill[1], spill[2], spill[0]))
+            name, spill = None, (0, 0, 0)
+    return rows
+
+
+def build_report():
+    """Registers and spills of every attention kernel, and the tensor-core
+    instructions (HMMA/HGMMA) in the SASS of the two attention libraries."""
+    from paddlexde_tpu_torch.ops import _build
+
+    for lib in ("attn", "attn_bwd"):
+        log = _build.build_log(lib)
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"  nvcc {lib}: {line.strip()}", flush=True)
+        for name, regs, stores, loads, stack in ptxas_report(log):
+            print(f"  ptxas {lib}: {name}: {regs} registers, spill stores {stores} B, "
+                  f"spill loads {loads} B, stack {stack} B", flush=True)
+        sass = subprocess.run([_build.tool("cuobjdump"), "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, timeout=600, check=True).stdout
+        n_tc = sum(1 for line in sass.splitlines() if "HMMA" in line or "HGMMA" in line)
+        print(f"  {lib}: {n_tc} tensor-core instructions (HMMA/HGMMA) in the SASS", flush=True)
+        require(n_tc > 0, f"the {lib} library has no tensor-core instruction")
+
+
 # --------------------------------------------------------------------------
 # phase 1: every kernel against its plain version at the PEMS08 shapes
 # --------------------------------------------------------------------------
@@ -103,7 +149,7 @@ def card_line():
 
 def check_spline(torch, dev, gen):
     from paddlexde_tpu_torch.ops import spline
-    from paddlexde_tpu_torch.ops.timing import bound_ms, device_ms, time_ms
+    from paddlexde_tpu_torch.ops.timing import Work, bound_3xtf32_ms, bound_ms, device_ms, time_ms
 
     b, n, t_len, d = 32, 170, 2016, 3
     series = torch.randn(b, n, t_len, d, generator=gen, device=dev)
@@ -131,18 +177,19 @@ def check_spline(torch, dev, gen):
         rows_read.update({i, i + 1, min(i + 2, t_len - 1)})
     n_bytes = 4 * (b * n * d * len(rows_read) + b * n * q.numel() * d + t_len + q.numel())
     n_flops = 11 * b * n * q.numel() * d
-    bound = bound_ms(n_bytes, n_flops)
+    work = Work(n_bytes, 0, n_flops)
+    bound = bound_ms(work)
     print(f"  spline derivative basis (the lag backward): kernel {deriv_ms:.4f} ms (device, "
           f"profiler), plain {deriv_plain_ms:.4f} ms (CUDA events), bound {bound[0]:.6f} ms by "
           f"{bound[1]}, launches per train step 2", flush=True)
     return dict(err=max(errs), ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                bound=bound, deriv_ms=deriv_ms, deriv_plain_ms=deriv_plain_ms,
+                bound=bound, bound3=bound_3xtf32_ms(work), deriv_ms=deriv_ms, deriv_plain_ms=deriv_plain_ms,
                 shape=f"series [{b},{n},{t_len},{d}], L={q.numel()}")
 
 
 def check_gcn(torch, dev, gen):
     from paddlexde_tpu_torch.ops import gcn
-    from paddlexde_tpu_torch.ops.timing import bound_ms, device_ms, gcn_work, time_ms
+    from paddlexde_tpu_torch.ops.timing import bound_3xtf32_ms, bound_ms, device_ms, gcn_work, time_ms
 
     b, n, t_len, d = 32, 170, 12, 128
     x = torch.randn(b, n, t_len, d, generator=gen, device=dev)
@@ -162,13 +209,21 @@ def check_gcn(torch, dev, gen):
     wrapper_ms = time_ms(lambda: gcn.gcn_spatial_mix_kernel(x, gate, scale2))
     plain_ms = time_ms(lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2))
     return dict(err=err, err64=err64, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                bound=bound_ms(*gcn_work(b, n, t_len, d)),
+                bound=bound_ms(gcn_work(b, n, t_len, d)),
+                bound3=bound_3xtf32_ms(gcn_work(b, n, t_len, d)),
                 shape=f"x [{b},{n},{t_len},{d}], gate [{n},{n}]")
 
 
 def check_attn(torch, dev, gen):
     from paddlexde_tpu_torch.ops import attn
-    from paddlexde_tpu_torch.ops.timing import attn_work, bound_ms, device_ms, time_ms
+    from paddlexde_tpu_torch.ops.timing import (
+        attn_work,
+        bound_3xtf32_ms,
+        bound_ms,
+        device_ms,
+        device_ms_by_kernel,
+        time_ms,
+    )
 
     b, n, t_len, d, heads, ks = 32, 170, 12, 128, 8, 3
     mq, mk, vs = (torch.randn(b, n, t_len, d, generator=gen, device=dev) for _ in range(3))
@@ -189,16 +244,29 @@ def check_attn(torch, dev, gen):
             *[a.double() for a in args[:11]], *flags, heads, dtype_name="float64")
         errs64.append(norm_err(got.double(), want64))
         require(errs64[-1] <= TOL["attn_fwd"], f"attention kernel vs float64 plain: {errs64[-1]:.3e}")
-        times.append(device_ms(lambda: attn.fused_temporal_attention_kernel(*args),
-                               KERNEL_NAMES["attn_fwd"][0]))
+        times.append(device_ms(lambda: attn.fused_temporal_attention_kernel(*args), "attn_fwd_"))
+        print_by_kernel(device_ms_by_kernel(lambda: attn.fused_temporal_attention_kernel(*args),
+                                            "attn_fwd_"), flags)
         wrapper_times.append(time_ms(lambda: attn.fused_temporal_attention_kernel(*args)))
         plain_times.append(time_ms(lambda: attn.fused_temporal_attention_plain(*args)))
     return dict(err=max(errs), err64=max(errs64), ms=statistics.mean(times),
                 wrapper_ms=statistics.mean(wrapper_times),
                 plain_ms=statistics.mean(plain_times),
-                bound=bound_ms(*attn_work(b, n, t_len, d, heads, ks)),
+                bound=bound_ms(attn_work(b, n, t_len, d, heads, ks)),
+                bound3=bound_3xtf32_ms(attn_work(b, n, t_len, d, heads, ks)),
                 per_flags=list(zip(errs, times, plain_times)),
                 shape=f"[{b},{n},{t_len},{d}], H={heads}, K={ks}, 3 flag sets")
+
+
+def print_by_kernel(by_name, flags):
+    """One line of device ms per kernel of a wrapper call."""
+    import re
+
+    parts = []
+    for name, ms in by_name.items():
+        m = re.search(r"attn_\w+?_kernel(<[^>]*>)?", name)
+        parts.append(f"{m.group(0) if m else name[:60]} {ms:.4f}")
+    print(f"  flags {flags}, device ms by kernel: " + ", ".join(parts), flush=True)
 
 
 def same_bits(torch, first, second):
@@ -207,7 +275,13 @@ def same_bits(torch, first, second):
 
 def check_gcn_bwd(torch, dev, gen):
     from paddlexde_tpu_torch.ops import gcn
-    from paddlexde_tpu_torch.ops.timing import bound_ms, device_ms, gcn_bwd_work, time_ms
+    from paddlexde_tpu_torch.ops.timing import (
+        bound_3xtf32_ms,
+        bound_ms,
+        device_ms,
+        gcn_bwd_work,
+        time_ms,
+    )
 
     b, n, t_len, d = 32, 170, 12, 128
     x = torch.randn(b, n, t_len, d, generator=gen, device=dev)
@@ -227,13 +301,21 @@ def check_gcn_bwd(torch, dev, gen):
     del want, want64
     return dict(err=err, err64=err64, ms=device_ms(run, "gcn_bwd_"), wrapper_ms=time_ms(run),
                 plain_ms=time_ms(lambda: gcn.gcn_spatial_mix_bwd_plain(x, gate, g, scale2)),
-                bound=bound_ms(*gcn_bwd_work(b, n, t_len, d)),
+                bound=bound_ms(gcn_bwd_work(b, n, t_len, d)),
+                bound3=bound_3xtf32_ms(gcn_bwd_work(b, n, t_len, d)),
                 shape=f"x, g [{b},{n},{t_len},{d}] -> dx, dgate [{n},{n}]; bitwise equal twice")
 
 
 def check_attn_bwd(torch, dev, gen):
     from paddlexde_tpu_torch.ops import attn
-    from paddlexde_tpu_torch.ops.timing import attn_bwd_work, bound_ms, device_ms, time_ms
+    from paddlexde_tpu_torch.ops.timing import (
+        attn_bwd_work,
+        bound_3xtf32_ms,
+        bound_ms,
+        device_ms,
+        device_ms_by_kernel,
+        time_ms,
+    )
 
     b, n, t_len, d, heads, ks = 32, 170, 12, 128, 8, 3
     mq, mk, vs, g = (torch.randn(b, n, t_len, d, generator=gen, device=dev) for _ in range(4))
@@ -258,12 +340,14 @@ def check_attn_bwd(torch, dev, gen):
         del want64
         require(errs64[-1] <= TOL["attn_bwd"], f"attn_bwd kernel vs float64 plain: {errs64[-1]:.3e}")
         times.append(device_ms(run, "attn_bwd_"))
+        print_by_kernel(device_ms_by_kernel(run, "attn_bwd_"), flags)
         wrapper_times.append(time_ms(run))
         plain_times.append(time_ms(lambda: attn.fused_temporal_attention_bwd_plain(*args)))
     return dict(err=max(errs), err64=max(errs64), ms=statistics.mean(times),
                 wrapper_ms=statistics.mean(wrapper_times),
                 plain_ms=statistics.mean(plain_times),
-                bound=bound_ms(*attn_bwd_work(b, n, t_len, d, heads, ks)),
+                bound=bound_ms(attn_bwd_work(b, n, t_len, d, heads, ks)),
+                bound3=bound_3xtf32_ms(attn_bwd_work(b, n, t_len, d, heads, ks)),
                 per_flags=list(zip(errs, times, plain_times)),
                 shape=f"[{b},{n},{t_len},{d}], H={heads}, K={ks}, 3 flag sets, 11 gradients; "
                       "bitwise equal twice")
@@ -278,7 +362,8 @@ def kernel_phase(torch, dev):
         print(f"kernel {name} ({res['shape']}): max_abs_err(normalised)={res['err']:.3e} "
               f"(tol {TOL[name]:g}) kernel {res['ms']:.4f} ms (device, profiler), wrapper "
               f"{res['wrapper_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms (CUDA events), "
-              f"bound {res['bound'][0]:.4f} ms by {res['bound'][1]}, "
+              f"bound {res['bound'][0]:.4f} ms by {res['bound'][1]} (float32, CUDA cores), "
+              f"{res['bound3'][0]:.4f} ms by {res['bound3'][1]} (3xTF32 products), "
               f"launches per Predictor batch {LAUNCHES_PER_BATCH[name]}, "
               f"per train step {LAUNCHES_PER_STEP[name]}", flush=True)
         if "err64" in res:
@@ -641,6 +726,7 @@ def main():
 
     secs = _build.build_all()
     print(f"kernels built in {secs:.1f} s", flush=True)
+    build_report()
     kernels = kernel_phase(torch, dev)
     serve_launches = predictor_phase(torch, dev)
     train_launches = train_phase(torch, dev)
@@ -651,7 +737,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": launches[k], "max_abs_err": v["err"], "ms": v["ms"],
-         "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+         "plain_ms": v["plain_ms"], "bound_ms": v["bound3"][0], "bound_by": v["bound3"][1],
          "library_ms": None}
         for k, v in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,11 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. All sources
 are compiled in parallel (one ``nvcc`` process each) the first time any
 kernel is called, never at import. Libraries land in ``.torch_ext_build/`` at
-the repository root, named by a hash of the source and flags, so an edited
-source is rebuilt and an unchanged one is reused. A failed build raises.
+the repository root, named by a hash of the source, the ``csrc/`` headers it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. A failed build raises. The compiler's report
+(``-Xptxas -v``: registers, spills and shared memory of each kernel) is kept
+beside each library (:func:`build_log`).
 
 Every C entry point takes device pointers, sizes and the CUDA stream as
 plain integers and returns ``cudaGetLastError()`` after its launch; the
@@ -22,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,14 +33,15 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "check"]
+__all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "library_path", "build_log",
+           "tool", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 SOURCES = ("spline.cu", "gcn.cu", "gcn_bwd.cu", "attn.cu", "attn_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 LAUNCHES: Dict[str, int] = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0}
@@ -63,11 +68,30 @@ def _nvcc() -> str:
     )
 
 
+def tool(name: str) -> str:
+    """A program of the CUDA toolkit beside ``nvcc`` (``cuobjdump``, ...)."""
+    return str(Path(_nvcc()).with_name(name))
+
+
+def _headers(source: str):
+    """The ``csrc/`` headers that ``source`` includes, directly or through
+    another header, in include order."""
+    found, todo = [], [source]
+    while todo:
+        text = (CSRC / todo.pop()).read_text()
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+            if name not in found and (CSRC / name).is_file():
+                found.append(name)
+                todo.append(name)
+    return found
+
+
 def _target(source: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for name in _headers(source):
+        h.update(name.encode() + (CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:
@@ -93,10 +117,22 @@ def build_all() -> float:
                 failures.append(f"{' '.join(cmd)}\n{out}")
                 tmp.unlink(missing_ok=True)
             else:
+                _target(source).with_suffix(".log").write_text(out)
                 os.replace(tmp, _target(source))
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return time.perf_counter() - start
+
+
+def library_path(name: str) -> Path:
+    """The built library of ``csrc/<name>.cu`` (built if missing)."""
+    build_all()
+    return _target(f"{name}.cu")
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -151,7 +151,9 @@ def fused_temporal_attention_bwd_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo,
 def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                                     causal_q: bool, causal_kv: bool, is_mask: bool,
                                     heads: int):
-    """The CUDA forward kernel (float32, no autograd)."""
+    """The CUDA forward kernel (float32, no autograd). At D3STN's shape one
+    call launches the weight-bank split and the fused kernel and counts
+    once."""
     arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo)
     if not mq.is_cuda:
         raise ValueError("fused_temporal_attention_kernel needs CUDA tensors")
@@ -183,14 +185,20 @@ def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo
     arrays = [a.contiguous() for a in arrays]
     ptrs = (ctypes.c_void_p * 11)(*[a.data_ptr() for a in arrays])
     out = torch.empty_like(arrays[0])
+    flags = (int(causal_q), int(causal_kv), int(is_mask))
+    lib.pxt_attn_fwd_scratch_floats.restype = ctypes.c_int64
+    lib.pxt_attn_fwd_scratch_floats.argtypes = [ctypes.c_int] * 8
+    # the D3STN kernel's split weight banks
+    scratch = torch.empty(lib.pxt_attn_fwd_scratch_floats(t_q, t_k, d, heads, ks, *flags),
+                          dtype=torch.float32, device=mq.device)
     fn = lib.pxt_attn_fwd_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     with torch.cuda.device(mq.device):
         stream = torch.cuda.current_stream(mq.device).cuda_stream
-        code = fn(ptrs, out.data_ptr(), b * n, t_q, t_k, d, heads, ks,
-                  int(causal_q), int(causal_kv), int(is_mask), stream)
+        code = fn(ptrs, out.data_ptr(), scratch.data_ptr(), b * n, t_q, t_k, d, heads, ks,
+                  *flags, stream)
     _build.check(lib, code, "attn_fwd_kernel")
     _build.LAUNCHES["attn_fwd"] += 1
     return out
@@ -219,9 +227,10 @@ def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo
                                         heads: int):
     """The CUDA backward kernels: the 11 gradients of
     :func:`fused_temporal_attention_plain` for the output cotangent ``g``, in
-    float32. One call launches the weight-bank transpose, the row kernel, the
-    split weight-gradient products and their fixed-order sum
-    (``csrc/attn_bwd.cu``) and counts once."""
+    float32. One call launches the weight-bank split, the q/k/v/dx_attn
+    convs, the attention core, the input-gradient convs, the split
+    weight-gradient products and their fixed-order sum (``csrc/attn_bwd.cu``)
+    and counts once."""
     arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g)
     if not mq.is_cuda:
         raise ValueError("fused_temporal_attention_bwd_kernel needs CUDA tensors")

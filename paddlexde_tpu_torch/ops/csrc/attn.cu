@@ -13,26 +13,42 @@
 // (zero outside [0, T)), W[j] is [D_in, D_out], pad_left = K-1 (causal) or
 // (K-1)/2 (same), and heads split the D features into H groups of dh.
 //
-// Design. One CTA per kNodes rows of the flattened (batch, node) axis, one
-// thread per output feature (blockDim = D). The rows' inputs are staged in
-// shared memory; each conv keeps the kNodes x T outputs of its feature in
-// registers, reads W rows from global memory (the four [K, D, D] banks are
-// 786 KB at D=128 and stay L2-resident; each weight read feeds kNodes * T
-// FMAs) and the input tile with float4 broadcast reads from shared memory.
-// q, k, v overwrite their own input tiles; the scores and their softmax live
-// in a [kNodes, H, Tq, Tk] shared buffer; a v overwrites the q tile and feeds
-// the out conv. Nothing but the inputs and y touches device memory.
-//
 // The TPU kernel's blockdiag/selector middle, [T, C] layout and VMEM tile
 // caps are Mosaic workarounds and are not carried over. No dropout input.
 //
-// Bound: operations (the four convs, 8 K D^2 T flops per row, in float32 on
-// the CUDA cores), against 4 T D floats moved per row.
+// D3STN's shape (T = 12, D = 128, H = 8, K = 3; every configuration the
+// repo ships at D = 128) and its three flag sets take attn_fwd_d3stn_kernel.
+// Bound: operations. The four convs are 98% of its work (8 K D^2 T flops per
+// row); they run on the tensor cores in 3xTF32 through tc_conv.cuh (wgmma
+// m64n128k8, float32 accuracy), the attention core on the CUDA cores.
+//   - attn_fwd_wsplit_kernel splits the four weight banks into {big, small}
+//     TF32 halves once per call, in the order the tensor cores read them
+//     (scratch from the caller).
+//   - attn_fwd_d3stn_kernel: one CTA of two warpgroups per 8 (batch, node)
+//     rows (96 positions; half of the second warpgroup's m64 tile is
+//     padding, since 16-row tiles would not fit q, k, P and the weight
+//     stages in shared memory). mq and mk are staged in two shared tiles
+//     (cp.async); the q and k
+//     convs run in place; the scores, scale, mask and row softmax of each
+//     (row, head, query step) go to a shared [8, H, T, T] buffer; vs is
+//     staged over q, its conv runs in place and is replaced by P v column by
+//     column; the out conv writes y. Nothing but the inputs, y and the split
+//     banks touches device memory. 183 KB of shared memory: one CTA per SM.
+//     The convs read the next weight chunk's A fragments while the tensor
+//     cores run the current one (tc::conv at 256 threads).
+//
+// Other shapes take the generic attn_fwd_kernel: one CTA per kNodes rows,
+// one thread per output feature (blockDim = D), the rows' inputs staged in
+// shared memory, each conv's kNodes x T outputs of a feature in registers
+// and W read from global memory (L2-resident); bound by operations in
+// float32 on the CUDA cores.
 
 #include <cfloat>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_conv.cuh"
 
 namespace {
 
@@ -216,238 +232,159 @@ int launch(const void* const* p, void* out, int64_t rows, int tq, int tk,
 
 // ---------------------------------------------------------------------------
 // D3STN shape: T = 12, D = 128, H = 8, K = 3 (every configuration the repo
-// ships) and D3STN's three flag sets. One warp per (batch, node) row, 4 rows per CTA; lane l owns the
-// output features 4l..4l+3 for all 12 time steps (48 accumulators), so the
-// convs are register-tiled outer products: per input channel a lane reads
-// the 12 input values (float4 broadcast reads of 4 channels at once) and 3
-// float4 weight rows, and does up to 144 FMAs. The weight banks stream
-// through shared memory in chunks of 8 input channels (cp.async, double
-// buffered, shared by the 4 warps). q and k stay in registers: the head of
-// lane l is l / 4, so a score is a 4-wide partial dot plus two xor shuffles.
-// Each lane takes the softmax of 3 of its head's 12 rows and stores them in
-// shared memory for the P @ V step; the attention output goes back through
-// the warp's shared tile into the out conv. Padding taps (causal or same)
-// are resolved at compile time.
+// ships) and D3STN's three flag sets. See the head of this file.
 // ---------------------------------------------------------------------------
 
 namespace fast {
 
-constexpr int T = 12, D = 128, H = 8, K = 3;
-constexpr int DH = D / H;          // 16 features per head
-constexpr int FPL = D / 32;        // 4 features per lane
-constexpr int WARPS = 4;           // rows per CTA
-constexpr int CC = 8;              // input channels per weight chunk
-constexpr int CHUNKS = D / CC;
-static_assert(DH / FPL == 4, "a head spans 4 lanes (two xor-shuffle steps)");
+constexpr int T = tc::T, D = 128, H = 8, K = tc::K;
+constexpr int DH = D / H;  // 16 features per head
+constexpr int ROWS = 8;  // rows per CTA: 96 positions, two warpgroups
+using G = tc::Geo<D, ROWS>;
+constexpr int64_t BANK = tc::Bank<D>::SIZE;
 
 struct Smem {
-  float x[WARPS][T][D];       // each warp's conv input tile
-  float p[WARPS][H][T][T];    // each warp's softmax rows
-  float w[2][CC][K][D];       // weight chunks: [input channel][tap][output]
+  float a[G::TILE];                 // mq -> q, then vs -> v -> P v
+  float b[G::TILE];                 // mk -> k
+  float w[tc::Bank<D>::STAGES];     // weight stages
+  float p[ROWS][H][T][T];           // softmax rows
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// W [K, D, D] (tap, input, output) -> s.w[buf][cc][tap][:] for one chunk
-__device__ __forceinline__ void load_chunk(Smem& s, const float* __restrict__ w,
-                                           int chunk, int buf) {
-  constexpr int kUnits = CC * K * (D / 4);
-  for (int u = threadIdx.x; u < kUnits; u += blockDim.x) {
-    const int q = u % (D / 4);
-    const int r = u / (D / 4);
-    const int tap = r % K;
-    const int cc = r / K;
-    cp_async16(&s.w[buf][cc][tap][q * 4],
-               w + ((int64_t)tap * D + chunk * CC + cc) * D + q * 4);
-  }
+// the four [K, D, D] banks -> split banks (tc::bank_index order)
+__global__ void attn_fwd_wsplit_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
+                                       const float* __restrict__ wv, const float* __restrict__ wo,
+                                       float* __restrict__ ws) {
+  constexpr int64_t W = (int64_t)K * D * D;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 4 * W) return;
+  const int i = (int)(idx / W);
+  const int r = (int)(idx - i * W);
+  const float* w = i == 0 ? wq : i == 1 ? wk : i == 2 ? wv : wo;
+  tc::put_split<D>(ws + i * BANK, r / (D * D), (r / D) % D, r % D, w[r]);
 }
 
-// acc[t][e] = bias + sum_{tap, c} x[t + tap - PADL][c] W[tap][c][4 lane + e]
-// over the warp's tile s.x[warp]. Every thread of the CTA calls it.
-template <int PADL>
-__device__ __forceinline__ void conv(Smem& s, const float* __restrict__ w,
-                                     const float* __restrict__ bias, int warp,
-                                     int lane, float (&acc)[T][FPL]) {
-#pragma unroll
-  for (int t = 0; t < T; ++t)
-#pragma unroll
-    for (int e = 0; e < FPL; ++e) acc[t][e] = 0.f;
-  load_chunk(s, w, 0, 0);
-  cp_async_commit();
-  for (int ci = 0; ci < CHUNKS; ++ci) {
-    if (ci + 1 < CHUNKS) load_chunk(s, w, ci + 1, (ci + 1) & 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    const int buf = ci & 1;
-#pragma unroll
-    for (int cq = 0; cq < CC; cq += 4) {
-      float4 wv[4][K];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-        for (int tap = 0; tap < K; ++tap)
-          wv[cc][tap] = *reinterpret_cast<const float4*>(&s.w[buf][cq + cc][tap][lane * FPL]);
-      const int c = ci * CC + cq;
-#pragma unroll
-      for (int src = 0; src < T; ++src) {
-        const float4 xv = *reinterpret_cast<const float4*>(&s.x[warp][src][c]);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int tap = 0; tap < K; ++tap) {
-          const int t = src - tap + PADL;
-          if (t >= 0 && t < T) {
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc) {
-              acc[t][0] = fmaf(xs[cc], wv[cc][tap].x, acc[t][0]);
-              acc[t][1] = fmaf(xs[cc], wv[cc][tap].y, acc[t][1]);
-              acc[t][2] = fmaf(xs[cc], wv[cc][tap].z, acc[t][2]);
-              acc[t][3] = fmaf(xs[cc], wv[cc][tap].w, acc[t][3]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  const float4 b = *reinterpret_cast<const float4*>(bias + lane * FPL);
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    acc[t][0] += b.x;
-    acc[t][1] += b.y;
-    acc[t][2] += b.z;
-    acc[t][3] += b.w;
-  }
-}
-
-// copy the warp's [T, D] input row into s.x[warp] (zeros past the last row)
-__device__ __forceinline__ void stage(Smem& s, const float* __restrict__ src,
-                                      int64_t row, bool live, int warp, int lane) {
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live) v = *reinterpret_cast<const float4*>(src + (row * T + t) * D + lane * FPL);
-    *reinterpret_cast<float4*>(&s.x[warp][t][lane * FPL]) = v;
-  }
-  __syncwarp();
-}
-
-template <bool CQ, bool CKV, bool MASK>
-__global__ void __launch_bounds__(WARPS * 32)
-attn_fwd_d3stn_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
-                      const float* __restrict__ vs, const float* __restrict__ wq,
-                      const float* __restrict__ bq, const float* __restrict__ wk,
-                      const float* __restrict__ bk, const float* __restrict__ wv,
-                      const float* __restrict__ bv, const float* __restrict__ wo,
-                      const float* __restrict__ bo, float* __restrict__ out,
-                      int64_t rows) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * WARPS + warp;
-  const bool live = row < rows;
-  constexpr int PAD_SAME = (K - 1) / 2;
-
-  float q[T][FPL], k[T][FPL];
-  stage(s, mq, row, live, warp, lane);
-  conv<CQ ? K - 1 : PAD_SAME>(s, wq, bq, warp, lane, q);
-  stage(s, mk, row, live, warp, lane);
-  conv<CKV ? K - 1 : PAD_SAME>(s, wk, bk, warp, lane, k);
-
-  // scores of this lane's head; lane keeps rows tq = qd, qd + 4, qd + 8
-  const int head = lane >> 2;
-  const int qd = lane & 3;
+// scores of the tile's q (s.a) and k (s.b) per (row, head, query step),
+// scaled and masked, and their row softmax -> s.p
+template <bool MASK>
+__device__ __forceinline__ void softmax_rows(Smem& s) {
   const float scale = 1.f / sqrtf((float)DH);
-  float rowv[T / 4][T];
+  for (int item = threadIdx.x; item < ROWS * H * T; item += G::THREADS) {
+    const int i = item % T;
+    const int h = (item / T) % H;
+    const int r = item / (T * H);
+    float q[DH];
+    const float* qrow = s.a + (r * T + i) * G::S + h * DH;
 #pragma unroll
-  for (int tq = 0; tq < T; ++tq) {
-#pragma unroll
-    for (int tk = 0; tk < T; ++tk) {
-      float d = q[tq][0] * k[tk][0];
-      d = fmaf(q[tq][1], k[tk][1], d);
-      d = fmaf(q[tq][2], k[tk][2], d);
-      d = fmaf(q[tq][3], k[tk][3], d);
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      d *= scale;
-      if (MASK && tk > tq) d += -FLT_MAX;
-      if ((tq & 3) == qd) rowv[tq >> 2][tk] = d;
+    for (int e = 0; e < DH; e += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(qrow + e);
+      q[e] = v.x; q[e + 1] = v.y; q[e + 2] = v.z; q[e + 3] = v.w;
     }
-  }
+    float row[T];
 #pragma unroll
-  for (int i = 0; i < T / 4; ++i) {
-    float mx = rowv[i][0];
+    for (int j = 0; j < T; ++j) {
+      const float* krow = s.b + (r * T + j) * G::S + h * DH;
+      float d = 0.f;
 #pragma unroll
-    for (int tk = 1; tk < T; ++tk) mx = fmaxf(mx, rowv[i][tk]);
+      for (int e = 0; e < DH; e += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(krow + e);
+        d = fmaf(q[e], v.x, d);
+        d = fmaf(q[e + 1], v.y, d);
+        d = fmaf(q[e + 2], v.z, d);
+        d = fmaf(q[e + 3], v.w, d);
+      }
+      d *= scale;
+      if (MASK && j > i) d += -FLT_MAX;
+      row[j] = d;
+    }
+    float mx = row[0];
+#pragma unroll
+    for (int j = 1; j < T; ++j) mx = fmaxf(mx, row[j]);
     float sum = 0.f;
 #pragma unroll
-    for (int tk = 0; tk < T; ++tk) {
-      rowv[i][tk] = expf(rowv[i][tk] - mx);
-      sum += rowv[i][tk];
+    for (int j = 0; j < T; ++j) {
+      row[j] = expf(row[j] - mx);
+      sum += row[j];
     }
-    float* prow = &s.p[warp][head][qd + 4 * i][0];
+    float* prow = &s.p[r][h][i][0];
 #pragma unroll
-    for (int tk = 0; tk < T; tk += 4)
-      *reinterpret_cast<float4*>(prow + tk) =
-          make_float4(rowv[i][tk] / sum, rowv[i][tk + 1] / sum,
-                      rowv[i][tk + 2] / sum, rowv[i][tk + 3] / sum);
+    for (int j = 0; j < T; j += 4)
+      *reinterpret_cast<float4*>(prow + j) =
+          make_float4(row[j] / sum, row[j + 1] / sum, row[j + 2] / sum, row[j + 3] / sum);
   }
+}
 
-  float v[T][FPL];
-  stage(s, vs, row, live, warp, lane);  // also publishes s.p within the warp
-  conv<CKV ? K - 1 : PAD_SAME>(s, wv, bv, warp, lane, v);
-
-  // (P V)[tq] for this lane's 4 features, written back as the out conv input
-  __syncwarp();
+// s.a (v) <- P v, one (row, feature) column per step: a column reads and
+// writes only itself, so the update is in place
+__device__ __forceinline__ void apply_p(Smem& s) {
+  for (int col = threadIdx.x; col < ROWS * D; col += G::THREADS) {
+    const int f = col % D;
+    const int r = col / D;
+    float v[T];
 #pragma unroll
-  for (int tq = 0; tq < T; ++tq) {
-    const float* prow = &s.p[warp][head][tq][0];
-    float o[FPL] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < T; ++j) v[j] = s.a[(r * T + j) * G::S + f];
+    const float* pr = &s.p[r][f / DH][0][0];
 #pragma unroll
-    for (int tk = 0; tk < T; tk += 4) {
-      const float4 pv = *reinterpret_cast<const float4*>(prow + tk);
-      const float pk[4] = {pv.x, pv.y, pv.z, pv.w};
+    for (int i = 0; i < T; ++i) {
+      float o = 0.f;
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int e = 0; e < FPL; ++e) o[e] = fmaf(pk[u], v[tk + u][e], o[e]);
+      for (int j = 0; j < T; ++j) o = fmaf(pr[i * T + j], v[j], o);
+      s.a[(r * T + i) * G::S + f] = o;
     }
-    *reinterpret_cast<float4*>(&s.x[warp][tq][lane * FPL]) = make_float4(o[0], o[1], o[2], o[3]);
-  }
-  __syncwarp();
-
-  float y[T][FPL];
-  conv<PAD_SAME>(s, wo, bo, warp, lane, y);
-  if (live) {
-#pragma unroll
-    for (int t = 0; t < T; ++t)
-      *reinterpret_cast<float4*>(out + (row * T + t) * D + lane * FPL) =
-          make_float4(y[t][0], y[t][1], y[t][2], y[t][3]);
   }
 }
 
 template <bool CQ, bool CKV, bool MASK>
-int launch(const void* const* p, void* out, int64_t rows, cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_d3stn_kernel<CQ, CKV, MASK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+__global__ void __launch_bounds__(G::THREADS, 1)
+attn_fwd_d3stn_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
+                      const float* __restrict__ vs, const float* __restrict__ ws,
+                      const float* __restrict__ bq, const float* __restrict__ bk,
+                      const float* __restrict__ bv, const float* __restrict__ bo,
+                      float* __restrict__ out, int64_t rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  constexpr int PAD_SAME = (K - 1) / 2;
+  constexpr int PQ = CQ ? K - 1 : PAD_SAME;
+  constexpr int PKV = CKV ? K - 1 : PAD_SAME;
+  const int64_t row0 = (int64_t)blockIdx.x * ROWS;
+  const int n_rows = (int)min((int64_t)ROWS, rows - row0);
+  tc::Acc<D> acc;
+
+  tc::stage<D, ROWS>(s.a, mq, row0, n_rows);
+  tc::stage<D, ROWS>(s.b, mk, row0, n_rows);
+  __syncthreads();
+  tc::conv<D, ROWS>(s.a, ws, s.w, PQ, acc);
+  tc::store_tile<D, ROWS>(s.a, acc, bq);
+  tc::conv<D, ROWS>(s.b, ws + BANK, s.w, PKV, acc);
+  tc::store_tile<D, ROWS>(s.b, acc, bk);
+  __syncthreads();
+  softmax_rows<MASK>(s);
+  __syncthreads();
+  tc::stage<D, ROWS>(s.a, vs, row0, n_rows);
+  __syncthreads();
+  tc::conv<D, ROWS>(s.a, ws + 2 * BANK, s.w, PKV, acc);
+  tc::store_tile<D, ROWS>(s.a, acc, bv);
+  __syncthreads();
+  apply_p(s);
+  __syncthreads();
+  tc::conv<D, ROWS>(s.a, ws + 3 * BANK, s.w, PAD_SAME, acc);
+  tc::store_global<D, ROWS>(out, row0, n_rows, acc, bo);
+}
+
+template <bool CQ, bool CKV, bool MASK>
+int launch(const void* const* p, void* out, float* ws, int64_t rows, cudaStream_t stream) {
+  constexpr int64_t W = (int64_t)K * D * D;
+  attn_fwd_wsplit_kernel<<<(unsigned)((4 * W + 255) / 256), 256, 0, stream>>>(
+      (const float*)p[3], (const float*)p[5], (const float*)p[7], (const float*)p[9], ws);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (rows + WARPS - 1) / WARPS;
-  attn_fwd_d3stn_kernel<CQ, CKV, MASK><<<(unsigned)blocks, WARPS * 32, smem, stream>>>(
-      (const float*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
-      (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
-      (const float*)p[8], (const float*)p[9], (const float*)p[10], (float*)out, rows);
+  const int smem = (int)sizeof(Smem);
+  err = cudaFuncSetAttribute(attn_fwd_d3stn_kernel<CQ, CKV, MASK>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (rows + ROWS - 1) / ROWS;
+  attn_fwd_d3stn_kernel<CQ, CKV, MASK><<<(unsigned)blocks, G::THREADS, smem, stream>>>(
+      (const float*)p[0], (const float*)p[1], (const float*)p[2], ws, (const float*)p[4],
+      (const float*)p[6], (const float*)p[8], (const float*)p[10], (float*)out, rows);
   return (int)cudaGetLastError();
 }
 
@@ -460,11 +397,11 @@ bool covers(int tq, int tk, int d, int heads, int ks, int causal_q, int causal_k
          (causal_q && !causal_kv && !is_mask);
 }
 
-int dispatch(const void* const* p, void* out, int64_t rows, int causal_q, int causal_kv,
-             cudaStream_t stream) {
-  if (!causal_q) return launch<false, false, false>(p, out, rows, stream);
-  if (causal_kv) return launch<true, true, true>(p, out, rows, stream);
-  return launch<true, false, false>(p, out, rows, stream);
+int dispatch(const void* const* p, void* out, float* ws, int64_t rows, int causal_q,
+             int causal_kv, cudaStream_t stream) {
+  if (!causal_q) return launch<false, false, false>(p, out, ws, rows, stream);
+  if (causal_kv) return launch<true, true, true>(p, out, ws, rows, stream);
+  return launch<true, false, false>(p, out, ws, rows, stream);
 }
 
 }  // namespace fast
@@ -474,8 +411,17 @@ extern "C" int pxt_attn_fwd_smem_bytes(int tq, int tk, int d, int heads) {
          (int)sizeof(float);
 }
 
-// p: the 11 input pointers mq, mk, vs, wq, bq, wk, bk, wv, bv, wo, bo.
-extern "C" int pxt_attn_fwd_f32(const void* const* p, void* out, int64_t rows,
+// floats of scratch the call needs: the split weight banks of the D3STN
+// kernel, 0 for the generic one
+extern "C" int64_t pxt_attn_fwd_scratch_floats(int tq, int tk, int d, int heads, int ks,
+                                               int causal_q, int causal_kv, int is_mask) {
+  if (!fast::covers(tq, tk, d, heads, ks, causal_q, causal_kv, is_mask)) return 0;
+  return 8 * (int64_t)ks * d * d;
+}
+
+// p: the 11 input pointers mq, mk, vs, wq, bq, wk, bk, wv, bv, wo, bo;
+// scratch: pxt_attn_fwd_scratch_floats(...) floats (16-byte aligned).
+extern "C" int pxt_attn_fwd_f32(const void* const* p, void* out, void* scratch, int64_t rows,
                                 int tq, int tk, int d, int heads, int ks,
                                 int causal_q, int causal_kv, int is_mask,
                                 void* stream) {
@@ -485,7 +431,7 @@ extern "C" int pxt_attn_fwd_f32(const void* const* p, void* out, int64_t rows,
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (fast::covers(tq, tk, d, heads, ks, causal_q, causal_kv, is_mask))
-    return fast::dispatch(p, out, rows, causal_q, causal_kv, s);
+    return fast::dispatch(p, out, (float*)scratch, rows, causal_q, causal_kv, s);
   const int smem = pxt_attn_fwd_smem_bytes(tq, tk, d, heads);
   if (tq <= 12 && tk <= 12)
     return launch<12>(p, out, rows, tq, tk, d, heads, ks, causal_q, causal_kv,

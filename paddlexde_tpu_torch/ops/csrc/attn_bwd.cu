@@ -19,69 +19,66 @@
 //
 // for the pairs (mq, dq), (mk, dk), (vs, dv), (x_attn, g).
 //
-// Design: four kernels per call.
+// Bound: operations. Eleven conv-sized products per row (2 K D^2 T flops
+// each) are 98% of the work; they run on the tensor cores in 3xTF32
+// (float32 accuracy; tc_conv.cuh), the attention core on the CUDA cores. Six
+// kernels per call:
 //
-// 1. attn_bwd_wt_kernel writes the four weight banks with their taps
-//    reversed and each tap transposed, W'[j] = W[K-1-j]^T, so the input
-//    gradients are ordinary convs (left pad K-1-pad_left) and share the
-//    forward's conv loop.
-// 2. attn_bwd_row_kernel, in the register-tiled style of attn.cu's D3STN
-//    kernel: one warp per (batch, node) row, 4 rows per CTA; lane l owns the
-//    features FPL*l .. FPL*l+FPL-1 for all 12 steps; weight chunks stream
-//    through shared memory (cp.async, double buffered). Seven convs per row
-//    (v, q, k, dx_attn, dmq, dmk, dvs); the attention core in per-warp
-//    shared tiles. It writes dmq, dmk, dvs and the four pre-conv tensors the
-//    weight gradients need (x_attn, dq, dk, dv).
-// 3. attn_bwd_dw_kernel: the weight gradients are reduction products over
-//    R = rows * 12 (row, t) pairs. One CTA per (split of R, weight, tap)
-//    computes a D x D tile (16 x 16 threads, an 8 x 8 register tile each at
-//    D = 128) over its split and writes it as a partial; the tap-0 CTAs also
-//    write the bias partials.
-// 4. attn_bwd_sum_kernel sums the partials of the splits in split order.
+// 1. attn_bwd_wt_kernel writes seven split weight banks ({big, small} TF32
+//    halves in tc::bank_index order): q, k, v as they are, and o, q, k, v with
+//    their taps reversed and each tap transposed, W'[j] = W[K-1-j]^T, so the
+//    input gradients are ordinary convs (left pad K-1-pad_left).
+// 2. attn_bwd_qkv_conv_kernel: the convs q, k, v (recomputed) and dx_attn,
+//    one per blockIdx.y, on tiles of 16 rows (tc::conv, three warpgroups,
+//    wgmma m64nDk8; 147 KB of shared memory at D = 128).
+// 3. attn_bwd_core_kernel: the attention core per row (a warp per row, lane
+//    l owning D/32 features of all 12 steps; P and dP/dS in per-warp shared
+//    tiles): x_attn, dq, dk, dv.
+// 4. attn_bwd_dx_conv_kernel: dmq, dmk, dvs, one per blockIdx.y.
+// 5. attn_bwd_dw_kernel: each weight gradient tap is a [D x R] x [R x D]
+//    product over R = rows * 12 (row, t) pairs. One CTA per (split of the
+//    rows, tap, weight) walks its rows 4 at a time (48 pairs, 6 k-blocks of
+//    8) with wgmma m64nDk8: A = x^T from registers, read with the tap's time
+//    shift from a shared copy of x; B = d(out), split and laid out K-major
+//    per k-block in shared memory. A step's 18 products (6 k-blocks x 3
+//    terms) sum on the tensor cores and then add to a float32 sum on the
+//    CUDA cores (tc_conv.cuh). While the tensor cores run, the next step's x
+//    and d(out) are copied in (cp.async) and d(out) is split into the other
+//    buffer. It writes its
+//    D x D tile as a partial, and the tap-0 CTAs also the bias partial.
+//    Consecutive CTAs share a split, so the three taps read the same rows
+//    while they are in L2.
+// 6. attn_bwd_sum_kernel sums the partials of the splits in split order.
+//
+// Why not one row kernel: a row's q, k, v, dx_attn, P and dP with the
+// weight stages do not fit 227 KB of shared memory at a tile of 8 rows, and
+// smaller tiles re-read the weight banks from L2 once per tile and conv.
+// q, k, v and dx_attn go through device memory instead (4 x 2 x 33 MB at
+// PEMS08, batch 32), as do x_attn, dq, dk and dv for the weight gradients.
 //
 // The TPU kernel zeroes the weight gradients at program (0, 0) and adds to
 // them with += across its sequential grid. Here each partial is written
 // once and summed in a fixed order: no atomics, the same bits from run to
-// run.
-//
-// Bound: operations (eleven conv-sized products per row, 2 K D^2 T flops
-// each, in float32 on the CUDA cores), against 7 T D floats moved per row.
-// The pre-conv tensors add 8 T D floats per row of traffic. Shapes: T = 12,
-// K = 3, dh = 16, D = 128 (H = 8) or D = 64 (H = 4), and D3STN's three flag
-// sets (encoder self, decoder masked self, decoder source attention).
+// run. Shapes: T = 12, K = 3, dh = 16, D = 128 (H = 8) or D = 64 (H = 4),
+// and D3STN's three flag sets (encoder self, decoder masked self, decoder
+// source attention).
 
 #include <cfloat>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_conv.cuh"
+
 namespace {
 
-constexpr int T = 12, K = 3, DH = 16;
-constexpr int WARPS = 4;  // rows per CTA
-constexpr int CC = 8;     // input channels per weight chunk
+constexpr int T = tc::T, K = tc::K, DH = 16;
+constexpr int CW = 4;   // rows (warps) per CTA of the core kernel
+constexpr int CR = 16;  // rows per CTA of the conv kernels: 192 positions, 3 warpgroups
+constexpr int DR = 4;            // rows per staging step of the weight-gradient kernel
+constexpr int DKB = DR * T / 8;  // its k-blocks of 8 (row, t) pairs
+constexpr int GKB = 6;           // k-blocks per tensor-core chain (18 products): one a step
 constexpr int PAD_SAME = (K - 1) / 2;
-
-template <int D>
-struct Smem {
-  static constexpr int H = D / DH;
-  float x[WARPS][T][D];       // conv input tile
-  float t[WARPS][T][D];       // v, then dv
-  float p[WARPS][H][T][T];    // softmax
-  float dp[WARPS][H][T][T];   // dP, then dS
-  float w[2][CC][K][D];       // weight chunks: [input channel][tap][output]
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 __device__ __forceinline__ void ldv(const float* p, float (&v)[4]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -98,109 +95,76 @@ __device__ __forceinline__ void stv(float* p, const float (&v)[2]) {
   *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
 
-// W [K, D, D] (tap, input, output) -> s.w[buf][cc][tap][:] for one chunk
+// split bank i of W'[j][c][f] (tc::bank_index order): i = q, k, v as they
+// are (W_i[j][c][f]), then o, q, k, v reversed and transposed (W[K-1-j][f][c])
 template <int D>
-__device__ __forceinline__ void load_chunk(Smem<D>& s, const float* __restrict__ w, int chunk,
-                                           int buf) {
-  constexpr int kUnits = CC * K * (D / 4);
-  for (int u = threadIdx.x; u < kUnits; u += blockDim.x) {
-    const int q = u % (D / 4);
-    const int r = u / (D / 4);
-    const int tap = r % K;
-    const int cc = r / K;
-    cp_async16(&s.w[buf][cc][tap][q * 4], w + ((int64_t)tap * D + chunk * CC + cc) * D + q * 4);
+__global__ void attn_bwd_wt_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
+                                   const float* __restrict__ wv, const float* __restrict__ wo,
+                                   float* __restrict__ wt) {
+  constexpr int W = K * D * D;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 7 * (int64_t)W) return;
+  const int i = (int)(idx / W);
+  const int r = (int)(idx - (int64_t)i * W);
+  const int j = r / (D * D), c = (r / D) % D, f = r % D;
+  float w;
+  if (i < 3) {
+    w = (i == 0 ? wq : i == 1 ? wk : wv)[r];
+  } else {
+    const float* src = i == 3 ? wo : i == 4 ? wq : i == 5 ? wk : wv;
+    w = src[((K - 1 - j) * D + f) * D + c];
   }
+  tc::put_split<D>(wt + (int64_t)i * tc::Bank<D>::SIZE, j, c, f, w);
 }
 
-// acc[t][e] = [bias +] sum_{tap, c} in[t + tap - PADL][c] W[tap][c][FPL lane + e]
-// over the warp's [T, D] tile `in` in shared memory (zero outside [0, T)).
-// Every thread of the CTA calls it; it ends with a CTA barrier.
-template <int D, int PADL>
-__device__ __forceinline__ void conv(Smem<D>& s, const float (*in)[D],
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ bias, int lane,
-                                     float (&acc)[T][D / 32]) {
-  constexpr int FPL = D / 32;
-  constexpr int CHUNKS = D / CC;
-#pragma unroll
-  for (int t = 0; t < T; ++t)
-#pragma unroll
-    for (int e = 0; e < FPL; ++e) acc[t][e] = 0.f;
-  load_chunk<D>(s, w, 0, 0);
-  cp_async_commit();
-  for (int ci = 0; ci < CHUNKS; ++ci) {
-    if (ci + 1 < CHUNKS) load_chunk<D>(s, w, ci + 1, (ci + 1) & 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    const int buf = ci & 1;
-#pragma unroll
-    for (int cq = 0; cq < CC; cq += 4) {
-      float wv[4][K][FPL];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-        for (int tap = 0; tap < K; ++tap) ldv(&s.w[buf][cq + cc][tap][lane * FPL], wv[cc][tap]);
-      const int c = ci * CC + cq;
-#pragma unroll
-      for (int src = 0; src < T; ++src) {
-        const float4 xv = *reinterpret_cast<const float4*>(&in[src][c]);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int tap = 0; tap < K; ++tap) {
-          const int t = src - tap + PADL;
-          if (t >= 0 && t < T) {
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-              for (int e = 0; e < FPL; ++e) acc[t][e] = fmaf(xs[cc], wv[cc][tap][e], acc[t][e]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (bias != nullptr) {
-    float b[FPL];
-    ldv(bias + lane * FPL, b);
-#pragma unroll
-    for (int t = 0; t < T; ++t)
-#pragma unroll
-      for (int e = 0; e < FPL; ++e) acc[t][e] += b[e];
-  }
-}
+// up to four convs of one launch, one per blockIdx.y
+struct ConvJobs {
+  const float* x[4];
+  const float* w[4];   // split banks
+  const float* b[4];  // nullable
+  float* out[4];
+  int padl[4];
+};
 
-// the lane's features of a [T, D] row of global memory into a warp tile
-// (zeros past the last row)
 template <int D>
-__device__ __forceinline__ void stage(float (*dst)[D], const float* __restrict__ src, int64_t row,
-                                      bool live, int lane) {
-  constexpr int FPL = D / 32;
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    float v[FPL];
-#pragma unroll
-    for (int e = 0; e < FPL; ++e) v[e] = 0.f;
-    if (live) ldv(src + (row * T + t) * D + lane * FPL, v);
-    stv(&dst[t][lane * FPL], v);
-  }
-  __syncwarp();
+__device__ __forceinline__ void conv_rows(const ConvJobs& jobs, int64_t rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);
+  float* ws = xs + tc::Geo<D, CR>::TILE;
+  const int job = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.x * CR;
+  const int n_rows = (int)min((int64_t)CR, rows - row0);
+  tc::stage<D, CR>(xs, jobs.x[job], row0, n_rows);
+  __syncthreads();
+  tc::Acc<D> acc;
+  tc::conv<D, CR>(xs, jobs.w[job], ws, jobs.padl[job], acc);
+  tc::store_global<D, CR>(jobs.out[job], row0, n_rows, acc, jobs.b[job]);
 }
 
 template <int D>
-__device__ __forceinline__ void put_tile(float (*dst)[D], const float (&v)[T][D / 32], int lane) {
-#pragma unroll
-  for (int t = 0; t < T; ++t) stv(&dst[t][lane * (D / 32)], v[t]);
+__global__ void __launch_bounds__(tc::Geo<D, CR>::THREADS, 1)
+attn_bwd_qkv_conv_kernel(ConvJobs jobs, int64_t rows) {
+  conv_rows<D>(jobs, rows);
 }
 
 template <int D>
-__device__ __forceinline__ void put_global(float* __restrict__ dst, int64_t row, bool live,
-                                           const float (&v)[T][D / 32], int lane) {
-  if (!live) return;
-#pragma unroll
-  for (int t = 0; t < T; ++t) stv(dst + (row * T + t) * D + lane * (D / 32), v[t]);
+__global__ void __launch_bounds__(tc::Geo<D, CR>::THREADS, 1)
+attn_bwd_dx_conv_kernel(ConvJobs jobs, int64_t rows) {
+  conv_rows<D>(jobs, rows);
 }
+
+template <int D>
+struct CoreSmem {
+  static constexpr int H = D / DH;
+  float v[CW][T][D];         // v
+  float p[CW][H][T][T];      // softmax
+  float dp[CW][H][T][T];     // dP, then dS
+};
+
+struct CoreArgs {
+  const float *q, *k, *v, *dxa;
+  float *xatt, *dq, *dk, *dv;
+};
 
 // sum over the lanes of one head (LPH consecutive lanes)
 template <int LPH>
@@ -210,44 +174,39 @@ __device__ __forceinline__ float head_sum(float v) {
   return v;
 }
 
-struct Ptrs {
-  const float *mq, *mk, *vs, *bq, *bk, *bv, *g;
-  const float* wt;  // [4][K][D][D]: q, k, v, o banks, taps reversed and transposed
-  const float *wq, *wk, *wv, *wo;
-  float *dmq, *dmk, *dvs, *xatt, *dq, *dk, *dv;
-};
-
-template <int D, bool CQ, bool CKV, bool MASK>
-__global__ void __launch_bounds__(WARPS * 32)
-attn_bwd_row_kernel(Ptrs io, int64_t rows) {
+template <int D, bool MASK>
+__global__ void __launch_bounds__(CW * 32)
+attn_bwd_core_kernel(CoreArgs io, int64_t rows) {
   constexpr int FPL = D / 32;
   constexpr int LPH = DH / FPL;  // lanes per head
-  constexpr int PQ = CQ ? K - 1 : PAD_SAME;
-  constexpr int PKV = CKV ? K - 1 : PAD_SAME;
-  constexpr int64_t WB = (int64_t)K * D * D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<D>& s = *reinterpret_cast<Smem<D>*>(smem_raw);
+  CoreSmem<D>& s = *reinterpret_cast<CoreSmem<D>*>(smem_raw);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * WARPS + warp;
+  const int64_t row = (int64_t)blockIdx.x * CW + warp;
   const bool live = row < rows;
   const int head = lane / LPH;
   const int qd = lane % LPH;
   const float scale = 1.f / sqrtf((float)DH);
-  float (*sx)[D] = s.x[warp];
-  float (*st)[D] = s.t[warp];
+  float (*st)[D] = s.v[warp];
   float (*sp)[T][T] = s.p[warp];
   float (*sdp)[T][T] = s.dp[warp];
 
-  float a[T][FPL], q[T][FPL], k[T][FPL];
-  // v -> s.t
-  stage<D>(sx, io.vs, row, live, lane);
-  conv<D, PKV>(s, sx, io.wv, io.bv, lane, a);
-  put_tile<D>(st, a, lane);
-  stage<D>(sx, io.mq, row, live, lane);
-  conv<D, PQ>(s, sx, io.wq, io.bq, lane, q);
-  stage<D>(sx, io.mk, row, live, lane);
-  conv<D, PKV>(s, sx, io.wk, io.bk, lane, k);
+  float q[T][FPL], k[T][FPL], a[T][FPL];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    float v[FPL];
+#pragma unroll
+    for (int e = 0; e < FPL; ++e) q[t][e] = k[t][e] = a[t][e] = v[e] = 0.f;
+    if (live) {
+      const int64_t off = (row * T + t) * D + lane * FPL;
+      ldv(io.q + off, q[t]);
+      ldv(io.k + off, k[t]);
+      ldv(io.dxa + off, a[t]);
+      ldv(io.v + off, v);
+    }
+    stv(&st[t][lane * FPL], v);
+  }
 
   // scores of this lane's head, then the row softmax (rows split over the
   // head's lanes)
@@ -296,10 +255,6 @@ attn_bwd_row_kernel(Ptrs io, int64_t rows) {
     }
   }
 
-  // dx_attn = convT(g; Wo)
-  stage<D>(sx, io.g, row, live, lane);
-  conv<D, K - 1 - PAD_SAME>(s, sx, io.wt + 3 * WB, nullptr, lane, a);
-
   // dP = dx_attn V^T per head
 #pragma unroll
   for (int tk = 0; tk < T; ++tk) {
@@ -314,20 +269,21 @@ attn_bwd_row_kernel(Ptrs io, int64_t rows) {
       if (qd == 0) sdp[head][tq][tk] = d;
     }
   }
-  // dV = P^T dx_attn, over v in s.t (each lane rewrites only its features)
+  // dV = P^T dx_attn
+  if (live) {
 #pragma unroll
-  for (int tk = 0; tk < T; ++tk) {
-    float o[FPL];
+    for (int tk = 0; tk < T; ++tk) {
+      float o[FPL];
 #pragma unroll
-    for (int e = 0; e < FPL; ++e) o[e] = 0.f;
+      for (int e = 0; e < FPL; ++e) o[e] = 0.f;
 #pragma unroll
-    for (int tq = 0; tq < T; ++tq) {
-      const float pw = sp[head][tq][tk];
+      for (int tq = 0; tq < T; ++tq) {
+        const float pw = sp[head][tq][tk];
 #pragma unroll
-      for (int e = 0; e < FPL; ++e) o[e] = fmaf(pw, a[tq][e], o[e]);
+        for (int e = 0; e < FPL; ++e) o[e] = fmaf(pw, a[tq][e], o[e]);
+      }
+      stv(io.dv + (row * T + tk) * D + lane * FPL, o);
     }
-    stv(&st[tk][lane * FPL], o);
-    if (live) stv(io.dv + (row * T + tk) * D + lane * FPL, o);
   }
   __syncwarp();
   // dS = P (.) (dP - rowsum(dP P)), in place of dP
@@ -339,8 +295,9 @@ attn_bwd_row_kernel(Ptrs io, int64_t rows) {
     for (int j = 0; j < T; ++j) drow[j] = prow[j] * (drow[j] - dot);
   }
   __syncwarp();
+  if (!live) return;
 
-  // dQ = dS K / sqrt(dh) -> the conv tile; dK = dS^T Q / sqrt(dh) -> a
+  // dQ = dS K / sqrt(dh), dK = dS^T Q / sqrt(dh)
 #pragma unroll
   for (int tq = 0; tq < T; ++tq) {
     float o[FPL];
@@ -354,50 +311,23 @@ attn_bwd_row_kernel(Ptrs io, int64_t rows) {
     }
 #pragma unroll
     for (int e = 0; e < FPL; ++e) o[e] *= scale;
-    stv(&sx[tq][lane * FPL], o);
-    if (live) stv(io.dq + (row * T + tq) * D + lane * FPL, o);
+    stv(io.dq + (row * T + tq) * D + lane * FPL, o);
   }
 #pragma unroll
   for (int tk = 0; tk < T; ++tk) {
+    float o[FPL];
 #pragma unroll
-    for (int e = 0; e < FPL; ++e) a[tk][e] = 0.f;
+    for (int e = 0; e < FPL; ++e) o[e] = 0.f;
 #pragma unroll
     for (int tq = 0; tq < T; ++tq) {
       const float dsv = sdp[head][tq][tk];
 #pragma unroll
-      for (int e = 0; e < FPL; ++e) a[tk][e] = fmaf(dsv, q[tq][e], a[tk][e]);
+      for (int e = 0; e < FPL; ++e) o[e] = fmaf(dsv, q[tq][e], o[e]);
     }
 #pragma unroll
-    for (int e = 0; e < FPL; ++e) a[tk][e] *= scale;
+    for (int e = 0; e < FPL; ++e) o[e] *= scale;
+    stv(io.dk + (row * T + tk) * D + lane * FPL, o);
   }
-  put_global<D>(io.dk, row, live, a, lane);
-
-  // the input convs' input gradients
-  conv<D, K - 1 - PQ>(s, sx, io.wt + 0 * WB, nullptr, lane, q);
-  put_global<D>(io.dmq, row, live, q, lane);
-  __syncwarp();
-  put_tile<D>(sx, a, lane);
-  conv<D, K - 1 - PKV>(s, sx, io.wt + 1 * WB, nullptr, lane, q);
-  put_global<D>(io.dmk, row, live, q, lane);
-  conv<D, K - 1 - PKV>(s, st, io.wt + 2 * WB, nullptr, lane, q);
-  put_global<D>(io.dvs, row, live, q, lane);
-}
-
-// wt[i][j][c][f] = W_i[K-1-j][f][c] for the banks i = q, k, v, o
-template <int D>
-__global__ void attn_bwd_wt_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
-                                   const float* __restrict__ wv, const float* __restrict__ wo,
-                                   float* __restrict__ wt) {
-  constexpr int64_t BANK = (int64_t)K * D * D;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 4 * BANK) return;
-  const int i = (int)(idx / BANK);
-  const int64_t r = idx - i * BANK;
-  const int j = (int)(r / (D * D));
-  const int c = (int)((r / D) % D);
-  const int f = (int)(r % D);
-  const float* w = i == 0 ? wq : i == 1 ? wk : i == 2 ? wv : wo;
-  wt[idx] = w[((int64_t)(K - 1 - j) * D + f) * D + c];
 }
 
 struct DwArgs {
@@ -406,95 +336,161 @@ struct DwArgs {
   int padl[4];
 };
 
-constexpr int KS = 16;  // (row, t) pairs per shared-memory step
-
-// part[split][(i K + j) D D + c D + f] = sum over the split's pairs of
-// xpad_i[t + j][c] g_i[t][f]; the tap-0 CTAs also write
-// part[split][4 K D D + i D + f] = sum of g_i[t][f].
 template <int D>
-__global__ void __launch_bounds__(256)
-attn_bwd_dw_kernel(DwArgs args, int64_t pairs, int64_t chunk, float* __restrict__ part) {
-  constexpr int NS = D / 64;  // float4 slices per thread and dimension
-  constexpr int TM = 4 * NS;  // register tile TM x TM
-  constexpr int64_t L = 4 * (int64_t)K * D * D + 4 * D;
-  __shared__ __align__(16) float sa[KS][D];
-  __shared__ __align__(16) float sb[KS][D];
-  const int split = blockIdx.x;
-  const int wi = blockIdx.y / K;
-  const int tap = blockIdx.y % K;
-  const float* __restrict__ X = args.x[wi];
-  const float* __restrict__ G = args.g[wi];
-  const int shift = tap - args.padl[wi];
-  const int64_t p0 = split * chunk;
-  const int64_t p1 = p0 + chunk < pairs ? p0 + chunk : pairs;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const bool bias_row = tap == 0 && ty == 0;
+struct DwSmem {
+  float x[2][DR * T][D + 4];  // conv inputs, as they are; two steps
+  float b[2][DKB][2][D * 8];  // output gradients per k-block of 8 pairs: big, small
+  float graw[DR * T][D + 8];  // the next step's output gradients as they are
+};
 
-  float acc[TM][TM], bacc[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    bacc[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
+// the raw output gradients of a step -> buffer buf, split and laid out
+// K-major per k-block (tc::b_offset). A warp takes 8 outputs x 4 pairs at a
+// time (lane = 8 pair + output): with graw's row stride D + 8 the loads, and
+// with b_offset's 16-byte rows the stores, touch 32 distinct banks.
+template <int D>
+__device__ __forceinline__ void dw_split(DwSmem<D>& s, int buf) {
+  for (int u = threadIdx.x; u < DR * T * D; u += blockDim.x) {
+    const int f = (u / 32) % (D / 8) * 8 + u % 8;
+    const int p = (u / (4 * D)) * 4 + (u / 8) % 4;
+    uint32_t big, small;
+    tc::split_tf32(s.graw[p][f], big, small);
+    const int off = tc::b_offset(f, p % 8);
+    s.b[buf][p / 8][0][off] = __uint_as_float(big);
+    s.b[buf][p / 8][1][off] = __uint_as_float(small);
   }
-  for (int64_t pb = p0; pb < p1; pb += KS) {
+}
+
+// rows [r0, r0 + n) of x -> s.x[buf] and of g -> s.graw (cp.async, zeros
+// past n; committed, not waited for)
+template <int D>
+__device__ __forceinline__ void dw_load(DwSmem<D>& s, int buf, const float* __restrict__ X,
+                                        const float* __restrict__ Gr, int64_t r0, int n) {
+  const float* gb = Gr + r0 * T * D;
+  for (int u = threadIdx.x; u < DR * T * (D / 4); u += blockDim.x) {
+    const int p = u / (D / 4);
+    const int q = u % (D / 4);
+    const bool full = p < n * T;
+    tc::cp_async16_zfill(&s.graw[p][4 * q], gb + (full ? p * D + 4 * q : 0), full);
+  }
+  tc::stage_async<D, DR>(&s.x[buf][0][0], X, r0, n);
+}
+
+// part[split][(i K + j) D D + c D + f] = sum over the split's rows and steps
+// t of xpad_i[t + j][c] g_i[t][f]; the tap-0 CTAs also write
+// part[split][4 K D D + i D + f] = sum of g_i[t][f]. blockIdx.x = split K +
+// tap, blockIdx.y = i. D / 64 warpgroups: warpgroup w owns the channels
+// 64 w .. 64 w + 63 (wgmma m64nDk8, M = channels, N = outputs, K = pairs).
+// While the tensor cores run a step's chain, the next step's x and g are
+// copied in (cp.async) and g is split into the other buffer.
+template <int D>
+__global__ void __launch_bounds__(2 * D, 1)
+attn_bwd_dw_kernel(DwArgs args, int64_t rows, int64_t rows_per_split, float* __restrict__ part) {
+  constexpr int64_t L = 4 * (int64_t)K * D * D + 4 * D;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DwSmem<D>& s = *reinterpret_cast<DwSmem<D>*>(smem_raw);
+  const int tap = blockIdx.x % K;
+  const int64_t split = blockIdx.x / K;
+  const int wi = blockIdx.y;
+  const float* __restrict__ X = args.x[wi];
+  const float* __restrict__ Gr = args.g[wi];
+  const int shift = tap - args.padl[wi];
+  const int64_t r_begin = split * rows_per_split;
+  const int64_t r_end = min(rows, r_begin + rows_per_split);
+  const int tq = threadIdx.x & 3;
+  const int c0 = tc::frag_row();  // the thread's channels: c0 and c0 + 8
+  const bool bias_thread = tap == 0 && threadIdx.x < D;
+
+  float acc[D / 2], chain[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = chain[i] = 0.f;
+  float bsum = 0.f;
+
+  if (r_begin < r_end) {
+    dw_load<D>(s, 0, X, Gr, r_begin, (int)min((int64_t)DR, r_end - r_begin));
+    tc::cp_async_wait_all();
     __syncthreads();
-    for (int u = threadIdx.x; u < KS * (D / 4); u += blockDim.x) {
-      const int kk = u / (D / 4);
-      const int qq = u - kk * (D / 4);
-      const int64_t p = pb + kk;
-      float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-      if (p < p1) {
-        const int64_t r = p / T;
-        const int ts = (int)(p - r * T) + shift;
-        bv = *reinterpret_cast<const float4*>(G + p * D + qq * 4);
-        if (ts >= 0 && ts < T) av = *reinterpret_cast<const float4*>(X + (r * T + ts) * D + qq * 4);
+    dw_split<D>(s, 0);
+  }
+  tc::fence_proxy_async();
+  __syncthreads();
+  int buf = 0;
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += DR, buf ^= 1) {
+    const int np = (int)min((int64_t)DR, r_end - r0) * T;
+    const int kbs = (np + 7) / 8;
+    const int64_t r1 = r0 + DR;
+    for (int kb0 = 0; kb0 < kbs; kb0 += GKB) {
+      // A = x^T: a0 (channel c0, pair tq), a1 (c0 + 8, tq), a2 (c0, tq + 4),
+      // a3 (c0 + 8, tq + 4) of each k-block, x read with the tap's shift
+      uint32_t ab[GKB][4], as[GKB][4];
+#pragma unroll
+      for (int i = 0; i < GKB; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = (kb0 + i) * 8 + tq + 4 * h;
+          const int ts = p % T + shift;
+          const bool ok = p < np && ts >= 0 && ts < T;
+          const float* xr = &s.x[buf][ok ? p + shift : 0][c0];
+          tc::split_tf32(ok ? xr[0] : 0.f, ab[i][2 * h], as[i][2 * h]);
+          tc::split_tf32(ok ? xr[8] : 0.f, ab[i][2 * h + 1], as[i][2 * h + 1]);
+        }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) tc::hold(chain[i]);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < GKB; ++i) {
+        if (kb0 + i < kbs) {
+          const uint64_t big = tc::desc_b(&s.b[buf][kb0 + i][0][0]);
+          const uint64_t small = tc::desc_b(&s.b[buf][kb0 + i][1][0]);
+          tc::wgmma<D>(chain, as[i], big, i > 0);
+          tc::wgmma<D>(chain, ab[i], small, 1);
+          tc::wgmma<D>(chain, ab[i], big, 1);
+        }
       }
-      *reinterpret_cast<float4*>(&sa[kk][qq * 4]) = av;
-      *reinterpret_cast<float4*>(&sb[kk][qq * 4]) = bv;
-    }
-    __syncthreads();
+      tc::wgmma_commit();
+      // while the tensor cores run: the bias sum in pair order (big + small
+      // is g exactly), the next step's copy and its split
+      if (kb0 == 0) {
+        if (bias_thread) {
 #pragma unroll 4
-    for (int kk = 0; kk < KS; ++kk) {
-      float af[TM], bf[TM];
-#pragma unroll
-      for (int h = 0; h < NS; ++h) {
-        const float4 x4 = *reinterpret_cast<const float4*>(&sa[kk][h * 64 + ty * 4]);
-        const float4 g4 = *reinterpret_cast<const float4*>(&sb[kk][h * 64 + tx * 4]);
-        af[4 * h] = x4.x; af[4 * h + 1] = x4.y; af[4 * h + 2] = x4.z; af[4 * h + 3] = x4.w;
-        bf[4 * h] = g4.x; bf[4 * h + 1] = g4.y; bf[4 * h + 2] = g4.z; bf[4 * h + 3] = g4.w;
+          for (int p = 0; p < np; ++p) {
+            const int off = tc::b_offset(threadIdx.x, p % 8);
+            bsum += s.b[buf][p / 8][0][off] + s.b[buf][p / 8][1][off];
+          }
+        }
+        if (r1 < r_end) dw_load<D>(s, buf ^ 1, X, Gr, r1, (int)min((int64_t)DR, r_end - r1));
       }
+      if (kb0 + GKB >= kbs && r1 < r_end) {
+        tc::cp_async_wait_all();
+        __syncthreads();
+        dw_split<D>(s, buf ^ 1);
+      }
+      tc::wgmma_wait_all();
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < GKB; ++i)
 #pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
-      if (bias_row) {
+        for (int e = 0; e < 4; ++e) {
+          tc::hold(ab[i][e]);
+          tc::hold(as[i][e]);
+        }
 #pragma unroll
-        for (int j = 0; j < TM; ++j) bacc[j] += bf[j];
+      for (int i = 0; i < D / 2; ++i) {
+        tc::hold(chain[i]);
+        acc[i] += chain[i];
       }
     }
+    tc::fence_proxy_async();
+    __syncthreads();
   }
 
   float* out = part + split * L + (int64_t)(wi * K + tap) * D * D;
 #pragma unroll
-  for (int hi = 0; hi < NS; ++hi)
-#pragma unroll
-    for (int ei = 0; ei < 4; ++ei) {
-      const int c = hi * 64 + ty * 4 + ei;
-#pragma unroll
-      for (int hj = 0; hj < NS; ++hj)
-        *reinterpret_cast<float4*>(out + (int64_t)c * D + hj * 64 + tx * 4) =
-            make_float4(acc[4 * hi + ei][4 * hj], acc[4 * hi + ei][4 * hj + 1],
-                        acc[4 * hi + ei][4 * hj + 2], acc[4 * hi + ei][4 * hj + 3]);
-    }
-  if (bias_row) {
-    float* ob = part + split * L + 4 * (int64_t)K * D * D + wi * D;
-#pragma unroll
-    for (int hj = 0; hj < NS; ++hj)
-      *reinterpret_cast<float4*>(ob + hj * 64 + tx * 4) =
-          make_float4(bacc[4 * hj], bacc[4 * hj + 1], bacc[4 * hj + 2], bacc[4 * hj + 3]);
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int f = nb * 8 + 2 * tq;
+    *reinterpret_cast<float2*>(out + (int64_t)c0 * D + f) = make_float2(acc[4 * nb], acc[4 * nb + 1]);
+    *reinterpret_cast<float2*>(out + (int64_t)(c0 + 8) * D + f) =
+        make_float2(acc[4 * nb + 2], acc[4 * nb + 3]);
   }
+  if (bias_thread) part[split * L + 4 * (int64_t)K * D * D + wi * D + threadIdx.x] = bsum;
 }
 
 // out[i] = sum over the splits, in split order, of part[split][i]
@@ -509,63 +505,92 @@ __global__ void attn_bwd_sum_kernel(const float* __restrict__ part, float* __res
 
 template <int D>
 int64_t scratch_floats(int64_t rows, int splits) {
-  return 4 * (int64_t)K * D * D + 4 * rows * T * D + splits * (4 * (int64_t)K * D * D + 4 * D);
-}
-
-template <int D, bool CQ, bool CKV, bool MASK>
-int launch_rows(const Ptrs& a, int64_t rows, cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem<D>);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_row_kernel<D, CQ, CKV, MASK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (rows + WARPS - 1) / WARPS;
-  attn_bwd_row_kernel<D, CQ, CKV, MASK><<<(unsigned)blocks, WARPS * 32, smem, stream>>>(a, rows);
-  return (int)cudaGetLastError();
+  return 14 * (int64_t)K * D * D + 8 * rows * T * D + splits * (4 * (int64_t)K * D * D + 4 * D);
 }
 
 template <int D>
 int launch(const void* const* p, void* const* out, float* scratch, int64_t rows, int splits,
            int causal_q, int causal_kv, cudaStream_t stream) {
-  constexpr int64_t BANK = (int64_t)K * D * D;
+  constexpr int64_t BANK = tc::Bank<D>::SIZE;  // 2 K D^2 floats
+  constexpr int64_t W = (int64_t)K * D * D;
   const int64_t act = rows * T * D;
   float* wt = scratch;
-  float* pre = wt + 4 * BANK;  // x_attn, dq, dk, dv: [rows, T, D] each
-  float* part = pre + 4 * act;
-  Ptrs a;
-  a.mq = (const float*)p[0]; a.mk = (const float*)p[1]; a.vs = (const float*)p[2];
-  a.wq = (const float*)p[3]; a.bq = (const float*)p[4];
-  a.wk = (const float*)p[5]; a.bk = (const float*)p[6];
-  a.wv = (const float*)p[7]; a.bv = (const float*)p[8];
-  a.wo = (const float*)p[9];
-  a.g = (const float*)p[11];
-  a.wt = wt;
-  a.dmq = (float*)out[0]; a.dmk = (float*)out[1]; a.dvs = (float*)out[2];
-  a.xatt = pre; a.dq = pre + act; a.dk = pre + 2 * act; a.dv = pre + 3 * act;
-
-  attn_bwd_wt_kernel<D><<<(unsigned)((4 * BANK + 255) / 256), 256, 0, stream>>>(
-      a.wq, a.wk, a.wv, a.wo, wt);
-  int code = (int)cudaGetLastError();
-  if (code != 0) return code;
-  if (!causal_q)
-    code = launch_rows<D, false, false, false>(a, rows, stream);
-  else if (causal_kv)
-    code = launch_rows<D, true, true, true>(a, rows, stream);
-  else
-    code = launch_rows<D, true, false, false>(a, rows, stream);
-  if (code != 0) return code;
-
-  DwArgs args;
-  args.x[0] = a.mq; args.x[1] = a.mk; args.x[2] = a.vs; args.x[3] = a.xatt;
-  args.g[0] = a.dq; args.g[1] = a.dk; args.g[2] = a.dv; args.g[3] = a.g;
+  float* q = scratch + 7 * BANK;  // q, k, v, dx_attn, x_attn, dq, dk, dv: [rows, T, D] each
+  float* k = q + act;
+  float* v = k + act;
+  float* dxa = v + act;
+  float* xatt = dxa + act;
+  float* dq = xatt + act;
+  float* dk = dq + act;
+  float* dv = dk + act;
+  float* part = dv + act;
+  const float* mq = (const float*)p[0];
+  const float* mk = (const float*)p[1];
+  const float* vs = (const float*)p[2];
+  const float* g = (const float*)p[11];
   const int pq = causal_q ? K - 1 : PAD_SAME;
   const int pkv = causal_kv ? K - 1 : PAD_SAME;
-  args.padl[0] = pq; args.padl[1] = pkv; args.padl[2] = pkv; args.padl[3] = PAD_SAME;
-  const int64_t pairs = rows * T;
-  const int64_t chunk = (pairs + splits - 1) / splits;
-  attn_bwd_dw_kernel<D><<<dim3(splits, 4 * K), 256, 0, stream>>>(args, pairs, chunk, part);
-  code = (int)cudaGetLastError();
-  if (code != 0) return code;
-  const int64_t len = 4 * BANK + 4 * D;
+
+  attn_bwd_wt_kernel<D><<<(unsigned)((7 * W + 255) / 256), 256, 0, stream>>>(
+      (const float*)p[3], (const float*)p[5], (const float*)p[7], (const float*)p[9], wt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  constexpr int conv_threads = tc::Geo<D, CR>::THREADS;
+  const int conv_smem = (tc::Geo<D, CR>::TILE + tc::Bank<D>::STAGES) * 4;
+  const unsigned tiles = (unsigned)((rows + CR - 1) / CR);
+  ConvJobs fwd = {{mq, mk, vs, g},
+                  {wt, wt + BANK, wt + 2 * BANK, wt + 3 * BANK},
+                  {(const float*)p[4], (const float*)p[6], (const float*)p[8], nullptr},
+                  {q, k, v, dxa},
+                  {pq, pkv, pkv, K - 1 - PAD_SAME}};
+  err = cudaFuncSetAttribute(attn_bwd_qkv_conv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, conv_smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_qkv_conv_kernel<D><<<dim3(tiles, 4), conv_threads, conv_smem, stream>>>(fwd, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int core_smem = (int)sizeof(CoreSmem<D>);
+  const unsigned core_blocks = (unsigned)((rows + CW - 1) / CW);
+  CoreArgs io = {q, k, v, dxa, xatt, dq, dk, dv};
+  if (causal_q && causal_kv) {
+    err = cudaFuncSetAttribute(attn_bwd_core_kernel<D, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem);
+    if (err != cudaSuccess) return (int)err;
+    attn_bwd_core_kernel<D, true><<<core_blocks, CW * 32, core_smem, stream>>>(io, rows);
+  } else {
+    err = cudaFuncSetAttribute(attn_bwd_core_kernel<D, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem);
+    if (err != cudaSuccess) return (int)err;
+    attn_bwd_core_kernel<D, false><<<core_blocks, CW * 32, core_smem, stream>>>(io, rows);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  ConvJobs bwd = {{dq, dk, dv, nullptr},
+                  {wt + 4 * BANK, wt + 5 * BANK, wt + 6 * BANK, nullptr},
+                  {nullptr, nullptr, nullptr, nullptr},
+                  {(float*)out[0], (float*)out[1], (float*)out[2], nullptr},
+                  {K - 1 - pq, K - 1 - pkv, K - 1 - pkv, 0}};
+  err = cudaFuncSetAttribute(attn_bwd_dx_conv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, conv_smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dx_conv_kernel<D><<<dim3(tiles, 3), conv_threads, conv_smem, stream>>>(bwd, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  DwArgs args = {{mq, mk, vs, xatt}, {dq, dk, dv, g}, {pq, pkv, pkv, PAD_SAME}};
+  const int dw_smem = (int)sizeof(DwSmem<D>);
+  const int64_t rows_per_split = (rows + splits - 1) / splits;
+  err = cudaFuncSetAttribute(attn_bwd_dw_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dw_smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dw_kernel<D><<<dim3(K * splits, 4), 2 * D, dw_smem, stream>>>(
+      args, rows, rows_per_split, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t len = 4 * W + 4 * D;
   attn_bwd_sum_kernel<<<(unsigned)((len + 255) / 256), 256, 0, stream>>>(
       part, (float*)out[3], len, splits);
   return (int)cudaGetLastError();

@@ -9,7 +9,8 @@ GCN kernels (forward K2, backward K3) and the attention kernels (forward
 K4, backward K5) are held against their plain PyTorch versions (normalised
 max-abs error <= 1e-4, TF32 off; the attention gradients by
 ``attn.bwd_errors``) and timed: device time of one call (profiler trace), the
-plain version's time (CUDA events) and the bound (``ops/timing.py``).
+plain version's time (CUDA events) and both bounds of ``ops/timing.py``
+(float32 on the CUDA cores, and the products in 3xTF32 on the tensor cores).
 Forward shapes other than D3STN's at D=128 (SYNTH) take the generic
 kernels; the backward kernels take D=64 and D=128.
 
@@ -29,7 +30,16 @@ import torch
 
 from ..models.d3stn.config import load_config
 from . import _build, attn, gcn
-from .timing import attn_bwd_work, attn_work, bound_ms, device_ms, gcn_bwd_work, gcn_work, time_ms
+from .timing import (
+    attn_bwd_work,
+    attn_work,
+    bound_3xtf32_ms,
+    bound_ms,
+    device_ms,
+    gcn_bwd_work,
+    gcn_work,
+    time_ms,
+)
 
 CONFIGS = ("SYNTH", "HZME_OUTFLOW", "PEMS08", "PEMS04", "PEMS03", "PEMS07")
 BATCH, T_LEN = 32, 12
@@ -41,6 +51,15 @@ def _norm_err(got, want):
     return (got - want).abs().max().item() / (scale if scale > 0 else 1.0)
 
 
+def _bounds(work):
+    return {"bound_ms": bound_ms(work)[0], "bound3_ms": bound_3xtf32_ms(work)[0]}
+
+
+def _fmt(name, r):
+    return (f"{name} {r['ms']:.4f} ms (err {r['err']:.2e}), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} / 3xTF32 {r['bound3_ms']:.4f} ms")
+
+
 def _gcn(name, n, d, gen, dev):
     x = torch.randn(BATCH, n, T_LEN, d, generator=gen, device=dev)
     gate = 0.5 * torch.rand(n, n, generator=gen, device=dev)
@@ -49,7 +68,7 @@ def _gcn(name, n, d, gen, dev):
     run = lambda: gcn.gcn_spatial_mix_kernel(x, gate, scale2)  # noqa: E731
     res = {"err": _norm_err(run(), want), "ms": device_ms(run, "gcn_fwd_"),
            "plain_ms": time_ms(lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2)),
-           "bound_ms": bound_ms(*gcn_work(BATCH, n, T_LEN, d))[0],
+           **_bounds(gcn_work(BATCH, n, T_LEN, d)),
            "kernel": "d128" if d == 128 else "generic"}
     if res["err"] > TOL:
         raise RuntimeError(f"{name}: GCN error {res['err']:.3e} > {TOL:g}")
@@ -66,7 +85,7 @@ def _gcn_bwd(name, n, d, gen, dev):
     if err > TOL:
         raise RuntimeError(f"{name}: GCN backward error {err:.3e} > {TOL:g}")
     return {"err": err, "ms": device_ms(run, "gcn_bwd_"), "plain_ms": time_ms(plain, reps=5),
-            "bound_ms": bound_ms(*gcn_bwd_work(BATCH, n, T_LEN, d))[0]}
+            **_bounds(gcn_bwd_work(BATCH, n, T_LEN, d))}
 
 
 def _attn_bwd(name, n, d, heads, ks, gen, dev):
@@ -87,7 +106,7 @@ def _attn_bwd(name, n, d, heads, ks, gen, dev):
     if max(errs) > TOL:
         raise RuntimeError(f"{name}: attention backward error {max(errs):.3e} > {TOL:g}")
     return {"err": max(errs), "ms": sum(times) / 3, "plain_ms": sum(plain_times) / 3,
-            "bound_ms": bound_ms(*attn_bwd_work(BATCH, n, T_LEN, d, heads, ks))[0]}
+            **_bounds(attn_bwd_work(BATCH, n, T_LEN, d, heads, ks))}
 
 
 def _attn(name, n, d, heads, ks, gen, dev):
@@ -108,7 +127,7 @@ def _attn(name, n, d, heads, ks, gen, dev):
         raise RuntimeError(f"{name}: attention error {max(errs):.3e} > {TOL:g}")
     d3stn = (d, heads, ks) == (128, 8, 3)
     return {"err": max(errs), "ms": sum(times) / 3, "plain_ms": sum(plain_times) / 3,
-            "bound_ms": bound_ms(*attn_work(BATCH, n, T_LEN, d, heads, ks))[0],
+            **_bounds(attn_work(BATCH, n, T_LEN, d, heads, ks)),
             "kernel": "d3stn" if d3stn else "generic"}
 
 
@@ -135,13 +154,8 @@ def main():
         torch.cuda.empty_cache()
         ab = _attn_bwd(name, n, d, heads, ks, gen, dev)
         print(f"{name} [B={BATCH}, N={n}, T={T_LEN}, D={d}, H={heads}]: "
-              f"gcn {g['kernel']} {g['ms']:.4f} ms (err {g['err']:.2e}), plain "
-              f"{g['plain_ms']:.4f} ms, bound {g['bound_ms']:.4f} ms; "
-              f"attn {a['kernel']} {a['ms']:.4f} ms (err {a['err']:.2e}), plain "
-              f"{a['plain_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms; "
-              f"gcn_bwd {gb['ms']:.4f} ms (err {gb['err']:.2e}), plain {gb['plain_ms']:.4f} ms, "
-              f"bound {gb['bound_ms']:.4f} ms; attn_bwd {ab['ms']:.4f} ms (err {ab['err']:.2e}), "
-              f"plain {ab['plain_ms']:.4f} ms, bound {ab['bound_ms']:.4f} ms", flush=True)
+              + "; ".join((_fmt(f"gcn {g['kernel']}", g), _fmt(f"attn {a['kernel']}", a),
+                           _fmt("gcn_bwd", gb), _fmt("attn_bwd", ab))), flush=True)
         rows.append({"config": name, "n": n, "d": d, "heads": heads, "gcn": g, "attn": a,
                      "gcn_bwd": gb, "attn_bwd": ab})
         torch.cuda.empty_cache()

@@ -144,3 +144,38 @@ def test_autograd_adds_both_gradients_when_mk_is_mq():
     want = attn.fused_temporal_attention_bwd_plain(x.detach(), x.detach(), *arrays[2:], g,
                                                    True, True, True, 2)
     torch.testing.assert_close(got, want[0] + want[1], rtol=1e-12, atol=1e-12)
+
+
+# PEMS08 at batch 32 (B, N, T, D, heads, K): each work function's bounds in ms,
+# float32 on the CUDA cores and with the products in 3xTF32, by hand:
+# products / (494.7e12 / 3) + other / 67e12 against bytes / 3.35e12
+_PEMS08 = (32, 170, 12, 128, 8, 3)
+BOUNDS = {
+    "attn_work": (_PEMS08, 0.38939, 0.16193),
+    "attn_bwd_work": (_PEMS08, 1.07229, 0.44679),
+    "gcn_work": (_PEMS08[:4], 0.085634, 0.035285),
+    "gcn_bwd_work": (_PEMS08[:4], 0.21367, 0.087799),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BOUNDS))
+def test_bounds_at_pems08(name):
+    from paddlexde_tpu_torch.ops import timing
+
+    args, f32_ms, tf32_ms = BOUNDS[name]
+    work = getattr(timing, name)(*args)
+    assert timing.bound_ms(work) == (pytest.approx(f32_ms, rel=1e-4), "operations")
+    assert timing.bound_3xtf32_ms(work) == (pytest.approx(tf32_ms, rel=1e-4), "operations")
+    want = (work.products / (timing.PEAK_TF32_FLOPS / 3) + work.other / timing.PEAK_F32_FLOPS) * 1e3
+    assert timing.bound_3xtf32_ms(work)[0] == pytest.approx(want, rel=1e-12)
+    # bytes never bind these kernels: K4 moves 133.8 MB (0.040 ms)
+    assert work.bytes / timing.PEAK_BYTES_PER_S * 1e3 < tf32_ms
+
+
+def test_bound_without_products_is_the_cuda_core_bound():
+    from paddlexde_tpu_torch.ops import timing
+
+    for work in (timing.Work(3.35e9, 0, 1e6), timing.Work(1e3, 0, 6.7e10)):
+        assert timing.bound_3xtf32_ms(work) == timing.bound_ms(work)
+    assert timing.bound_ms(timing.Work(3.35e9, 0, 1e6)) == (pytest.approx(1.0), "bytes")
+    assert timing.bound_ms(timing.Work(1e3, 0, 6.7e10)) == (pytest.approx(1.0), "operations")
