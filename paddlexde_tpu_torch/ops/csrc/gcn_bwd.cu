@@ -1,4 +1,5 @@
-// Fused spatial-attention GCN mixing (backward), for Hopper (sm_90a).
+// Fused spatial-attention GCN mixing (backward), for Hopper (sm_90a), with
+// its N^2 D products on the tensor cores in 3xTF32.
 //
 // Replaces the Pallas TPU kernel paddlexde_tpu/ops/gcn_pallas.py
 // (_bwd_kernel, launched by _pallas_bwd in the custom VJP of
@@ -10,130 +11,255 @@
 //   ds    = p0 (.) (scale2 gate (.) da - r),  r_n = sum_m p0 scale2 gate da,
 //   dgate = sum_{b,t} p0 scale2 (.) da.
 //
-// Design: FlashAttention-2's backward shape, three kernels per call.
+// Design: FlashAttention-2's backward shape, three kernels per call, each
+// CTA two warpgroups (256 threads) and node tiles of NT = 64.
 //
-// 1. gcn_bwd_row_kernel: one CTA per (32 rows n, t, b), 4 warps of 8 rows;
-//    the node axis m streams through shared memory in tiles of 64. It takes
-//    the row softmax online (running max and sum) and, with the same
-//    rescaling, r_n and the two mixes sum_m e gate da x_m and sum_m e x_m,
-//    so one sweep yields the row half of dx:
-//      dx_row[n] = scale1 (scale2 U_n / l_n - r_n V_n / l_n).
-//    It writes dx_row into dx and the row statistics (max, sum, r) into a
-//    [B*T, 3, N] scratch.
-// 2. gcn_bwd_col_kernel: one CTA per (32 columns m, t, b); rows n stream in
-//    tiles of 64 with x_n and g_n. From the statistics it recomputes p0 and
-//    ds for its columns and adds sum_n a[n,m] g_n + scale1 sum_n ds[n,m] x_n
-//    to dx[m]. It also writes p0 scale2 da of its columns, transposed, as a
-//    per-slice partial of dgate ([B*T, N, N]: a plain store, coalesced over
-//    n).
-// 3. gcn_bwd_dgate_kernel sums the B*T partials of each gate entry in slice
+// 1. gcn_bwd_row_tc_kernel: one CTA per (64 rows n, t, b); the nodes m
+//    stream through shared memory in tiles of 64. Warpgroup 0 takes the
+//    scores s[n, m] = x_n . x_m, warpgroup 1 da[n, m] = g_n . x_m, both as
+//    wgmma m64n64k8 (A the CTA's rows as they are, split as they are read;
+//    B the tile of x, split once into K-major core matrices: tc::b_offset).
+//    Warpgroup 0 then takes the row softmax online (running max and sum)
+//    and r_n on the CUDA cores, and writes e and e gate da to shared memory,
+//    split, as the B operands of the two mixes U^T = X^T (e gate da)^T and
+//    V^T = X^T e^T (M = features: warpgroup w takes features 64 w ..
+//    64 w + 63; A = X^T read from the split tile). The online rescaling by
+//    alpha joins each chain's flush. One sweep yields the row half of dx,
+//      dx_row[n] = scale1 (scale2 U_n / l_n - r_n V_n / l_n),
+//    and the row statistics (max, sum, r) in a [B*T, 3, N] scratch.
+// 2. gcn_bwd_col_tc_kernel: one CTA per (64 columns m, b), looping over the
+//    T steps; rows n stream in tiles of 64. The scores and da come as in the
+//    row pass (the same operands, the same products), p0, a and scale1 ds
+//    of its columns from the statistics, and
+//      dx[m] += sum_n a[n, m] g_n + scale1 ds[n, m] x_n
+//    on the tensor cores (M = features, A = G^T and X^T from the raw tiles,
+//    B = a and ds, split). p0 scale2 da of its columns adds, over the T
+//    steps in order, into one dgate partial per b ([B, N, N]; each entry
+//    read and written by one thread only).
+// 3. gcn_bwd_dgate_kernel sums the B partials of each gate entry in batch
 //    order.
 //
 // The TPU kernel zeroes dgate at grid step 0 and accumulates with += over
 // the batch grid; that relies on the TPU running the grid in order. Here
-// every partial is written once by one thread and summed in a fixed order:
-// no atomics, so the result is the same bits from run to run.
+// every partial is owned by one thread and summed in a fixed order: no
+// atomics, so the result is the same bits from run to run.
+//
+// 3xTF32 (tc_conv.cuh): every operand splits into big = tf32(v) and
+// small = v - big, and a b ~ small_a big_b + big_a small_b + big_a big_b.
+// The tensor cores' float32 accumulation is not round-to-nearest, so each
+// chain of CH k-steps (3 CH products: half of a D = 128 score, one
+// operand's 64-node mix) starts a fresh accumulator that is added to a
+// float32 sum on the CUDA cores.
 //
 // Bound: operations (five N^2 D products per slice at the least; this
-// design does eight: scores and g x^T in both passes, two mixes in each) in
-// float32 on the CUDA cores, against 3 N D floats moved per slice. The
-// dgate partials add 8 B T N^2 bytes of traffic (44 MB at PEMS08, batch 32).
-// D = 64 and D = 128 only; any N.
+// design does eight: scores and g x^T in both passes, two mixes in each)
+// in 3xTF32 on the tensor cores, against 3 N D floats moved per slice; the
+// dgate partials add 8 B N^2 bytes of traffic (3.7 MB at PEMS08, batch 32).
+// D = 64 and D = 128 only (at D = 64 warpgroup 1 takes no mix); any N.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_conv.cuh"
+
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int RPW = 8;              // rows (or columns) per warp
-constexpr int ROWS = WARPS * RPW;   // per CTA
-constexpr int MT = 64;              // nodes per streamed tile
-constexpr int TJ = MT / 32;         // node slots per lane per tile
+constexpr int NT = 64;           // nodes per tile (the m64 / n64 of wgmma)
+constexpr int THREADS = 256;     // two warpgroups
+constexpr int TILE = NT * 8;     // floats of one split B tile of 8 k, one term
+constexpr int CH = 8;            // k-steps per tensor-core chain (24 products)
+constexpr int EX = 72;           // row stride of the da exchange tile
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void ldv(const float* p, float (&v)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-__device__ __forceinline__ void ldv(const float* p, float (&v)[2]) {
-  const float2 a = *reinterpret_cast<const float2*>(p);
-  v[0] = a.x; v[1] = a.y;
-}
-__device__ __forceinline__ void stv(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void stv(float* p, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-
-// rows r0 .. r0+count-1 of a [N, D] slice (node stride in floats) into
-// dst [count][D+4] with cp.async; rows past N become zeros. Not waited on.
 template <int D>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int r0,
-                                           int count, int n, int64_t node_stride) {
+struct RowSmem {
+  float xn[NT][D + 4];          // the CTA's rows of x, as they are
+  float gn[NT][D + 4];          // the CTA's rows of g, as they are
+  float xm[D / 8][2][TILE];     // a tile of x split (k = features): B of the scores
+  float ew[NT / 8][2][2][TILE]; // [k-block of m][e | e gate da][big | small], N = n
+  float ex[NT][EX];             // da of warpgroup 1 for warpgroup 0
+  float alpha[NT];
+  float lsum[NT];
+  float rsum[NT];
+};
+
+template <int D>
+struct ColSmem {
+  float xn[NT][D + 4];          // a tile of x rows, as they are
+  float gn[NT][D + 4];          // the same tile of g rows
+  float xm[D / 8][2][TILE];     // the CTA's columns of x split: B of the scores
+  float ad[NT / 8][2][2][TILE]; // [k-block of n][a | scale1 ds][big | small], N = m
+  float ex[NT][EX];
+};
+
+// the first of a thread's two rows (the other is 8 further) in its
+// warpgroup's m64 fragment
+__device__ __forceinline__ int wg_row() {
+  const int t = threadIdx.x & 127;
+  return (t >> 5) * 16 + ((t & 31) >> 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// v split into a B tile pair: big at tile[off], small at tile[TILE + off]
+__device__ __forceinline__ void put_split_at(float* tile, int off, float v) {
+  uint32_t big, small;
+  tc::split_tf32(v, big, small);
+  tile[off] = __uint_as_float(big);
+  tile[TILE + off] = __uint_as_float(small);
+}
+
+// nodes r0 .. r0 + NT - 1 of a [N, D] slice (node stride in floats) -> dst
+// as they are (cp.async, zeros past n; not committed)
+template <int D>
+__device__ __forceinline__ void stage_raw(float (*dst)[D + 4], const float* __restrict__ src,
+                                          int r0, int n, int64_t node_stride) {
+  for (int u = threadIdx.x; u < NT * (D / 4); u += THREADS) {
+    const int r = u / (D / 4);
+    const int q = u % (D / 4);
+    const bool full = r0 + r < n;
+    tc::cp_async16_zfill(&dst[r][4 * q], src + (full ? (int64_t)(r0 + r) * node_stride + 4 * q : 0),
+                         full);
+  }
+}
+
+// nodes r0 .. r0 + NT - 1 of a [N, D] slice -> dst split, K-major over the
+// features (k-block f / 8, tc::b_offset(node, f % 8)); zeros past n. A
+// quarter warp takes 8 nodes of one float4 column: its 16-byte stores hit
+// distinct banks.
+template <int D>
+__device__ __forceinline__ void stage_split(float (*dst)[2][TILE], const float* __restrict__ src,
+                                            int r0, int n, int64_t node_stride) {
   constexpr int Q = D / 4;
-  for (int u = threadIdx.x; u < count * Q; u += blockDim.x) {
-    const int r = u / Q;
-    const int q = u - r * Q;
-    float* d = dst + r * (D + 4) + q * 4;
+  for (int u = threadIdx.x; u < NT * Q; u += THREADS) {
+    const int r = (u >> 3) / Q * 8 + (u & 7);
+    const int q = (u >> 3) % Q;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < n)
-      cp_async16(d, src + (r0 + r) * node_stride + q * 4);
-    else
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      v = __ldg(reinterpret_cast<const float4*>(src + (int64_t)(r0 + r) * node_stride + 4 * q));
+    uint32_t b0, b1, b2, b3, s0, s1, s2, s3;
+    tc::split_tf32(v.x, b0, s0);
+    tc::split_tf32(v.y, b1, s1);
+    tc::split_tf32(v.z, b2, s2);
+    tc::split_tf32(v.w, b3, s3);
+    const int off = tc::b_offset(r, (4 * q) % 8);
+    *reinterpret_cast<uint4*>(&dst[q / 2][0][off]) = make_uint4(b0, b1, b2, b3);
+    *reinterpret_cast<uint4*>(&dst[q / 2][1][off]) = make_uint4(s0, s1, s2, s3);
   }
 }
 
+// acc[n, m] = sum_f a[n][f] xm[m][f] for the warpgroup's 64 rows n of a
+// (as they are, split here) and the 64 nodes m of the split tile xm, in
+// chains of CH k-steps. acc in the m64n64 fragment: acc[4 nb + 2 h + e] is
+// (row wg_row() + 8 h, column 8 nb + 2 (lane % 4) + e).
 template <int D>
-__host__ __device__ constexpr int row_smem_bytes() {
-  return ((2 * ROWS + MT) * (D + 4) + 2 * ROWS * MT) * (int)sizeof(float);
+__device__ __forceinline__ void score_tile(const float (*a)[D + 4], const float (*xm)[2][TILE],
+                                           float (&acc)[32]) {
+  const int r = wg_row();
+  const int tq = threadIdx.x & 3;
+  float part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < D / 8; k0 += CH) {
+    uint32_t ab[CH][4], as[CH][4];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = (k0 + j) * 8 + tq;
+      tc::split_tf32(a[r][c], ab[j][0], as[j][0]);
+      tc::split_tf32(a[r + 8][c], ab[j][1], as[j][1]);
+      tc::split_tf32(a[r][c + 4], ab[j][2], as[j][2]);
+      tc::split_tf32(a[r + 8][c + 4], ab[j][3], as[j][3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tc::hold(part[i]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const uint64_t big = tc::desc_b(xm[k0 + j][0]);
+      const uint64_t small = tc::desc_b(xm[k0 + j][1]);
+      tc::wgmma_n64(part, as[j], big, j > 0);
+      tc::wgmma_n64(part, ab[j], small, 1);
+      tc::wgmma_n64(part, ab[j], big, 1);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tc::hold(ab[j][i]);
+        tc::hold(as[j][i]);
+      }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      tc::hold(part[i]);
+      acc[i] += part[i];
+    }
+  }
+}
+
+// part = one chain over 64 nodes (8 k-steps): A (row: feature, k: node) from
+// frag(j, big, small) for k-step j, B the split tiles at bt + j * kb_stride
+// (big) and + TILE (small)
+template <typename Frag>
+__device__ __forceinline__ void node_chain(float (&part)[32], const float* bt, int kb_stride,
+                                           Frag frag) {
+  static_assert(NT / 8 == CH, "one node tile is one chain");
+  uint32_t ab[CH][4], as[CH][4];
+#pragma unroll
+  for (int j = 0; j < CH; ++j) frag(j, ab[j], as[j]);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tc::hold(part[i]);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const uint64_t big = tc::desc_b(bt + j * kb_stride);
+    const uint64_t small = tc::desc_b(bt + j * kb_stride + TILE);
+    tc::wgmma_n64(part, as[j], big, j > 0);
+    tc::wgmma_n64(part, ab[j], small, 1);
+    tc::wgmma_n64(part, ab[j], big, 1);
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tc::hold(ab[j][i]);
+      tc::hold(as[j][i]);
+    }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tc::hold(part[i]);
+}
+
+// a fragment -> ex[row][column] (the layout of score_tile's acc)
+__device__ __forceinline__ void store_frag(float (*ex)[EX], const float (&acc)[32]) {
+  const int r = wg_row();
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(&ex[r + 8 * h][nb * 8 + 2 * tq]) =
+          make_float2(acc[4 * nb + 2 * h], acc[4 * nb + 2 * h + 1]);
 }
 
 template <int D>
-__host__ __device__ constexpr int col_smem_bytes() {
-  return ((ROWS + 2 * MT) * (D + 4) + 2 * ROWS * MT) * (int)sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-gcn_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                   const float* __restrict__ gate, float* __restrict__ dx,
-                   float* __restrict__ stats, int n, int t_len, float scale1, float scale2) {
-  constexpr int LD = D + 4;
-  constexpr int FPL = D / 32;
-  extern __shared__ __align__(16) float smem_row[];
-  float* sx = smem_row;         // [ROWS][LD]: this CTA's rows of x
-  float* sg = sx + ROWS * LD;   // [ROWS][LD]: this CTA's rows of g
-  float* sk = sg + ROWS * LD;   // [MT][LD]: one tile of x
-  float* pw0 = sk + MT * LD;    // [ROWS][MT]: e
-  float* pw1 = pw0 + ROWS * MT; // [ROWS][MT]: e gate da
+__global__ void __launch_bounds__(THREADS, 1)
+gcn_bwd_row_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                      const float* __restrict__ gate, float* __restrict__ dx,
+                      float* __restrict__ stats, int n, int t_len, float scale1, float scale2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  RowSmem<D>& s = *reinterpret_cast<RowSmem<D>*>(smem_raw);
   const int t = blockIdx.y;
   const int64_t b = blockIdx.z;
   const int64_t bt = b * t_len + t;
@@ -141,310 +267,322 @@ gcn_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int64_t off = (b * n * t_len + t) * (int64_t)D;
   const float* xbt = x + off;
   const float* gbt = g + off;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row_base = blockIdx.x * ROWS;
-  const int lr0 = warp * RPW;
-  const int row0 = row_base + lr0;
+  const int wg = threadIdx.x >> 7;
+  const int r = wg_row();
+  const int tq = threadIdx.x & 3;
+  const int n0 = blockIdx.x * NT;
+  const bool mixer = wg < D / 64;  // warpgroup w mixes features 64 w .. 64 w + 63
+  const int fr = wg * 64 + r;      // its features fr and fr + 8
 
-  stage_rows<D>(sx, xbt, row_base, ROWS, n, node_stride);
-  stage_rows<D>(sg, gbt, row_base, ROWS, n, node_stride);
+  stage_raw<D>(s.xn, xbt, n0, n, node_stride);
+  stage_raw<D>(s.gn, gbt, n0, n, node_stride);
+  tc::cp_async_commit();
 
-  float run_max[RPW], run_sum[RPW], run_r[RPW], u_acc[RPW][FPL], v_acc[RPW][FPL];
+  // warpgroup 0: the online softmax of rows r and r + 8
+  float run_max[2] = {-INFINITY, -INFINITY}, run_sum[2] = {0.f, 0.f}, run_r[2] = {0.f, 0.f};
+  // mixers: U^T and V^T [feature, row] in the m64n64 fragment
+  float u_acc[32], v_acc[32];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    run_max[i] = -INFINITY;
-    run_sum[i] = 0.f;
-    run_r[i] = 0.f;
-#pragma unroll
-    for (int f = 0; f < FPL; ++f) u_acc[i][f] = v_acc[i][f] = 0.f;
-  }
+  for (int i = 0; i < 32; ++i) u_acc[i] = v_acc[i] = 0.f;
 
-  for (int m0 = 0; m0 < n; m0 += MT) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows<D>(sk, xbt, m0, MT, n, node_stride);
-    cp_async_wait_all();
+  for (int m0 = 0; m0 < n; m0 += NT) {
+    stage_split<D>(s.xm, xbt, m0, n, node_stride);
+    tc::cp_async_wait_all();
+    tc::fence_proxy_async();
     __syncthreads();
 
-    // s[i][j] = x_n . x_m and da[i][j] = g_n . x_m for m = m0 + lane + 32 j
-    float as[RPW][TJ], ad[RPW][TJ];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) as[i][j] = ad[i][j] = 0.f;
-    for (int c = 0; c < D; c += 4) {
-      float4 xm[TJ];
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) xm[j] = *reinterpret_cast<const float4*>(sk + (lane + 32 * j) * LD + c);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float4 xr = *reinterpret_cast<const float4*>(sx + (lr0 + i) * LD + c);
-        const float4 gr = *reinterpret_cast<const float4*>(sg + (lr0 + i) * LD + c);
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          as[i][j] = dot4(xr, xm[j], as[i][j]);
-          ad[i][j] = dot4(gr, xm[j], ad[i][j]);
-        }
-      }
-    }
+    float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
+    score_tile<D>(wg == 0 ? s.xn : s.gn, s.xm, sc);
+    if (wg == 1) store_frag(s.ex, sc);
+    __syncthreads();
 
+    if (wg == 0) {
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      float tmax = -INFINITY;
+      for (int h = 0; h < 2; ++h) {
+        const int rl = r + 8 * h;
+        float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        as[i][j] *= scale1;
-        if (m0 + lane + 32 * j < n) tmax = fmaxf(tmax, as[i][j]);
-      }
-      const float new_max = fmaxf(run_max[i], warp_max(tmax));
-      const float alpha = expf(run_max[i] - new_max);  // 0 on the first tile
-      const float* grow = gate + (int64_t)min(row0 + i, n - 1) * n;
-      float tsum = 0.f, tr = 0.f;
+        for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const int m = m0 + lane + 32 * j;
-        const float e = m < n ? expf(as[i][j] - new_max) : 0.f;
-        const float w = m < n ? e * (grow[m] * ad[i][j]) : 0.f;
-        tsum += e;
-        tr += w;
-        pw0[(lr0 + i) * MT + lane + 32 * j] = e;
-        pw1[(lr0 + i) * MT + lane + 32 * j] = w;
-      }
-      run_sum[i] = run_sum[i] * alpha + warp_sum(tsum);
-      run_r[i] = run_r[i] * alpha + warp_sum(tr);
-      run_max[i] = new_max;
-#pragma unroll
-      for (int f = 0; f < FPL; ++f) {
-        u_acc[i][f] *= alpha;
-        v_acc[i][f] *= alpha;
-      }
-    }
-    __syncwarp();
-
-    // U += (e gate da) X_tile, V += e X_tile: lane owns features FPL*lane..
-    for (int m = 0; m < MT; m += 4) {
-      float xv[4][FPL];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) ldv(sk + (m + u) * LD + lane * FPL, xv[u]);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float4 p0 = *reinterpret_cast<const float4*>(pw0 + (lr0 + i) * MT + m);
-        const float4 p1 = *reinterpret_cast<const float4*>(pw1 + (lr0 + i) * MT + m);
-        const float e0[4] = {p0.x, p0.y, p0.z, p0.w};
-        const float e1[4] = {p1.x, p1.y, p1.z, p1.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int f = 0; f < FPL; ++f) {
-            v_acc[i][f] = fmaf(e0[u], xv[u][f], v_acc[i][f]);
-            u_acc[i][f] = fmaf(e1[u], xv[u][f], u_acc[i][f]);
+          for (int e = 0; e < 2; ++e) {
+            float& v = sc[4 * nb + 2 * h + e];
+            v *= scale1;
+            if (m0 + nb * 8 + 2 * tq + e < n) tmax = fmaxf(tmax, v);
           }
+        const float new_max = fmaxf(run_max[h], quad_max(tmax));
+        const float alpha = expf(run_max[h] - new_max);  // 0 on the first tile
+        const float* grow = gate + (int64_t)min(n0 + rl, n - 1) * n;
+        float tsum = 0.f, tr = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ml = nb * 8 + 2 * tq + e;
+            const int m = m0 + ml;
+            const float ev = m < n ? expf(sc[4 * nb + 2 * h + e] - new_max) : 0.f;
+            const float w = m < n ? ev * (grow[m] * s.ex[rl][ml]) : 0.f;
+            tsum += ev;
+            tr += w;
+            const int o = tc::b_offset(rl, ml % 8);
+            put_split_at(&s.ew[ml / 8][0][0][0], o, ev);
+            put_split_at(&s.ew[ml / 8][1][0][0], o, w);
+          }
+        run_sum[h] = run_sum[h] * alpha + quad_sum(tsum);
+        run_r[h] = run_r[h] * alpha + quad_sum(tr);
+        run_max[h] = new_max;
+        if (tq == 0) s.alpha[rl] = alpha;
       }
     }
-    __syncwarp();
+    tc::fence_proxy_async();
+    __syncthreads();
+
+    if (mixer) {
+      // A = X^T of the tile: (feature fr + 8 h, node 8 j + tq + 4 h2), big
+      // and small as stage_split wrote them
+      auto frag = [&](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int f = fr + 8 * h;
+            const int o = tc::b_offset(8 * j + tq + 4 * h2, f % 8);
+            ab[2 * h2 + h] = __float_as_uint(s.xm[f / 8][0][o]);
+            as[2 * h2 + h] = __float_as_uint(s.xm[f / 8][1][o]);
+          }
+      };
+      float al[16];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) al[2 * nb + e] = s.alpha[nb * 8 + 2 * tq + e];
+      float part[32];
+      node_chain(part, &s.ew[0][1][0][0], 4 * TILE, frag);  // sum_m (e gate da)[n, m] x_m
+#pragma unroll
+      for (int i = 0; i < 32; ++i) u_acc[i] = u_acc[i] * al[2 * (i / 4) + i % 2] + part[i];
+      node_chain(part, &s.ew[0][0][0][0], 4 * TILE, frag);  // sum_m e[n, m] x_m
+#pragma unroll
+      for (int i = 0; i < 32; ++i) v_acc[i] = v_acc[i] * al[2 * (i / 4) + i % 2] + part[i];
+    }
+    __syncthreads();  // the tile's buffers are free
   }
 
-  float* st = stats + bt * 3 * n;  // [3][n]: max, sum, r
+  if (wg == 0) {
+    float* st = stats + bt * 3 * n;  // [3][n]: max, sum, r
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = row0 + i;
-    if (row >= n) break;
-    const float inv = 1.f / run_sum[i];
-    const float r = scale2 * run_r[i] * inv;
-    float out[FPL];
-#pragma unroll
-    for (int f = 0; f < FPL; ++f)
-      out[f] = scale1 * (scale2 * u_acc[i][f] * inv - r * (v_acc[i][f] * inv));
-    stv(dx + ((b * n + row) * t_len + t) * (int64_t)D + lane * FPL, out);
-    if (lane == 0) {
-      st[row] = run_max[i];
-      st[n + row] = run_sum[i];
-      st[2 * n + row] = r;
+    for (int h = 0; h < 2; ++h) {
+      const int rl = r + 8 * h;
+      if (tq == 0) {
+        s.lsum[rl] = run_sum[h];
+        s.rsum[rl] = run_r[h];
+        if (n0 + rl < n) {
+          st[n0 + rl] = run_max[h];
+          st[n + n0 + rl] = run_sum[h];
+          st[2 * n + n0 + rl] = scale2 * run_r[h] * (1.f / run_sum[h]);
+        }
+      }
     }
+  }
+  __syncthreads();
+  if (mixer) {  // dx_row [row][feature] -> s.xn
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int rl = nb * 8 + 2 * tq + e;
+        const float inv = 1.f / s.lsum[rl];
+        const float rr = scale2 * s.rsum[rl] * inv;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * nb + 2 * h + e;
+          s.xn[rl][fr + 8 * h] = scale1 * (scale2 * u_acc[i] * inv - rr * (v_acc[i] * inv));
+        }
+      }
+  }
+  __syncthreads();
+  for (int u = threadIdx.x; u < NT * (D / 4); u += THREADS) {
+    const int rl = u / (D / 4);
+    const int q = u % (D / 4);
+    if (n0 + rl < n)
+      *reinterpret_cast<float4*>(dx + ((b * n + n0 + rl) * t_len + t) * (int64_t)D + 4 * q) =
+          *reinterpret_cast<const float4*>(&s.xn[rl][4 * q]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-gcn_bwd_col_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                   const float* __restrict__ gate, const float* __restrict__ stats,
-                   float* __restrict__ dx, float* __restrict__ pdg, int n, int t_len,
-                   float scale1, float scale2) {
-  constexpr int LD = D + 4;
-  constexpr int FPL = D / 32;
-  extern __shared__ __align__(16) float smem_col[];
-  float* sc = smem_col;        // [ROWS][LD]: x of this CTA's columns
-  float* sx = sc + ROWS * LD;  // [MT][LD]: a tile of x rows
-  float* sg = sx + MT * LD;    // [MT][LD]: the same tile of g rows
-  float* wa = sg + MT * LD;    // [ROWS][MT]: a = p0 scale2 gate
-  float* wd = wa + ROWS * MT;  // [ROWS][MT]: scale1 ds
-  const int t = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int64_t bt = b * t_len + t;
+__global__ void __launch_bounds__(THREADS, 1)
+gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                      const float* __restrict__ gate, const float* __restrict__ stats,
+                      float* __restrict__ dx, float* __restrict__ pdg, int n, int t_len,
+                      float scale1, float scale2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ColSmem<D>& s = *reinterpret_cast<ColSmem<D>*>(smem_raw);
+  const int64_t b = blockIdx.y;
+  const int m0 = blockIdx.x * NT;
   const int64_t node_stride = (int64_t)t_len * D;
-  const int64_t off = (b * n * t_len + t) * (int64_t)D;
-  const float* xbt = x + off;
-  const float* gbt = g + off;
-  const float* st = stats + bt * 3 * n;
-  float* pdg_bt = pdg + bt * (int64_t)n * n;  // [m][n]: transposed partial
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col_base = blockIdx.x * ROWS;
-  const int lc0 = warp * RPW;
-  const int col0 = col_base + lc0;
+  const int wg = threadIdx.x >> 7;
+  const int r = wg_row();
+  const int tq = threadIdx.x & 3;
+  const bool mixer = wg < D / 64;
+  const int fr = wg * 64 + r;
+  float* pdg_b = pdg + b * n * (int64_t)n;  // [n][m]: this batch's dgate partial
 
-  stage_rows<D>(sc, xbt, col_base, ROWS, n, node_stride);
+  for (int t = 0; t < t_len; ++t) {
+    const int64_t off = (b * n * t_len + t) * (int64_t)D;
+    const float* xbt = x + off;
+    const float* gbt = g + off;
+    const float* st = stats + (b * t_len + t) * 3 * n;
+    float acc[32];  // mixers: (dx_col)^T [feature, column]
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    __syncthreads();  // the previous step's staging of dx is read
+    stage_split<D>(s.xm, xbt, m0, n, node_stride);
 
-  float acc[RPW][FPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int f = 0; f < FPL; ++f) acc[i][f] = 0.f;
+    for (int n0 = 0; n0 < n; n0 += NT) {
+      stage_raw<D>(s.xn, xbt, n0, n, node_stride);
+      stage_raw<D>(s.gn, gbt, n0, n, node_stride);
+      tc::cp_async_commit();
+      tc::cp_async_wait_all();
+      tc::fence_proxy_async();
+      __syncthreads();
 
-  for (int n0 = 0; n0 < n; n0 += MT) {
-    __syncthreads();
-    stage_rows<D>(sx, xbt, n0, MT, n, node_stride);
-    stage_rows<D>(sg, gbt, n0, MT, n, node_stride);
-    cp_async_wait_all();
-    __syncthreads();
+      float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
+      score_tile<D>(wg == 0 ? s.xn : s.gn, s.xm, sc);
+      if (wg == 1) store_frag(s.ex, sc);
+      __syncthreads();
 
-    // s[i][j] = x_n . x_m and da[i][j] = g_n . x_m for n = n0 + lane + 32 j
-    float as[RPW][TJ], ad[RPW][TJ];
+      if (wg == 0) {
 #pragma unroll
-    for (int i = 0; i < RPW; ++i)
+        for (int h = 0; h < 2; ++h) {
+          const int rl = r + 8 * h;
+          const int row = n0 + rl;
+          const bool valid = row < n;
+          const float rmax = valid ? st[row] : 0.f;
+          const float rinv = valid ? 1.f / st[n + row] : 0.f;
+          const float rr = valid ? st[2 * n + row] : 0.f;
+          const float* grow = gate + (int64_t)min(row, n - 1) * n;
+          float* prow = pdg_b + (int64_t)row * n;
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) as[i][j] = ad[i][j] = 0.f;
-    for (int c = 0; c < D; c += 4) {
-      float4 xn[TJ], gn[TJ];
+          for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        xn[j] = *reinterpret_cast<const float4*>(sx + (lane + 32 * j) * LD + c);
-        gn[j] = *reinterpret_cast<const float4*>(sg + (lane + 32 * j) * LD + c);
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float4 xc = *reinterpret_cast<const float4*>(sc + (lc0 + i) * LD + c);
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          as[i][j] = dot4(xn[j], xc, as[i][j]);
-          ad[i][j] = dot4(gn[j], xc, ad[i][j]);
+            for (int e = 0; e < 2; ++e) {
+              const int ml = nb * 8 + 2 * tq + e;
+              const int m = m0 + ml;
+              float a = 0.f, dsv = 0.f;
+              if (valid) {
+                const float p0 = expf(sc[4 * nb + 2 * h + e] * scale1 - rmax) * rinv;
+                const float gt = grow[min(m, n - 1)];
+                const float da = s.ex[rl][ml];
+                a = p0 * scale2 * gt;
+                dsv = scale1 * (p0 * (scale2 * gt * da - rr));
+                if (m < n) {
+                  const float v = p0 * scale2 * da;
+                  prow[m] = t == 0 ? v : prow[m] + v;
+                }
+              }
+              const int o = tc::b_offset(ml, rl % 8);
+              put_split_at(&s.ad[rl / 8][0][0][0], o, a);
+              put_split_at(&s.ad[rl / 8][1][0][0], o, dsv);
+            }
         }
       }
+      tc::fence_proxy_async();
+      __syncthreads();
+
+      if (mixer) {
+        // A = G^T or X^T of the tile: (feature fr + 8 h, node 8 j + tq + 4 h2)
+        auto frag_of = [&](const float (*raw)[D + 4]) {
+          return [=](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                tc::split_tf32(raw[8 * j + tq + 4 * h2][fr + 8 * h], ab[2 * h2 + h],
+                               as[2 * h2 + h]);
+          };
+        };
+        float part[32];
+        node_chain(part, &s.ad[0][0][0][0], 4 * TILE, frag_of(s.gn));  // sum_n a[n, m] g_n
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += part[i];
+        node_chain(part, &s.ad[0][1][0][0], 4 * TILE, frag_of(s.xn));  // scale1 sum_n ds x_n
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += part[i];
+      }
+      __syncthreads();  // the tile's buffers are free
     }
 
-    float row_max[TJ], row_inv[TJ], row_r[TJ];
+    if (mixer) {  // dx_col [column][feature] -> s.xn
 #pragma unroll
-    for (int j = 0; j < TJ; ++j) {
-      const int nn = n0 + lane + 32 * j;
-      row_max[j] = nn < n ? st[nn] : 0.f;
-      row_inv[j] = nn < n ? 1.f / st[n + nn] : 0.f;
-      row_r[j] = nn < n ? st[2 * n + nn] : 0.f;
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            s.xn[nb * 8 + 2 * tq + e][fr + 8 * h] = acc[4 * nb + 2 * h + e];
     }
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int m = col0 + i;
-      const int mc = min(m, n - 1);
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const int nn = n0 + lane + 32 * j;
-        float a = 0.f, dsv = 0.f;
-        if (nn < n) {
-          const float p0 = expf(as[i][j] * scale1 - row_max[j]) * row_inv[j];
-          const float gt = gate[(int64_t)nn * n + mc];
-          a = p0 * scale2 * gt;
-          dsv = scale1 * (p0 * (scale2 * gt * ad[i][j] - row_r[j]));
-          if (m < n) pdg_bt[(int64_t)m * n + nn] = p0 * scale2 * ad[i][j];
-        }
-        wa[(lc0 + i) * MT + lane + 32 * j] = a;
-        wd[(lc0 + i) * MT + lane + 32 * j] = dsv;
+    __syncthreads();
+    for (int u = threadIdx.x; u < NT * (D / 4); u += THREADS) {
+      const int ml = u / (D / 4);
+      const int q = u % (D / 4);
+      if (m0 + ml < n) {
+        float4* p = reinterpret_cast<float4*>(dx + ((b * n + m0 + ml) * t_len + t) * (int64_t)D +
+                                              4 * q);
+        const float4 add = *reinterpret_cast<const float4*>(&s.xn[ml][4 * q]);
+        float4 cur = *p;
+        cur.x += add.x;
+        cur.y += add.y;
+        cur.z += add.z;
+        cur.w += add.w;
+        *p = cur;
       }
     }
-    __syncwarp();
-
-    // acc[m] += sum_n a[n, m] g_n + scale1 ds[n, m] x_n
-    for (int k = 0; k < MT; k += 4) {
-      float xv[4][FPL], gv[4][FPL];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        ldv(sx + (k + u) * LD + lane * FPL, xv[u]);
-        ldv(sg + (k + u) * LD + lane * FPL, gv[u]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float4 a4 = *reinterpret_cast<const float4*>(wa + (lc0 + i) * MT + k);
-        const float4 d4 = *reinterpret_cast<const float4*>(wd + (lc0 + i) * MT + k);
-        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int f = 0; f < FPL; ++f)
-            acc[i][f] = fmaf(dv[u], xv[u][f], fmaf(av[u], gv[u][f], acc[i][f]));
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int m = col0 + i;
-    if (m >= n) break;
-    float* p = dx + ((b * n + m) * t_len + t) * (int64_t)D + lane * FPL;
-    float cur[FPL];
-    ldv(p, cur);
-#pragma unroll
-    for (int f = 0; f < FPL; ++f) cur[f] += acc[i][f];
-    stv(p, cur);
   }
 }
 
-// dgate[n, m] = sum over the B*T slices, in slice order, of pdg[slice, m, n]
+// dgate[n, m] = sum over the B batch partials, in batch order
 __global__ void gcn_bwd_dgate_kernel(const float* __restrict__ pdg, float* __restrict__ dgate,
-                                     int n, int slices) {
+                                     int n, int batches) {
   const int64_t nn2 = (int64_t)n * n;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;  // m * n + row
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nn2) return;
   float s = 0.f;
-  for (int k = 0; k < slices; ++k) s += pdg[k * nn2 + idx];
-  const int64_t m = idx / n;
-  const int64_t row = idx - m * n;
-  dgate[row * n + m] = s;
+  for (int k = 0; k < batches; ++k) s += pdg[k * nn2 + idx];
+  dgate[idx] = s;
 }
 
 template <int D>
 int launch(const float* x, const float* g, const float* gate, float* dx, float* dgate,
            float* scratch, int b, int n, int t_len, float scale1, float scale2,
            cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gcn_bwd_row_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(gcn_bwd_row_tc_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         row_smem_bytes<D>());
+                                         (int)sizeof(RowSmem<D>));
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(gcn_bwd_col_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             col_smem_bytes<D>());
+  err = cudaFuncSetAttribute(gcn_bwd_col_tc_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(ColSmem<D>));
   if (err != cudaSuccess) return (int)err;
-  const int slices = b * t_len;
-  float* stats = scratch;                          // [B*T][3][N]
-  float* pdg = scratch + (int64_t)slices * 3 * n;  // [B*T][N][N]
-  dim3 grid((n + ROWS - 1) / ROWS, t_len, b);
-  gcn_bwd_row_kernel<D><<<grid, WARPS * 32, row_smem_bytes<D>(), stream>>>(
+  float* stats = scratch;                                  // [B*T][3][N]
+  float* pdg = scratch + (int64_t)b * t_len * 3 * n;       // [B][N][N]
+  const int tiles = (n + NT - 1) / NT;
+  gcn_bwd_row_tc_kernel<D><<<dim3(tiles, t_len, b), THREADS, sizeof(RowSmem<D>), stream>>>(
       x, g, gate, dx, stats, n, t_len, scale1, scale2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gcn_bwd_col_kernel<D><<<grid, WARPS * 32, col_smem_bytes<D>(), stream>>>(
+  gcn_bwd_col_tc_kernel<D><<<dim3(tiles, b), THREADS, sizeof(ColSmem<D>), stream>>>(
       x, g, gate, stats, dx, pdg, n, t_len, scale1, scale2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t nn2 = (int64_t)n * n;
-  gcn_bwd_dgate_kernel<<<(unsigned)((nn2 + 255) / 256), 256, 0, stream>>>(pdg, dgate, n, slices);
+  gcn_bwd_dgate_kernel<<<(unsigned)((nn2 + 255) / 256), 256, 0, stream>>>(pdg, dgate, n, b);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// floats of scratch one call needs: row statistics and the dgate partials
+// floats of scratch one call needs: row statistics per slice and one dgate
+// partial per batch
 extern "C" int64_t pxt_gcn_bwd_scratch_floats(int b, int n, int t_len) {
-  const int64_t slices = (int64_t)b * t_len;
-  return slices * 3 * n + slices * n * (int64_t)n;
+  return (int64_t)b * t_len * 3 * n + (int64_t)b * n * n;
 }
 
 extern "C" int pxt_gcn_bwd_f32(const void* x, const void* g, const void* gate, void* dx,

@@ -92,10 +92,13 @@ def _bitwise_twice(fn):
     return first
 
 
-# the backward kernels: D=128 at N within one node tile, across tiles and at
-# PEMS08's N; D=64 for the synthetic configuration
+# the backward kernels (K3 on the tensor cores in 3xTF32): D=128 at N within
+# one node tile of 64, across tiles, at HZME's N=80 and PEMS08's N=170, and
+# with B*T > 1 at an N not a multiple of 64 (the per-batch dgate partial sums
+# over the T steps); D=64 for the synthetic configuration
 @pytest.mark.parametrize("shape", [(2, 17, 3, 64), (1, 16, 12, 64), (2, 45, 2, 128),
-                                   (1, 170, 3, 128), (1, 307, 1, 128)])
+                                   (1, 170, 3, 128), (1, 307, 1, 128), (2, 80, 3, 128),
+                                   (3, 100, 4, 128), (2, 70, 5, 64)])
 def test_gcn_bwd_kernel(dev, shape):
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn(*shape, generator=g, device=dev)
@@ -105,8 +108,8 @@ def test_gcn_bwd_kernel(dev, shape):
     dx, dgate = _bitwise_twice(lambda: gcn.gcn_spatial_mix_bwd_kernel(x, gate, cot, 0.3))
     assert _build.LAUNCHES["gcn_bwd"] == before + 2
     want = gcn.gcn_spatial_mix_bwd_plain(x.double(), gate.double(), cot.double(), 0.3)
-    assert _norm_err(dx.double(), want[0]) <= 1e-4
-    assert _norm_err(dgate.double(), want[1]) <= 1e-4
+    assert _norm_err(dx.double(), want[0]) <= 1e-5
+    assert _norm_err(dgate.double(), want[1]) <= 1e-5
 
 
 # rows (B*N) not a multiple of the 8-row tiles; 340 rows take 4 weight-
