@@ -132,28 +132,82 @@ __device__ __forceinline__ void stage_raw(float (*dst)[D + 4], const float* __re
 }
 
 // nodes r0 .. r0 + NT - 1 of a [N, D] slice -> dst split, K-major over the
-// features (k-block f / 8, tc::b_offset(node, f % 8)); zeros past n. A
-// quarter warp takes 8 nodes of one float4 column: its 16-byte stores hit
-// distinct banks.
+// features (k-block f / 8, tc::b_offset(node, f % 8)); zeros past n. Every
+// load is issued before the first store. A quarter warp takes 8 nodes of
+// one float4 column: its 16-byte stores hit distinct banks.
 template <int D>
 __device__ __forceinline__ void stage_split(float (*dst)[2][TILE], const float* __restrict__ src,
                                             int r0, int n, int64_t node_stride) {
   constexpr int Q = D / 4;
-  for (int u = threadIdx.x; u < NT * Q; u += THREADS) {
+  constexpr int ITER = NT * Q / THREADS;
+  float4 v[ITER];
+#pragma unroll
+  for (int i = 0; i < ITER; ++i) {
+    const int u = threadIdx.x + i * THREADS;
     const int r = (u >> 3) / Q * 8 + (u & 7);
     const int q = (u >> 3) % Q;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < n)
-      v = __ldg(reinterpret_cast<const float4*>(src + (int64_t)(r0 + r) * node_stride + 4 * q));
+      v[i] = __ldg(reinterpret_cast<const float4*>(src + (int64_t)(r0 + r) * node_stride + 4 * q));
+  }
+#pragma unroll
+  for (int i = 0; i < ITER; ++i) {
+    const int u = threadIdx.x + i * THREADS;
+    const int r = (u >> 3) / Q * 8 + (u & 7);
+    const int q = (u >> 3) % Q;
     uint32_t b0, b1, b2, b3, s0, s1, s2, s3;
-    tc::split_tf32(v.x, b0, s0);
-    tc::split_tf32(v.y, b1, s1);
-    tc::split_tf32(v.z, b2, s2);
-    tc::split_tf32(v.w, b3, s3);
+    tc::split_tf32(v[i].x, b0, s0);
+    tc::split_tf32(v[i].y, b1, s1);
+    tc::split_tf32(v[i].z, b2, s2);
+    tc::split_tf32(v[i].w, b3, s3);
     const int off = tc::b_offset(r, (4 * q) % 8);
     *reinterpret_cast<uint4*>(&dst[q / 2][0][off]) = make_uint4(b0, b1, b2, b3);
     *reinterpret_cast<uint4*>(&dst[q / 2][1][off]) = make_uint4(s0, s1, s2, s3);
   }
+}
+
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// part = sum over KS k-steps j of A_j B_j in 3xTF32 on the tensor cores:
+// frag(j, big, small) reads and splits the thread's A fragment of k-step j,
+// b(j) is the split B tile of k-step j (big; small TILE floats further).
+// A fragments in two register buffers: k-step j's is read while j - 1 runs.
+template <int KS, typename Frag, typename BTile>
+__device__ __forceinline__ void chain(float (&part)[32], Frag frag, BTile b) {
+  uint32_t ab[2][4], as[2][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    const int buf = j & 1;
+    if (j >= 2) {  // k-step j - 2 read this buffer
+      wgmma_wait_one();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tc::hold(ab[buf][i]);
+        tc::hold(as[buf][i]);
+      }
+    }
+    frag(j, ab[buf], as[buf]);
+    tc::wgmma_fence();
+    const float* tile = b(j);
+    const uint64_t big = tc::desc_b(tile);
+    const uint64_t small = tc::desc_b(tile + TILE);
+    tc::wgmma_n64(part, as[buf], big, j > 0);
+    tc::wgmma_n64(part, ab[buf], small, 1);
+    tc::wgmma_n64(part, ab[buf], big, 1);
+    tc::wgmma_commit();
+  }
+  tc::wgmma_wait_all();
+#pragma unroll
+  for (int buf = 0; buf < 2; ++buf)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tc::hold(ab[buf][i]);
+      tc::hold(as[buf][i]);
+    }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tc::hold(part[i]);
 }
 
 // acc[n, m] = sum_f a[n][f] xm[m][f] for the warpgroup's 64 rows n of a
@@ -165,92 +219,63 @@ __device__ __forceinline__ void score_tile(const float (*a)[D + 4], const float 
                                            float (&acc)[32]) {
   const int r = wg_row();
   const int tq = threadIdx.x & 3;
-  float part[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int k0 = 0; k0 < D / 8; k0 += CH) {
-    uint32_t ab[CH][4], as[CH][4];
+    float part[32];
+    chain<CH>(
+        part,
+        [&](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+          const int c = (k0 + j) * 8 + tq;
+          tc::split_tf32(a[r][c], ab[0], as[0]);
+          tc::split_tf32(a[r + 8][c], ab[1], as[1]);
+          tc::split_tf32(a[r][c + 4], ab[2], as[2]);
+          tc::split_tf32(a[r + 8][c + 4], ab[3], as[3]);
+        },
+        [&](int j) { return xm[k0 + j][0]; });
 #pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      const int c = (k0 + j) * 8 + tq;
-      tc::split_tf32(a[r][c], ab[j][0], as[j][0]);
-      tc::split_tf32(a[r + 8][c], ab[j][1], as[j][1]);
-      tc::split_tf32(a[r][c + 4], ab[j][2], as[j][2]);
-      tc::split_tf32(a[r + 8][c + 4], ab[j][3], as[j][3]);
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) tc::hold(part[i]);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      const uint64_t big = tc::desc_b(xm[k0 + j][0]);
-      const uint64_t small = tc::desc_b(xm[k0 + j][1]);
-      tc::wgmma_n64(part, as[j], big, j > 0);
-      tc::wgmma_n64(part, ab[j], small, 1);
-      tc::wgmma_n64(part, ab[j], big, 1);
-    }
-    tc::wgmma_commit();
-    tc::wgmma_wait_all();
-#pragma unroll
-    for (int j = 0; j < CH; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        tc::hold(ab[j][i]);
-        tc::hold(as[j][i]);
-      }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      tc::hold(part[i]);
-      acc[i] += part[i];
-    }
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
   }
 }
 
 // part = one chain over 64 nodes (8 k-steps): A (row: feature, k: node) from
-// frag(j, big, small) for k-step j, B the split tiles at bt + j * kb_stride
-// (big) and + TILE (small)
+// frag, B the split tiles at bt + j * kb_stride
 template <typename Frag>
 __device__ __forceinline__ void node_chain(float (&part)[32], const float* bt, int kb_stride,
                                            Frag frag) {
-  static_assert(NT / 8 == CH, "one node tile is one chain");
-  uint32_t ab[CH][4], as[CH][4];
-#pragma unroll
-  for (int j = 0; j < CH; ++j) frag(j, ab[j], as[j]);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) tc::hold(part[i]);
-  tc::wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < CH; ++j) {
-    const uint64_t big = tc::desc_b(bt + j * kb_stride);
-    const uint64_t small = tc::desc_b(bt + j * kb_stride + TILE);
-    tc::wgmma_n64(part, as[j], big, j > 0);
-    tc::wgmma_n64(part, ab[j], small, 1);
-    tc::wgmma_n64(part, ab[j], big, 1);
-  }
-  tc::wgmma_commit();
-  tc::wgmma_wait_all();
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      tc::hold(ab[j][i]);
-      tc::hold(as[j][i]);
-    }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) tc::hold(part[i]);
+  chain<NT / 8>(part, frag, [&](int j) { return bt + j * kb_stride; });
 }
 
-// a fragment -> ex[row][column] (the layout of score_tile's acc)
-__device__ __forceinline__ void store_frag(float (*ex)[EX], const float (&acc)[32]) {
+// The elementwise work between the products is split by rows: warpgroup w
+// takes rows wg_row() + 8 w of the tile. Warpgroup 0 holds s and warpgroup
+// 1 da for all 64 rows; each writes the half it does not take to ex.
+__device__ __forceinline__ void swap_out(float (*ex)[EX], const float (&acc)[32], int wg) {
   const int r = wg_row();
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    float2* p = reinterpret_cast<float2*>(&ex[r + 8 * (1 - wg)][nb * 8 + 2 * tq]);
+    *p = wg == 0 ? make_float2(acc[4 * nb + 2], acc[4 * nb + 3])
+                 : make_float2(acc[4 * nb], acc[4 * nb + 1]);
+  }
+}
+
+// after a barrier: s and da of the thread's row wg_row() + 8 wg at the
+// columns 8 nb + 2 (lane % 4) + e, as sv[2 nb + e] and dv[2 nb + e]
+__device__ __forceinline__ void swap_in(const float (*ex)[EX], const float (&acc)[32], int wg,
+                                        float (&sv)[16], float (&dv)[16]) {
+  const int rl = wg_row() + 8 * wg;
   const int tq = threadIdx.x & 3;
 #pragma unroll
   for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(&ex[r + 8 * h][nb * 8 + 2 * tq]) =
-          make_float2(acc[4 * nb + 2 * h], acc[4 * nb + 2 * h + 1]);
+    for (int e = 0; e < 2; ++e) {
+      const float mine = wg == 0 ? acc[4 * nb + e] : acc[4 * nb + 2 + e];
+      const float other = ex[rl][nb * 8 + 2 * tq + e];
+      sv[2 * nb + e] = wg == 0 ? mine : other;
+      dv[2 * nb + e] = wg == 0 ? other : mine;
+    }
 }
 
 template <int D>
@@ -278,8 +303,8 @@ gcn_bwd_row_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
   stage_raw<D>(s.gn, gbt, n0, n, node_stride);
   tc::cp_async_commit();
 
-  // warpgroup 0: the online softmax of rows r and r + 8
-  float run_max[2] = {-INFINITY, -INFINITY}, run_sum[2] = {0.f, 0.f}, run_r[2] = {0.f, 0.f};
+  const int rl = r + 8 * wg;  // the row of the thread's online softmax
+  float run_max = -INFINITY, run_sum = 0.f, run_r = 0.f;
   // mixers: U^T and V^T [feature, row] in the m64n64 fragment
   float u_acc[32], v_acc[32];
 #pragma unroll
@@ -293,45 +318,41 @@ gcn_bwd_row_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
     float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
     score_tile<D>(wg == 0 ? s.xn : s.gn, s.xm, sc);
-    if (wg == 1) store_frag(s.ex, sc);
+    swap_out(s.ex, sc, wg);
     __syncthreads();
 
-    if (wg == 0) {
+    {
+      float sv[16], dv[16];
+      swap_in(s.ex, sc, wg, sv, dv);
+      float tmax = -INFINITY;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rl = r + 8 * h;
-        float tmax = -INFINITY;
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& v = sc[4 * nb + 2 * h + e];
-            v *= scale1;
-            if (m0 + nb * 8 + 2 * tq + e < n) tmax = fmaxf(tmax, v);
-          }
-        const float new_max = fmaxf(run_max[h], quad_max(tmax));
-        const float alpha = expf(run_max[h] - new_max);  // 0 on the first tile
-        const float* grow = gate + (int64_t)min(n0 + rl, n - 1) * n;
-        float tsum = 0.f, tr = 0.f;
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int ml = nb * 8 + 2 * tq + e;
-            const int m = m0 + ml;
-            const float ev = m < n ? expf(sc[4 * nb + 2 * h + e] - new_max) : 0.f;
-            const float w = m < n ? ev * (grow[m] * s.ex[rl][ml]) : 0.f;
-            tsum += ev;
-            tr += w;
-            const int o = tc::b_offset(rl, ml % 8);
-            put_split_at(&s.ew[ml / 8][0][0][0], o, ev);
-            put_split_at(&s.ew[ml / 8][1][0][0], o, w);
-          }
-        run_sum[h] = run_sum[h] * alpha + quad_sum(tsum);
-        run_r[h] = run_r[h] * alpha + quad_sum(tr);
-        run_max[h] = new_max;
-        if (tq == 0) s.alpha[rl] = alpha;
+      for (int i = 0; i < 16; ++i) {
+        sv[i] *= scale1;
+        if (m0 + (i / 2) * 8 + 2 * tq + i % 2 < n) tmax = fmaxf(tmax, sv[i]);
       }
+      const float new_max = fmaxf(run_max, quad_max(tmax));
+      const float alpha = expf(run_max - new_max);  // 0 on the first tile
+      const float* grow = gate + (int64_t)min(n0 + rl, n - 1) * n;
+      float gt[16];  // every gate load in flight at once
+#pragma unroll
+      for (int i = 0; i < 16; ++i) gt[i] = grow[min(m0 + (i / 2) * 8 + 2 * tq + i % 2, n - 1)];
+      float tsum = 0.f, tr = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int ml = (i / 2) * 8 + 2 * tq + i % 2;
+        const bool ok = m0 + ml < n;
+        const float ev = ok ? expf(sv[i] - new_max) : 0.f;
+        const float w = ok ? ev * (gt[i] * dv[i]) : 0.f;
+        tsum += ev;
+        tr += w;
+        const int o = tc::b_offset(rl, ml % 8);
+        put_split_at(&s.ew[ml / 8][0][0][0], o, ev);
+        put_split_at(&s.ew[ml / 8][1][0][0], o, w);
+      }
+      run_sum = run_sum * alpha + quad_sum(tsum);
+      run_r = run_r * alpha + quad_sum(tr);
+      run_max = new_max;
+      if (tq == 0) s.alpha[rl] = alpha;
     }
     tc::fence_proxy_async();
     __syncthreads();
@@ -366,20 +387,14 @@ gcn_bwd_row_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
     __syncthreads();  // the tile's buffers are free
   }
 
-  if (wg == 0) {
+  if (tq == 0) {
     float* st = stats + bt * 3 * n;  // [3][n]: max, sum, r
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = r + 8 * h;
-      if (tq == 0) {
-        s.lsum[rl] = run_sum[h];
-        s.rsum[rl] = run_r[h];
-        if (n0 + rl < n) {
-          st[n0 + rl] = run_max[h];
-          st[n + n0 + rl] = run_sum[h];
-          st[2 * n + n0 + rl] = scale2 * run_r[h] * (1.f / run_sum[h]);
-        }
-      }
+    s.lsum[rl] = run_sum;
+    s.rsum[rl] = run_r;
+    if (n0 + rl < n) {
+      st[n0 + rl] = run_max;
+      st[n + n0 + rl] = run_sum;
+      st[2 * n + n0 + rl] = scale2 * run_r * (1.f / run_sum);
     }
   }
   __syncthreads();
@@ -424,6 +439,7 @@ gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int tq = threadIdx.x & 3;
   const bool mixer = wg < D / 64;
   const int fr = wg * 64 + r;
+  const int rl = r + 8 * wg;  // the thread's row in the elementwise work
   float* pdg_b = pdg + b * n * (int64_t)n;  // [n][m]: this batch's dgate partial
 
   for (int t = 0; t < t_len; ++t) {
@@ -445,44 +461,45 @@ gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
       tc::fence_proxy_async();
       __syncthreads();
 
+      // the gate and the dgate partial of the thread's row, loaded while
+      // the tensor cores run the scores
+      const int row = n0 + rl;
+      const float* grow = gate + (int64_t)min(row, n - 1) * n;
+      float* prow = pdg_b + (int64_t)min(row, n - 1) * n;
+      float gt[16], old[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int m = min(m0 + (i / 2) * 8 + 2 * tq + i % 2, n - 1);
+        gt[i] = grow[m];
+        old[i] = t > 0 ? prow[m] : 0.f;
+      }
+
       float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
       score_tile<D>(wg == 0 ? s.xn : s.gn, s.xm, sc);
-      if (wg == 1) store_frag(s.ex, sc);
+      swap_out(s.ex, sc, wg);
       __syncthreads();
 
-      if (wg == 0) {
+      {
+        float sv[16], dv[16];
+        swap_in(s.ex, sc, wg, sv, dv);
+        const bool valid = row < n;
+        const float rmax = valid ? st[row] : 0.f;
+        const float rinv = valid ? 1.f / st[n + row] : 0.f;
+        const float rr = valid ? st[2 * n + row] : 0.f;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int rl = r + 8 * h;
-          const int row = n0 + rl;
-          const bool valid = row < n;
-          const float rmax = valid ? st[row] : 0.f;
-          const float rinv = valid ? 1.f / st[n + row] : 0.f;
-          const float rr = valid ? st[2 * n + row] : 0.f;
-          const float* grow = gate + (int64_t)min(row, n - 1) * n;
-          float* prow = pdg_b + (int64_t)row * n;
-#pragma unroll
-          for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int ml = nb * 8 + 2 * tq + e;
-              const int m = m0 + ml;
-              float a = 0.f, dsv = 0.f;
-              if (valid) {
-                const float p0 = expf(sc[4 * nb + 2 * h + e] * scale1 - rmax) * rinv;
-                const float gt = grow[min(m, n - 1)];
-                const float da = s.ex[rl][ml];
-                a = p0 * scale2 * gt;
-                dsv = scale1 * (p0 * (scale2 * gt * da - rr));
-                if (m < n) {
-                  const float v = p0 * scale2 * da;
-                  prow[m] = t == 0 ? v : prow[m] + v;
-                }
-              }
-              const int o = tc::b_offset(ml, rl % 8);
-              put_split_at(&s.ad[rl / 8][0][0][0], o, a);
-              put_split_at(&s.ad[rl / 8][1][0][0], o, dsv);
-            }
+        for (int i = 0; i < 16; ++i) {
+          const int ml = (i / 2) * 8 + 2 * tq + i % 2;
+          const int m = m0 + ml;
+          float a = 0.f, dsv = 0.f;
+          if (valid) {
+            const float p0 = expf(sv[i] * scale1 - rmax) * rinv;
+            a = p0 * scale2 * gt[i];
+            dsv = scale1 * (p0 * (scale2 * gt[i] * dv[i] - rr));
+            if (m < n) prow[m] = old[i] + p0 * scale2 * dv[i];
+          }
+          const int o = tc::b_offset(ml, rl % 8);
+          put_split_at(&s.ad[rl / 8][0][0][0], o, a);
+          put_split_at(&s.ad[rl / 8][1][0][0], o, dsv);
         }
       }
       tc::fence_proxy_async();
@@ -521,19 +538,28 @@ gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
             s.xn[nb * 8 + 2 * tq + e][fr + 8 * h] = acc[4 * nb + 2 * h + e];
     }
     __syncthreads();
-    for (int u = threadIdx.x; u < NT * (D / 4); u += THREADS) {
+    constexpr int ITER = NT * (D / 4) / THREADS;
+    float4 cur[ITER];  // every load in flight at once
+#pragma unroll
+    for (int i = 0; i < ITER; ++i) {
+      const int u = threadIdx.x + i * THREADS;
+      const int ml = min(m0 + u / (D / 4), n - 1);
+      cur[i] = *reinterpret_cast<const float4*>(dx + ((b * n + ml) * t_len + t) * (int64_t)D +
+                                                4 * (u % (D / 4)));
+    }
+#pragma unroll
+    for (int i = 0; i < ITER; ++i) {
+      const int u = threadIdx.x + i * THREADS;
       const int ml = u / (D / 4);
       const int q = u % (D / 4);
       if (m0 + ml < n) {
-        float4* p = reinterpret_cast<float4*>(dx + ((b * n + m0 + ml) * t_len + t) * (int64_t)D +
-                                              4 * q);
         const float4 add = *reinterpret_cast<const float4*>(&s.xn[ml][4 * q]);
-        float4 cur = *p;
-        cur.x += add.x;
-        cur.y += add.y;
-        cur.z += add.z;
-        cur.w += add.w;
-        *p = cur;
+        cur[i].x += add.x;
+        cur[i].y += add.y;
+        cur[i].z += add.z;
+        cur[i].w += add.w;
+        *reinterpret_cast<float4*>(dx + ((b * n + m0 + ml) * t_len + t) * (int64_t)D + 4 * q) =
+            cur[i];
       }
     }
   }
