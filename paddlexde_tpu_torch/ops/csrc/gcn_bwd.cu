@@ -23,20 +23,23 @@
 //    and r_n on the CUDA cores, and writes e and e gate da to shared memory,
 //    split, as the B operands of the two mixes U^T = X^T (e gate da)^T and
 //    V^T = X^T e^T (M = features: warpgroup w takes features 64 w ..
-//    64 w + 63; A = X^T read from the split tile). The online rescaling by
-//    alpha joins each chain's flush. One sweep yields the row half of dx,
+//    64 w + 63; A = X^T read from the split tile, once for both mixes). The
+//    online rescaling by alpha joins each chain's flush. One sweep yields
+//    the row half of dx,
 //      dx_row[n] = scale1 (scale2 U_n / l_n - r_n V_n / l_n),
 //    and the row statistics (max, sum, r) in a [B*T, 3, N] scratch.
-// 2. gcn_bwd_col_tc_kernel: one CTA per (64 columns m, b), looping over the
-//    T steps; rows n stream in tiles of 64. The scores and da come as in the
-//    row pass (the same operands, the same products), p0, a and scale1 ds
-//    of its columns from the statistics, and
+// 2. gcn_bwd_col_tc_kernel: one CTA per (64 columns m, b, group of
+//    steps), looping over the group's steps t; rows n stream in tiles of
+//    64. The scores and da come as in the row pass (the same operands, the
+//    same products), p0, a and scale1 ds of its columns from the
+//    statistics, and
 //      dx[m] += sum_n a[n, m] g_n + scale1 ds[n, m] x_n
 //    on the tensor cores (M = features, A = G^T and X^T from the raw tiles,
-//    B = a and ds, split). p0 scale2 da of its columns adds, over the T
-//    steps in order, into one dgate partial per b ([B, N, N]; each entry
-//    read and written by one thread only).
-// 3. gcn_bwd_dgate_kernel sums the B partials of each gate entry in batch
+//    B = a and ds, split). p0 scale2 da of its columns adds, over the
+//    group's steps in order, into one dgate partial per (b, group)
+//    ([B, groups, N, N]; each entry read and written by one thread only).
+//    The groups (t_groups: 1 to 4) fill the SMs' waves.
+// 3. gcn_bwd_dgate_kernel sums the B groups partials of each gate entry in
 //    order.
 //
 // The TPU kernel zeroes dgate at grid step 0 and accumulates with += over
@@ -54,7 +57,10 @@
 // Bound: operations (five N^2 D products per slice at the least; this
 // design does eight: scores and g x^T in both passes, two mixes in each)
 // in 3xTF32 on the tensor cores, against 3 N D floats moved per slice; the
-// dgate partials add 8 B N^2 bytes of traffic (3.7 MB at PEMS08, batch 32).
+// dgate partials take B groups N^2 floats of scratch (14.8 MB at PEMS08,
+// batch 32, 4 groups; one per slice took 44 MB). The elementwise work between the products (online
+// softmax, p0, a, ds, the dgate partial) is split by rows between the two
+// warpgroups.
 // D = 64 and D = 128 only (at D = 64 warpgroup 1 takes no mix); any N.
 
 #include <cuda_runtime.h>
@@ -69,6 +75,7 @@ constexpr int NT = 64;           // nodes per tile (the m64 / n64 of wgmma)
 constexpr int THREADS = 256;     // two warpgroups
 constexpr int TILE = NT * 8;     // floats of one split B tile of 8 k, one term
 constexpr int CH = 8;            // k-steps per tensor-core chain (24 products)
+constexpr int MAX_GROUPS = 4;    // groups of steps per column block and batch
 constexpr int EX = 72;           // row stride of the da exchange tile
 
 template <int D>
@@ -208,6 +215,49 @@ __device__ __forceinline__ void chain(float (&part)[32], Frag frag, BTile b) {
     }
 #pragma unroll
   for (int i = 0; i < 32; ++i) tc::hold(part[i]);
+}
+
+// chain for two products that share A: p0 with the B tiles b0(j), p1 with
+// b1(j)
+template <int KS, typename Frag, typename B0, typename B1>
+__device__ __forceinline__ void chain2(float (&p0)[32], float (&p1)[32], Frag frag, B0 b0, B1 b1) {
+  uint32_t ab[2][4], as[2][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    const int buf = j & 1;
+    if (j >= 2) {
+      wgmma_wait_one();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tc::hold(ab[buf][i]);
+        tc::hold(as[buf][i]);
+      }
+    }
+    frag(j, ab[buf], as[buf]);
+    tc::wgmma_fence();
+    const float* t0 = b0(j);
+    const float* t1 = b1(j);
+    tc::wgmma_n64(p0, as[buf], tc::desc_b(t0), j > 0);
+    tc::wgmma_n64(p0, ab[buf], tc::desc_b(t0 + TILE), 1);
+    tc::wgmma_n64(p0, ab[buf], tc::desc_b(t0), 1);
+    tc::wgmma_n64(p1, as[buf], tc::desc_b(t1), j > 0);
+    tc::wgmma_n64(p1, ab[buf], tc::desc_b(t1 + TILE), 1);
+    tc::wgmma_n64(p1, ab[buf], tc::desc_b(t1), 1);
+    tc::wgmma_commit();
+  }
+  tc::wgmma_wait_all();
+#pragma unroll
+  for (int buf = 0; buf < 2; ++buf)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tc::hold(ab[buf][i]);
+      tc::hold(as[buf][i]);
+    }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    tc::hold(p0[i]);
+    tc::hold(p1[i]);
+  }
 }
 
 // acc[n, m] = sum_f a[n][f] xm[m][f] for the warpgroup's 64 rows n of a
@@ -376,13 +426,14 @@ gcn_bwd_row_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
         for (int e = 0; e < 2; ++e) al[2 * nb + e] = s.alpha[nb * 8 + 2 * tq + e];
-      float part[32];
-      node_chain(part, &s.ew[0][1][0][0], 4 * TILE, frag);  // sum_m (e gate da)[n, m] x_m
+      float pu[32], pv[32];  // sum_m (e gate da)[n, m] x_m and sum_m e[n, m] x_m
+      chain2<NT / 8>(pu, pv, frag, [&](int j) { return &s.ew[j][1][0][0]; },
+                     [&](int j) { return &s.ew[j][0][0][0]; });
 #pragma unroll
-      for (int i = 0; i < 32; ++i) u_acc[i] = u_acc[i] * al[2 * (i / 4) + i % 2] + part[i];
-      node_chain(part, &s.ew[0][0][0][0], 4 * TILE, frag);  // sum_m e[n, m] x_m
-#pragma unroll
-      for (int i = 0; i < 32; ++i) v_acc[i] = v_acc[i] * al[2 * (i / 4) + i % 2] + part[i];
+      for (int i = 0; i < 32; ++i) {
+        u_acc[i] = u_acc[i] * al[2 * (i / 4) + i % 2] + pu[i];
+        v_acc[i] = v_acc[i] * al[2 * (i / 4) + i % 2] + pv[i];
+      }
     }
     __syncthreads();  // the tile's buffers are free
   }
@@ -428,10 +479,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ gate, const float* __restrict__ stats,
                       float* __restrict__ dx, float* __restrict__ pdg, int n, int t_len,
-                      float scale1, float scale2) {
+                      int t_per, float scale1, float scale2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ColSmem<D>& s = *reinterpret_cast<ColSmem<D>*>(smem_raw);
   const int64_t b = blockIdx.y;
+  const int t_begin = blockIdx.z * t_per;
+  const int t_end = min(t_len, t_begin + t_per);
   const int m0 = blockIdx.x * NT;
   const int64_t node_stride = (int64_t)t_len * D;
   const int wg = threadIdx.x >> 7;
@@ -440,9 +493,10 @@ gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const bool mixer = wg < D / 64;
   const int fr = wg * 64 + r;
   const int rl = r + 8 * wg;  // the thread's row in the elementwise work
-  float* pdg_b = pdg + b * n * (int64_t)n;  // [n][m]: this batch's dgate partial
+  // [n][m]: the dgate partial of this batch and group of steps
+  float* pdg_b = pdg + (b * gridDim.z + blockIdx.z) * n * (int64_t)n;
 
-  for (int t = 0; t < t_len; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     const int64_t off = (b * n * t_len + t) * (int64_t)D;
     const float* xbt = x + off;
     const float* gbt = g + off;
@@ -471,7 +525,7 @@ gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int i = 0; i < 16; ++i) {
         const int m = min(m0 + (i / 2) * 8 + 2 * tq + i % 2, n - 1);
         gt[i] = grow[m];
-        old[i] = t > 0 ? prow[m] : 0.f;
+        old[i] = t > t_begin ? prow[m] : 0.f;
       }
 
       float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
@@ -576,6 +630,30 @@ __global__ void gcn_bwd_dgate_kernel(const float* __restrict__ pdg, float* __res
   dgate[idx] = s;
 }
 
+// The column kernel runs one CTA per SM; its grid (column blocks x batch
+// x groups of steps) fills the SMs in waves, each CTA looping over its
+// steps. The number of groups (at most MAX_GROUPS) is the one whose waves
+// take the fewest step rounds, the fewest groups on a tie: 4 at PEMS08
+// (N = 170, batch 32: 3 waves of 3 steps against 1 wave of 12 steps on 96
+// of 132 SMs), 2 at PEMS07.
+int t_groups(int b, int n, int t_len) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t ctas = (int64_t)((n + NT - 1) / NT) * b;
+  int best = 1;
+  int64_t best_rounds = -1;
+  for (int gcount = 1; gcount <= MAX_GROUPS && gcount <= t_len; ++gcount) {
+    const int t_per = (t_len + gcount - 1) / gcount;
+    const int64_t rounds = (ctas * gcount + sms - 1) / sms * t_per;
+    if (best_rounds < 0 || rounds < best_rounds) {
+      best = gcount;
+      best_rounds = rounds;
+    }
+  }
+  return best;
+}
+
 template <int D>
 int launch(const float* x, const float* g, const float* gate, float* dx, float* dgate,
            float* scratch, int b, int n, int t_len, float scale1, float scale2,
@@ -588,18 +666,21 @@ int launch(const float* x, const float* g, const float* gate, float* dx, float* 
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(ColSmem<D>));
   if (err != cudaSuccess) return (int)err;
   float* stats = scratch;                                  // [B*T][3][N]
-  float* pdg = scratch + (int64_t)b * t_len * 3 * n;       // [B][N][N]
+  float* pdg = scratch + (int64_t)b * t_len * 3 * n;       // [B][groups][N][N]
   const int tiles = (n + NT - 1) / NT;
+  const int groups = t_groups(b, n, t_len);
+  const int t_per = (t_len + groups - 1) / groups;
   gcn_bwd_row_tc_kernel<D><<<dim3(tiles, t_len, b), THREADS, sizeof(RowSmem<D>), stream>>>(
       x, g, gate, dx, stats, n, t_len, scale1, scale2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gcn_bwd_col_tc_kernel<D><<<dim3(tiles, b), THREADS, sizeof(ColSmem<D>), stream>>>(
-      x, g, gate, stats, dx, pdg, n, t_len, scale1, scale2);
+  gcn_bwd_col_tc_kernel<D><<<dim3(tiles, b, groups), THREADS, sizeof(ColSmem<D>), stream>>>(
+      x, g, gate, stats, dx, pdg, n, t_len, t_per, scale1, scale2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t nn2 = (int64_t)n * n;
-  gcn_bwd_dgate_kernel<<<(unsigned)((nn2 + 255) / 256), 256, 0, stream>>>(pdg, dgate, n, b);
+  gcn_bwd_dgate_kernel<<<(unsigned)((nn2 + 255) / 256), 256, 0, stream>>>(pdg, dgate, n,
+                                                                           b * groups);
   return (int)cudaGetLastError();
 }
 
@@ -608,7 +689,7 @@ int launch(const float* x, const float* g, const float* gate, float* dx, float* 
 // floats of scratch one call needs: row statistics per slice and one dgate
 // partial per batch
 extern "C" int64_t pxt_gcn_bwd_scratch_floats(int b, int n, int t_len) {
-  return (int64_t)b * t_len * 3 * n + (int64_t)b * n * n;
+  return (int64_t)b * t_len * 3 * n + (int64_t)b * t_groups(b, n, t_len) * n * n;
 }
 
 extern "C" int pxt_gcn_bwd_f32(const void* x, const void* g, const void* gate, void* dx,
