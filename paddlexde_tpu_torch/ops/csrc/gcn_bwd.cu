@@ -332,145 +332,178 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 gcn_bwd_row_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ gate, float* __restrict__ dx,
-                      float* __restrict__ stats, int n, int t_len, float scale1, float scale2) {
+                      float* __restrict__ stats, int nb, int n, int t_len, float scale1,
+                      float scale2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   RowSmem<D>& s = *reinterpret_cast<RowSmem<D>*>(smem_raw);
-  const int t = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int64_t bt = b * t_len + t;
   const int64_t node_stride = (int64_t)t_len * D;
-  const int64_t off = (b * n * t_len + t) * (int64_t)D;
-  const float* xbt = x + off;
-  const float* gbt = g + off;
   const int wg = threadIdx.x >> 7;
   const int r = wg_row();
   const int tq = threadIdx.x & 3;
-  const int n0 = blockIdx.x * NT;
   const bool mixer = wg < D / 64;  // warpgroup w mixes features 64 w .. 64 w + 63
   const int fr = wg * 64 + r;      // its features fr and fr + 8
+  const int rl = r + 8 * wg;       // the row of the thread's online softmax
+  const int tiles = (n + NT - 1) / NT;
+  const int64_t items = (int64_t)tiles * t_len * nb;
+  // work item: (row block, t, b), row blocks fastest; x and g of item i
+  // start at slice(i)
+  auto slice = [&](int64_t i) {
+    const int64_t bt = i / tiles;  // b * t_len + t
+    return ((bt / t_len) * n * t_len + bt % t_len) * (int64_t)D;
+  };
 
-  stage_raw<D>(s.xn, xbt, n0, n, node_stride);
-  stage_raw<D>(s.gn, gbt, n0, n, node_stride);
-  tc::cp_async_commit();
-
-  const int rl = r + 8 * wg;  // the row of the thread's online softmax
-  float run_max = -INFINITY, run_sum = 0.f, run_r = 0.f;
-  // mixers: U^T and V^T [feature, row] in the m64n64 fragment
-  float u_acc[32], v_acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) u_acc[i] = v_acc[i] = 0.f;
-
-  for (int m0 = 0; m0 < n; m0 += NT) {
-    stage_split<D>(s.xm, xbt, m0, n, node_stride);
-    tc::cp_async_wait_all();
-    tc::fence_proxy_async();
-    __syncthreads();
-
-    float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
-    score_tile<D>(wg == 0 ? s.xn : s.gn, s.xm, sc);
-    swap_out(s.ex, sc, wg);
-    __syncthreads();
-
-    {
-      float sv[16], dv[16];
-      swap_in(s.ex, sc, wg, sv, dv);
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        sv[i] *= scale1;
-        if (m0 + (i / 2) * 8 + 2 * tq + i % 2 < n) tmax = fmaxf(tmax, sv[i]);
-      }
-      const float new_max = fmaxf(run_max, quad_max(tmax));
-      const float alpha = expf(run_max - new_max);  // 0 on the first tile
-      const float* grow = gate + (int64_t)min(n0 + rl, n - 1) * n;
-      float gt[16];  // every gate load in flight at once
-#pragma unroll
-      for (int i = 0; i < 16; ++i) gt[i] = grow[min(m0 + (i / 2) * 8 + 2 * tq + i % 2, n - 1)];
-      float tsum = 0.f, tr = 0.f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int ml = (i / 2) * 8 + 2 * tq + i % 2;
-        const bool ok = m0 + ml < n;
-        const float ev = ok ? expf(sv[i] - new_max) : 0.f;
-        const float w = ok ? ev * (gt[i] * dv[i]) : 0.f;
-        tsum += ev;
-        tr += w;
-        const int o = tc::b_offset(rl, ml % 8);
-        put_split_at(&s.ew[ml / 8][0][0][0], o, ev);
-        put_split_at(&s.ew[ml / 8][1][0][0], o, w);
-      }
-      run_sum = run_sum * alpha + quad_sum(tsum);
-      run_r = run_r * alpha + quad_sum(tr);
-      run_max = new_max;
-      if (tq == 0) s.alpha[rl] = alpha;
-    }
-    tc::fence_proxy_async();
-    __syncthreads();
-
-    if (mixer) {
-      // A = X^T of the tile: (feature fr + 8 h, node 8 j + tq + 4 h2), big
-      // and small as stage_split wrote them
-      auto frag = [&](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int f = fr + 8 * h;
-            const int o = tc::b_offset(8 * j + tq + 4 * h2, f % 8);
-            ab[2 * h2 + h] = __float_as_uint(s.xm[f / 8][0][o]);
-            as[2 * h2 + h] = __float_as_uint(s.xm[f / 8][1][o]);
-          }
-      };
-      float al[16];
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) al[2 * nb + e] = s.alpha[nb * 8 + 2 * tq + e];
-      float pu[32], pv[32];  // sum_m (e gate da)[n, m] x_m and sum_m e[n, m] x_m
-      chain2<NT / 8>(pu, pv, frag, [&](int j) { return &s.ew[j][1][0][0]; },
-                     [&](int j) { return &s.ew[j][0][0][0]; });
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        u_acc[i] = u_acc[i] * al[2 * (i / 4) + i % 2] + pu[i];
-        v_acc[i] = v_acc[i] * al[2 * (i / 4) + i % 2] + pv[i];
-      }
-    }
-    __syncthreads();  // the tile's buffers are free
+  if (blockIdx.x < items) {
+    stage_raw<D>(s.xn, x + slice(blockIdx.x), (int)(blockIdx.x % tiles) * NT, n, node_stride);
+    stage_raw<D>(s.gn, g + slice(blockIdx.x), (int)(blockIdx.x % tiles) * NT, n, node_stride);
+    tc::cp_async_commit();
   }
+  // persistent: each CTA takes the items blockIdx.x + k gridDim.x; the rows
+  // of the next item are copied in while the last node tile of this one is
+  // mixed
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const int64_t bt = item / tiles;
+    const int n0 = (int)(item % tiles) * NT;
+    const float* xbt = x + slice(item);
+    const int64_t next = item + gridDim.x;
 
-  if (tq == 0) {
-    float* st = stats + bt * 3 * n;  // [3][n]: max, sum, r
-    s.lsum[rl] = run_sum;
-    s.rsum[rl] = run_r;
-    if (n0 + rl < n) {
-      st[n0 + rl] = run_max;
-      st[n + n0 + rl] = run_sum;
-      st[2 * n + n0 + rl] = scale2 * run_r * (1.f / run_sum);
-    }
-  }
-  __syncthreads();
-  if (mixer) {  // dx_row [row][feature] -> s.xn
+    float run_max = -INFINITY, run_sum = 0.f, run_r = 0.f;
+    // mixers: U^T and V^T [feature, row] in the m64n64 fragment
+    float u_acc[32], v_acc[32];
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int i = 0; i < 32; ++i) u_acc[i] = v_acc[i] = 0.f;
+
+    for (int m0 = 0; m0 < n; m0 += NT) {
+      stage_split<D>(s.xm, xbt, m0, n, node_stride);
+      tc::cp_async_wait_all();
+      tc::fence_proxy_async();
+      __syncthreads();
+
+      float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
+      score_tile<D>(wg == 0 ? s.xn : s.gn, s.xm, sc);
+      swap_out(s.ex, sc, wg);
+      __syncthreads();
+      if (m0 + NT >= n && next < items) {  // the rows are read: the next item's
+        stage_raw<D>(s.xn, x + slice(next), (int)(next % tiles) * NT, n, node_stride);
+        stage_raw<D>(s.gn, g + slice(next), (int)(next % tiles) * NT, n, node_stride);
+        tc::cp_async_commit();
+      }
+
+      {
+        float sv[16], dv[16];
+        swap_in(s.ex, sc, wg, sv, dv);
+        float tmax = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int rl = nb * 8 + 2 * tq + e;
-        const float inv = 1.f / s.lsum[rl];
-        const float rr = scale2 * s.rsum[rl] * inv;
+        for (int i = 0; i < 16; ++i) {
+          sv[i] *= scale1;
+          if (m0 + (i / 2) * 8 + 2 * tq + i % 2 < n) tmax = fmaxf(tmax, sv[i]);
+        }
+        const float new_max = fmaxf(run_max, quad_max(tmax));
+        const float alpha = expf(run_max - new_max);  // 0 on the first tile
+        const float* grow = gate + (int64_t)min(n0 + rl, n - 1) * n;
+        float gt[16];  // every gate load in flight at once
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * nb + 2 * h + e;
-          s.xn[rl][fr + 8 * h] = scale1 * (scale2 * u_acc[i] * inv - rr * (v_acc[i] * inv));
+        for (int i = 0; i < 16; ++i) gt[i] = grow[min(m0 + (i / 2) * 8 + 2 * tq + i % 2, n - 1)];
+        float tsum = 0.f, tr = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int ml = (i / 2) * 8 + 2 * tq + i % 2;
+          const bool ok = m0 + ml < n;
+          const float ev = ok ? expf(sv[i] - new_max) : 0.f;
+          const float w = ok ? ev * (gt[i] * dv[i]) : 0.f;
+          tsum += ev;
+          tr += w;
+          const int o = tc::b_offset(rl, ml % 8);
+          put_split_at(&s.ew[ml / 8][0][0][0], o, ev);
+          put_split_at(&s.ew[ml / 8][1][0][0], o, w);
+        }
+        run_sum = run_sum * alpha + quad_sum(tsum);
+        run_r = run_r * alpha + quad_sum(tr);
+        run_max = new_max;
+        if (tq == 0) s.alpha[rl] = alpha;
+      }
+      tc::fence_proxy_async();
+      __syncthreads();
+
+      if (mixer) {
+        // A = X^T of the tile: (feature fr + 8 h, node 8 j + tq + 4 h2), big
+        // and small as stage_split wrote them
+        auto frag = [&](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int f = fr + 8 * h;
+              const int o = tc::b_offset(8 * j + tq + 4 * h2, f % 8);
+              ab[2 * h2 + h] = __float_as_uint(s.xm[f / 8][0][o]);
+              as[2 * h2 + h] = __float_as_uint(s.xm[f / 8][1][o]);
+            }
+        };
+        float al[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) al[i] = s.alpha[(i / 2) * 8 + 2 * tq + i % 2];
+        float pu[32], pv[32];  // sum_m (e gate da)[n, m] x_m and sum_m e[n, m] x_m
+        chain2<NT / 8>(pu, pv, frag, [&](int j) { return &s.ew[j][1][0][0]; },
+                       [&](int j) { return &s.ew[j][0][0][0]; });
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          u_acc[i] = u_acc[i] * al[2 * (i / 4) + i % 2] + pu[i];
+          v_acc[i] = v_acc[i] * al[2 * (i / 4) + i % 2] + pv[i];
         }
       }
+      __syncthreads();  // the tile's buffers are free
+    }
+
+    if (tq == 0) {
+      float* st = stats + bt * 3 * n;  // [3][n]: max, sum, r
+      s.lsum[rl] = run_sum;
+      s.rsum[rl] = run_r;
+      if (n0 + rl < n) {
+        st[n0 + rl] = run_max;
+        st[n + n0 + rl] = run_sum;
+        st[2 * n + n0 + rl] = scale2 * run_r * (1.f / run_sum);
+      }
+    }
+    __syncthreads();
+    // dx_row [row][feature], staged in the split tile's space (xn and gn
+    // hold the next item's rows)
+    float (*stg)[D + 4] = reinterpret_cast<float (*)[D + 4]>(&s.xm[0][0][0]);
+    if (mixer) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int row = (i / 2) * 8 + 2 * tq + i % 2;
+        const float inv = 1.f / s.lsum[row];
+        const float rr = scale2 * s.rsum[row] * inv;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 4 * (i / 2) + 2 * h + i % 2;
+          stg[row][fr + 8 * h] = scale1 * (scale2 * u_acc[k] * inv - rr * (v_acc[k] * inv));
+        }
+      }
+    }
+    __syncthreads();
+    float* dxbt = dx + slice(item);
+    for (int u = threadIdx.x; u < NT * (D / 4); u += THREADS) {
+      const int row = u / (D / 4);
+      const int q = u % (D / 4);
+      if (n0 + row < n)
+        *reinterpret_cast<float4*>(dxbt + (n0 + row) * node_stride + 4 * q) =
+            *reinterpret_cast<const float4*>(&stg[row][4 * q]);
+    }
+    __syncthreads();  // the staging is read before the next item's tiles
   }
-  __syncthreads();
-  for (int u = threadIdx.x; u < NT * (D / 4); u += THREADS) {
-    const int rl = u / (D / 4);
-    const int q = u % (D / 4);
-    if (n0 + rl < n)
-      *reinterpret_cast<float4*>(dx + ((b * n + n0 + rl) * t_len + t) * (int64_t)D + 4 * q) =
-          *reinterpret_cast<const float4*>(&s.xn[rl][4 * q]);
+}
+
+// 64 features f0 .. f0 + 63 of nodes r0 .. r0 + NT - 1 -> dst, by one
+// warpgroup (cp.async, zeros past n; not committed)
+template <int D>
+__device__ __forceinline__ void stage_raw_half(float (*dst)[D + 4], const float* __restrict__ src,
+                                               int r0, int n, int64_t node_stride, int f0) {
+  for (int u = threadIdx.x & 127; u < NT * 16; u += 128) {
+    const int r = u / 16;
+    const int q = u % 16;
+    const bool full = r0 + r < n;
+    tc::cp_async16_zfill(&dst[r][f0 + 4 * q],
+                         src + (full ? (int64_t)(r0 + r) * node_stride + f0 + 4 * q : 0), full);
   }
 }
 
@@ -493,127 +526,140 @@ gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const bool mixer = wg < D / 64;
   const int fr = wg * 64 + r;
   const int rl = r + 8 * wg;  // the thread's row in the elementwise work
+  const int tiles = (n + NT - 1) / NT;
+  const int count = (t_end - t_begin) * tiles;  // (step, row tile) pairs, tiles fastest
   // [n][m]: the dgate partial of this batch and group of steps
   float* pdg_b = pdg + (b * gridDim.z + blockIdx.z) * n * (int64_t)n;
+  auto slice = [&](int t) { return (b * n * t_len + t) * (int64_t)D; };
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int64_t off = (b * n * t_len + t) * (int64_t)D;
-    const float* xbt = x + off;
-    const float* gbt = g + off;
+  if (count > 0) {
+    stage_raw<D>(s.xn, x + slice(t_begin), 0, n, node_stride);
+    stage_raw<D>(s.gn, g + slice(t_begin), 0, n, node_stride);
+    tc::cp_async_commit();
+  }
+  float acc[32];  // mixers: (dx_col)^T [feature, column] of the step
+  for (int it = 0; it < count; ++it) {
+    const int t = t_begin + it / tiles;
+    const int n0 = (it % tiles) * NT;
+    const float* xbt = x + slice(t);
     const float* st = stats + (b * t_len + t) * 3 * n;
-    float acc[32];  // mixers: (dx_col)^T [feature, column]
+    if (n0 == 0) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    __syncthreads();  // the previous step's staging of dx is read
-    stage_split<D>(s.xm, xbt, m0, n, node_stride);
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      stage_split<D>(s.xm, xbt, m0, n, node_stride);
+    }
+    tc::cp_async_wait_all();
+    tc::fence_proxy_async();
+    __syncthreads();
 
-    for (int n0 = 0; n0 < n; n0 += NT) {
-      stage_raw<D>(s.xn, xbt, n0, n, node_stride);
-      stage_raw<D>(s.gn, gbt, n0, n, node_stride);
-      tc::cp_async_commit();
-      tc::cp_async_wait_all();
-      tc::fence_proxy_async();
-      __syncthreads();
+    // the gate and the dgate partial of the thread's row, loaded while the
+    // tensor cores run the scores
+    const int row = n0 + rl;
+    const float* grow = gate + (int64_t)min(row, n - 1) * n;
+    float* prow = pdg_b + (int64_t)min(row, n - 1) * n;
+    float gt[16], old[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int m = min(m0 + (i / 2) * 8 + 2 * tq + i % 2, n - 1);
+      gt[i] = grow[m];
+      old[i] = t > t_begin ? prow[m] : 0.f;
+    }
 
-      // the gate and the dgate partial of the thread's row, loaded while
-      // the tensor cores run the scores
-      const int row = n0 + rl;
-      const float* grow = gate + (int64_t)min(row, n - 1) * n;
-      float* prow = pdg_b + (int64_t)min(row, n - 1) * n;
-      float gt[16], old[16];
+    float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
+    score_tile<D>(wg == 0 ? s.xn : s.gn, s.xm, sc);
+    swap_out(s.ex, sc, wg);
+    __syncthreads();
+
+    {
+      float sv[16], dv[16];
+      swap_in(s.ex, sc, wg, sv, dv);
+      const bool valid = row < n;
+      const float rmax = valid ? st[row] : 0.f;
+      const float rinv = valid ? 1.f / st[n + row] : 0.f;
+      const float rr = valid ? st[2 * n + row] : 0.f;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        const int m = min(m0 + (i / 2) * 8 + 2 * tq + i % 2, n - 1);
-        gt[i] = grow[m];
-        old[i] = t > t_begin ? prow[m] : 0.f;
-      }
-
-      float sc[32];  // warpgroup 0: s[n, m]; warpgroup 1: da[n, m]
-      score_tile<D>(wg == 0 ? s.xn : s.gn, s.xm, sc);
-      swap_out(s.ex, sc, wg);
-      __syncthreads();
-
-      {
-        float sv[16], dv[16];
-        swap_in(s.ex, sc, wg, sv, dv);
-        const bool valid = row < n;
-        const float rmax = valid ? st[row] : 0.f;
-        const float rinv = valid ? 1.f / st[n + row] : 0.f;
-        const float rr = valid ? st[2 * n + row] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int ml = (i / 2) * 8 + 2 * tq + i % 2;
-          const int m = m0 + ml;
-          float a = 0.f, dsv = 0.f;
-          if (valid) {
-            const float p0 = expf(sv[i] * scale1 - rmax) * rinv;
-            a = p0 * scale2 * gt[i];
-            dsv = scale1 * (p0 * (scale2 * gt[i] * dv[i] - rr));
-            if (m < n) prow[m] = old[i] + p0 * scale2 * dv[i];
-          }
-          const int o = tc::b_offset(ml, rl % 8);
-          put_split_at(&s.ad[rl / 8][0][0][0], o, a);
-          put_split_at(&s.ad[rl / 8][1][0][0], o, dsv);
+        const int ml = (i / 2) * 8 + 2 * tq + i % 2;
+        const int m = m0 + ml;
+        float a = 0.f, dsv = 0.f;
+        if (valid) {
+          const float p0 = expf(sv[i] * scale1 - rmax) * rinv;
+          a = p0 * scale2 * gt[i];
+          dsv = scale1 * (p0 * (scale2 * gt[i] * dv[i] - rr));
+          if (m < n) prow[m] = old[i] + p0 * scale2 * dv[i];
         }
+        const int o = tc::b_offset(ml, rl % 8);
+        put_split_at(&s.ad[rl / 8][0][0][0], o, a);
+        put_split_at(&s.ad[rl / 8][1][0][0], o, dsv);
       }
-      tc::fence_proxy_async();
-      __syncthreads();
-
-      if (mixer) {
-        // A = G^T or X^T of the tile: (feature fr + 8 h, node 8 j + tq + 4 h2)
-        auto frag_of = [&](const float (*raw)[D + 4]) {
-          return [=](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
-#pragma unroll
-            for (int h2 = 0; h2 < 2; ++h2)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-                tc::split_tf32(raw[8 * j + tq + 4 * h2][fr + 8 * h], ab[2 * h2 + h],
-                               as[2 * h2 + h]);
-          };
-        };
-        float part[32];
-        node_chain(part, &s.ad[0][0][0][0], 4 * TILE, frag_of(s.gn));  // sum_n a[n, m] g_n
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] += part[i];
-        node_chain(part, &s.ad[0][1][0][0], 4 * TILE, frag_of(s.xn));  // scale1 sum_n ds x_n
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] += part[i];
-      }
-      __syncthreads();  // the tile's buffers are free
     }
-
-    if (mixer) {  // dx_col [column][feature] -> s.xn
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            s.xn[nb * 8 + 2 * tq + e][fr + 8 * h] = acc[4 * nb + 2 * h + e];
-    }
+    tc::fence_proxy_async();
     __syncthreads();
-    constexpr int ITER = NT * (D / 4) / THREADS;
-    float4 cur[ITER];  // every load in flight at once
+
+    if (mixer) {
+      // A = G^T or X^T of the tile: (feature fr + 8 h, node 8 j + tq + 4 h2)
+      auto frag_of = [&](const float (*raw)[D + 4]) {
+        return [=](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
 #pragma unroll
-    for (int i = 0; i < ITER; ++i) {
-      const int u = threadIdx.x + i * THREADS;
-      const int ml = min(m0 + u / (D / 4), n - 1);
-      cur[i] = *reinterpret_cast<const float4*>(dx + ((b * n + ml) * t_len + t) * (int64_t)D +
-                                                4 * (u % (D / 4)));
+          for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              tc::split_tf32(raw[8 * j + tq + 4 * h2][fr + 8 * h], ab[2 * h2 + h],
+                             as[2 * h2 + h]);
+        };
+      };
+      // each mixer reads only its own 64 features of g and x in the mixes:
+      // once a mix is done it copies those of the next tile in
+      const bool more = it + 1 < count;
+      const int64_t next_slice = slice(t_begin + (it + 1) / tiles);
+      const int next_n0 = ((it + 1) % tiles) * NT;
+      float part[32];
+      node_chain(part, &s.ad[0][0][0][0], 4 * TILE, frag_of(s.gn));  // sum_n a[n, m] g_n
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+      if (more) stage_raw_half<D>(s.gn, g + next_slice, next_n0, n, node_stride, 64 * wg);
+      node_chain(part, &s.ad[0][1][0][0], 4 * TILE, frag_of(s.xn));  // scale1 sum_n ds x_n
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+      if (more) stage_raw_half<D>(s.xn, x + next_slice, next_n0, n, node_stride, 64 * wg);
+      tc::cp_async_commit();
     }
+    __syncthreads();  // the split tiles are free
+
+    if (n0 + NT >= n) {  // the step's last row tile: dx[m] += dx_col, staged in s.ad
+      float (*stg)[D + 4] = reinterpret_cast<float (*)[D + 4]>(&s.ad[0][0][0][0]);
+      if (mixer) {
 #pragma unroll
-    for (int i = 0; i < ITER; ++i) {
-      const int u = threadIdx.x + i * THREADS;
-      const int ml = u / (D / 4);
-      const int q = u % (D / 4);
-      if (m0 + ml < n) {
-        const float4 add = *reinterpret_cast<const float4*>(&s.xn[ml][4 * q]);
-        cur[i].x += add.x;
-        cur[i].y += add.y;
-        cur[i].z += add.z;
-        cur[i].w += add.w;
-        *reinterpret_cast<float4*>(dx + ((b * n + m0 + ml) * t_len + t) * (int64_t)D + 4 * q) =
-            cur[i];
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              stg[nb * 8 + 2 * tq + e][fr + 8 * h] = acc[4 * nb + 2 * h + e];
+      }
+      __syncthreads();
+      constexpr int ITER = NT * (D / 4) / THREADS;
+      float4 cur[ITER];  // every load in flight at once
+      float* dxbt = dx + slice(t);
+#pragma unroll
+      for (int i = 0; i < ITER; ++i) {
+        const int u = threadIdx.x + i * THREADS;
+        const int ml = min(m0 + u / (D / 4), n - 1);
+        cur[i] = *reinterpret_cast<const float4*>(dxbt + ml * node_stride + 4 * (u % (D / 4)));
+      }
+#pragma unroll
+      for (int i = 0; i < ITER; ++i) {
+        const int u = threadIdx.x + i * THREADS;
+        const int ml = u / (D / 4);
+        const int q = u % (D / 4);
+        if (m0 + ml < n) {
+          const float4 add = *reinterpret_cast<const float4*>(&stg[ml][4 * q]);
+          cur[i].x += add.x;
+          cur[i].y += add.y;
+          cur[i].z += add.z;
+          cur[i].w += add.w;
+          *reinterpret_cast<float4*>(dxbt + (m0 + ml) * node_stride + 4 * q) = cur[i];
+        }
       }
     }
   }
@@ -636,10 +682,15 @@ __global__ void gcn_bwd_dgate_kernel(const float* __restrict__ pdg, float* __res
 // take the fewest step rounds, the fewest groups on a tie: 4 at PEMS08
 // (N = 170, batch 32: 3 waves of 3 steps against 1 wave of 12 steps on 96
 // of 132 SMs), 2 at PEMS07.
-int t_groups(int b, int n, int t_len) {
+int sm_count() {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+int t_groups(int b, int n, int t_len) {
+  const int sms = sm_count();
   const int64_t ctas = (int64_t)((n + NT - 1) / NT) * b;
   int best = 1;
   int64_t best_rounds = -1;
@@ -670,8 +721,10 @@ int launch(const float* x, const float* g, const float* gate, float* dx, float* 
   const int tiles = (n + NT - 1) / NT;
   const int groups = t_groups(b, n, t_len);
   const int t_per = (t_len + groups - 1) / groups;
-  gcn_bwd_row_tc_kernel<D><<<dim3(tiles, t_len, b), THREADS, sizeof(RowSmem<D>), stream>>>(
-      x, g, gate, dx, stats, n, t_len, scale1, scale2);
+  const int64_t items = (int64_t)tiles * t_len * b;
+  const int rows_grid = (int)(items < sm_count() ? items : sm_count());
+  gcn_bwd_row_tc_kernel<D><<<rows_grid, THREADS, sizeof(RowSmem<D>), stream>>>(
+      x, g, gate, dx, stats, b, n, t_len, scale1, scale2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gcn_bwd_col_tc_kernel<D><<<dim3(tiles, b, groups), THREADS, sizeof(ColSmem<D>), stream>>>(
