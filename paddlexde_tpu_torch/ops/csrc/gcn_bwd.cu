@@ -14,18 +14,20 @@
 // Design: FlashAttention-2's backward shape, three kernels per call, each
 // CTA two warpgroups (256 threads) and node tiles of NT = 64.
 //
-// 1. gcn_bwd_row_tc_kernel: one CTA per (64 rows n, t, b); the nodes m
-//    stream through shared memory in tiles of 64. Warpgroup 0 takes the
-//    scores s[n, m] = x_n . x_m, warpgroup 1 da[n, m] = g_n . x_m, both as
-//    wgmma m64n64k8 (A the CTA's rows as they are, split as they are read;
-//    B the tile of x, split once into K-major core matrices: tc::b_offset).
-//    Warpgroup 0 then takes the row softmax online (running max and sum)
-//    and r_n on the CUDA cores, and writes e and e gate da to shared memory,
-//    split, as the B operands of the two mixes U^T = X^T (e gate da)^T and
-//    V^T = X^T e^T (M = features: warpgroup w takes features 64 w ..
-//    64 w + 63; A = X^T read from the split tile, once for both mixes). The
-//    online rescaling by alpha joins each chain's flush. One sweep yields
-//    the row half of dx,
+// 1. gcn_bwd_row_tc_kernel: one persistent CTA per SM walks the work
+//    items (64 rows n, t, b); the nodes m stream through shared memory in
+//    tiles of 64. Warpgroup 0 takes the scores s[n, m] = x_n . x_m,
+//    warpgroup 1 da[n, m] = g_n . x_m, both as wgmma m64n64k8 (A the
+//    item's rows as they are, split as they are read; B the tile of x,
+//    split once into K-major core matrices: tc::b_offset). The two then
+//    take the row softmax online (running max and sum) and r_n on the CUDA
+//    cores, each for half of the rows, and write e and e gate da to shared
+//    memory, split, as the B operands of the two mixes U^T = X^T
+//    (e gate da)^T and V^T = X^T e^T (M = features: warpgroup w takes
+//    features 64 w .. 64 w + 63; A = X^T read from the split tile, once for
+//    both mixes). The online rescaling by alpha joins each chain's flush.
+//    The next item's rows are copied in under the last tile's mixes. One
+//    sweep yields the row half of dx,
 //      dx_row[n] = scale1 (scale2 U_n / l_n - r_n V_n / l_n),
 //    and the row statistics (max, sum, r) in a [B*T, 3, N] scratch.
 // 2. gcn_bwd_col_tc_kernel: one CTA per (64 columns m, b, group of
@@ -38,7 +40,8 @@
 //    B = a and ds, split). p0 scale2 da of its columns adds, over the
 //    group's steps in order, into one dgate partial per (b, group)
 //    ([B, groups, N, N]; each entry read and written by one thread only).
-//    The groups (t_groups: 1 to 4) fill the SMs' waves.
+//    The groups (t_groups: 1 to 4) fill the SMs' waves. Each row tile of x
+//    and g is copied in under the previous tile's mixes.
 // 3. gcn_bwd_dgate_kernel sums the B groups partials of each gate entry in
 //    order.
 //
@@ -58,14 +61,14 @@
 // design does eight: scores and g x^T in both passes, two mixes in each)
 // in 3xTF32 on the tensor cores, against 3 N D floats moved per slice; the
 // dgate partials take B groups N^2 floats of scratch (14.8 MB at PEMS08,
-// batch 32, 4 groups; one per slice took 44 MB). The elementwise work between the products (online
-// softmax, p0, a, ds, the dgate partial) is split by rows between the two
-// warpgroups.
+// batch 32, 4 groups; one per slice took 44 MB).
 // D = 64 and D = 128 only (at D = 64 warpgroup 1 takes no mix); any N.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "tc_conv.cuh"
 
@@ -84,7 +87,7 @@ struct RowSmem {
   float gn[NT][D + 4];          // the CTA's rows of g, as they are
   float xm[D / 8][2][TILE];     // a tile of x split (k = features): B of the scores
   float ew[NT / 8][2][2][TILE]; // [k-block of m][e | e gate da][big | small], N = n
-  float ex[NT][EX];             // da of warpgroup 1 for warpgroup 0
+  float ex[NT][EX];             // s or da of the rows the other warpgroup takes
   float alpha[NT];
   float lsum[NT];
   float rsum[NT];
@@ -177,12 +180,13 @@ __device__ __forceinline__ void wgmma_wait_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
-// part = sum over KS k-steps j of A_j B_j in 3xTF32 on the tensor cores:
-// frag(j, big, small) reads and splits the thread's A fragment of k-step j,
-// b(j) is the split B tile of k-step j (big; small TILE floats further).
-// A fragments in two register buffers: k-step j's is read while j - 1 runs.
-template <int KS, typename Frag, typename BTile>
-__device__ __forceinline__ void chain(float (&part)[32], Frag frag, BTile b) {
+// parts[p] = sum over KS k-steps j of A_j B_pj in 3xTF32 on the tensor
+// cores, for NP products that share A: frag(j, big, small) reads and splits
+// the thread's A fragment of k-step j, b(p, j) is product p's split B tile
+// of k-step j (big; small TILE floats further). A fragments in two register
+// buffers: k-step j's is read while j - 1 runs.
+template <int KS, int NP, typename Frag, typename BTile>
+__device__ __forceinline__ void chain(float (&parts)[NP][32], Frag frag, BTile b) {
   uint32_t ab[2][4], as[2][4];
 #pragma unroll
   for (int j = 0; j < KS; ++j) {
@@ -197,12 +201,15 @@ __device__ __forceinline__ void chain(float (&part)[32], Frag frag, BTile b) {
     }
     frag(j, ab[buf], as[buf]);
     tc::wgmma_fence();
-    const float* tile = b(j);
-    const uint64_t big = tc::desc_b(tile);
-    const uint64_t small = tc::desc_b(tile + TILE);
-    tc::wgmma_n64(part, as[buf], big, j > 0);
-    tc::wgmma_n64(part, ab[buf], small, 1);
-    tc::wgmma_n64(part, ab[buf], big, 1);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float* tile = b(p, j);
+      const uint64_t big = tc::desc_b(tile);
+      const uint64_t small = tc::desc_b(tile + TILE);
+      tc::wgmma_n64(parts[p], as[buf], big, j > 0);
+      tc::wgmma_n64(parts[p], ab[buf], small, 1);
+      tc::wgmma_n64(parts[p], ab[buf], big, 1);
+    }
     tc::wgmma_commit();
   }
   tc::wgmma_wait_all();
@@ -214,50 +221,9 @@ __device__ __forceinline__ void chain(float (&part)[32], Frag frag, BTile b) {
       tc::hold(as[buf][i]);
     }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) tc::hold(part[i]);
-}
-
-// chain for two products that share A: p0 with the B tiles b0(j), p1 with
-// b1(j)
-template <int KS, typename Frag, typename B0, typename B1>
-__device__ __forceinline__ void chain2(float (&p0)[32], float (&p1)[32], Frag frag, B0 b0, B1 b1) {
-  uint32_t ab[2][4], as[2][4];
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
-  for (int j = 0; j < KS; ++j) {
-    const int buf = j & 1;
-    if (j >= 2) {
-      wgmma_wait_one();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        tc::hold(ab[buf][i]);
-        tc::hold(as[buf][i]);
-      }
-    }
-    frag(j, ab[buf], as[buf]);
-    tc::wgmma_fence();
-    const float* t0 = b0(j);
-    const float* t1 = b1(j);
-    tc::wgmma_n64(p0, as[buf], tc::desc_b(t0), j > 0);
-    tc::wgmma_n64(p0, ab[buf], tc::desc_b(t0 + TILE), 1);
-    tc::wgmma_n64(p0, ab[buf], tc::desc_b(t0), 1);
-    tc::wgmma_n64(p1, as[buf], tc::desc_b(t1), j > 0);
-    tc::wgmma_n64(p1, ab[buf], tc::desc_b(t1 + TILE), 1);
-    tc::wgmma_n64(p1, ab[buf], tc::desc_b(t1), 1);
-    tc::wgmma_commit();
-  }
-  tc::wgmma_wait_all();
-#pragma unroll
-  for (int buf = 0; buf < 2; ++buf)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      tc::hold(ab[buf][i]);
-      tc::hold(as[buf][i]);
-    }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    tc::hold(p0[i]);
-    tc::hold(p1[i]);
-  }
+    for (int i = 0; i < 32; ++i) tc::hold(parts[p][i]);
 }
 
 // acc[n, m] = sum_f a[n][f] xm[m][f] for the warpgroup's 64 rows n of a
@@ -273,8 +239,8 @@ __device__ __forceinline__ void score_tile(const float (*a)[D + 4], const float 
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int k0 = 0; k0 < D / 8; k0 += CH) {
-    float part[32];
-    chain<CH>(
+    float part[1][32];
+    chain<CH, 1>(
         part,
         [&](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
           const int c = (k0 + j) * 8 + tq;
@@ -283,18 +249,10 @@ __device__ __forceinline__ void score_tile(const float (*a)[D + 4], const float 
           tc::split_tf32(a[r][c + 4], ab[2], as[2]);
           tc::split_tf32(a[r + 8][c + 4], ab[3], as[3]);
         },
-        [&](int j) { return xm[k0 + j][0]; });
+        [&](int, int j) { return xm[k0 + j][0]; });
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+    for (int i = 0; i < 32; ++i) acc[i] += part[0][i];
   }
-}
-
-// part = one chain over 64 nodes (8 k-steps): A (row: feature, k: node) from
-// frag, B the split tiles at bt + j * kb_stride
-template <typename Frag>
-__device__ __forceinline__ void node_chain(float (&part)[32], const float* bt, int kb_stride,
-                                           Frag frag) {
-  chain<NT / 8>(part, frag, [&](int j) { return bt + j * kb_stride; });
 }
 
 // The elementwise work between the products is split by rows: warpgroup w
@@ -441,13 +399,13 @@ gcn_bwd_row_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
         float al[16];
 #pragma unroll
         for (int i = 0; i < 16; ++i) al[i] = s.alpha[(i / 2) * 8 + 2 * tq + i % 2];
-        float pu[32], pv[32];  // sum_m (e gate da)[n, m] x_m and sum_m e[n, m] x_m
-        chain2<NT / 8>(pu, pv, frag, [&](int j) { return &s.ew[j][1][0][0]; },
-                       [&](int j) { return &s.ew[j][0][0][0]; });
+        // sum_m (e gate da)[n, m] x_m and sum_m e[n, m] x_m
+        float part[2][32];
+        chain<NT / 8, 2>(part, frag, [&](int p, int j) { return &s.ew[j][1 - p][0][0]; });
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
-          u_acc[i] = u_acc[i] * al[2 * (i / 4) + i % 2] + pu[i];
-          v_acc[i] = v_acc[i] * al[2 * (i / 4) + i % 2] + pv[i];
+          u_acc[i] = u_acc[i] * al[2 * (i / 4) + i % 2] + part[0][i];
+          v_acc[i] = v_acc[i] * al[2 * (i / 4) + i % 2] + part[1][i];
         }
       }
       __syncthreads();  // the tile's buffers are free
@@ -613,14 +571,14 @@ gcn_bwd_col_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
       const bool more = it + 1 < count;
       const int64_t next_slice = slice(t_begin + (it + 1) / tiles);
       const int next_n0 = ((it + 1) % tiles) * NT;
-      float part[32];
-      node_chain(part, &s.ad[0][0][0][0], 4 * TILE, frag_of(s.gn));  // sum_n a[n, m] g_n
+      float part[1][32];
+      chain<NT / 8, 1>(part, frag_of(s.gn), [&](int, int j) { return &s.ad[j][0][0][0]; });
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+      for (int i = 0; i < 32; ++i) acc[i] += part[0][i];  // sum_n a[n, m] g_n
       if (more) stage_raw_half<D>(s.gn, g + next_slice, next_n0, n, node_stride, 64 * wg);
-      node_chain(part, &s.ad[0][1][0][0], 4 * TILE, frag_of(s.xn));  // scale1 sum_n ds x_n
+      chain<NT / 8, 1>(part, frag_of(s.xn), [&](int, int j) { return &s.ad[j][1][0][0]; });
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+      for (int i = 0; i < 32; ++i) acc[i] += part[0][i];  // scale1 sum_n ds[n, m] x_n
       if (more) stage_raw_half<D>(s.xn, x + next_slice, next_n0, n, node_stride, 64 * wg);
       tc::cp_async_commit();
     }
@@ -676,12 +634,7 @@ __global__ void gcn_bwd_dgate_kernel(const float* __restrict__ pdg, float* __res
   dgate[idx] = s;
 }
 
-// The column kernel runs one CTA per SM; its grid (column blocks x batch
-// x groups of steps) fills the SMs in waves, each CTA looping over its
-// steps. The number of groups (at most MAX_GROUPS) is the one whose waves
-// take the fewest step rounds, the fewest groups on a tie: 4 at PEMS08
-// (N = 170, batch 32: 3 waves of 3 steps against 1 wave of 12 steps on 96
-// of 132 SMs), 2 at PEMS07.
+// SMs of the current card: the row kernel runs one persistent CTA on each
 int sm_count() {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
@@ -689,6 +642,12 @@ int sm_count() {
   return sms;
 }
 
+// The column kernel runs one CTA per SM; its grid (column blocks x batch
+// x groups of steps) fills the SMs in waves, each CTA looping over its
+// steps. The number of groups (at most MAX_GROUPS) is the one whose waves
+// take the fewest step rounds, the fewest groups on a tie: 4 at PEMS08
+// (N = 170, batch 32: 3 waves of 3 steps against 1 wave of 12 steps on 96
+// of 132 SMs), 2 at PEMS07.
 int t_groups(int b, int n, int t_len) {
   const int sms = sm_count();
   const int64_t ctas = (int64_t)((n + NT - 1) / NT) * b;
@@ -722,7 +681,7 @@ int launch(const float* x, const float* g, const float* gate, float* dx, float* 
   const int groups = t_groups(b, n, t_len);
   const int t_per = (t_len + groups - 1) / groups;
   const int64_t items = (int64_t)tiles * t_len * b;
-  const int rows_grid = (int)(items < sm_count() ? items : sm_count());
+  const int rows_grid = (int)std::min<int64_t>(items, sm_count());
   gcn_bwd_row_tc_kernel<D><<<rows_grid, THREADS, sizeof(RowSmem<D>), stream>>>(
       x, g, gate, dx, stats, b, n, t_len, scale1, scale2);
   err = cudaGetLastError();
@@ -739,8 +698,8 @@ int launch(const float* x, const float* g, const float* gate, float* dx, float* 
 
 }  // namespace
 
-// floats of scratch one call needs: row statistics per slice and one dgate
-// partial per batch
+// floats of scratch one call needs on the current card: row statistics per
+// slice and one dgate partial per (batch, group of steps)
 extern "C" int64_t pxt_gcn_bwd_scratch_floats(int b, int n, int t_len) {
   return (int64_t)b * t_len * 3 * n + (int64_t)b * t_groups(b, n, t_len) * n * n;
 }

@@ -130,12 +130,13 @@ def gcn_spatial_mix_bwd_kernel(x, gate, g, scale2: float = 1.0):
     lib = _build.library("gcn_bwd")
     lib.pxt_gcn_bwd_scratch_floats.restype = ctypes.c_int64
     lib.pxt_gcn_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
-    scratch = torch.empty(lib.pxt_gcn_bwd_scratch_floats(b, n, t_len), dtype=torch.float32,
-                          device=x.device)
     fn = lib.pxt_gcn_bwd_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     with torch.cuda.device(x.device):
+        # the scratch depends on the card's SM count (csrc/gcn_bwd.cu)
+        scratch = torch.empty(lib.pxt_gcn_bwd_scratch_floats(b, n, t_len), dtype=torch.float32,
+                              device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), g.data_ptr(), gate.data_ptr(), dx.data_ptr(), dgate.data_ptr(),
                   scratch.data_ptr(), b, n, t_len, d, 1.0 / math.sqrt(d), float(scale2), stream)

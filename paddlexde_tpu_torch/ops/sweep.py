@@ -2,7 +2,7 @@
 
 Run from the repository root::
 
-    python -m paddlexde_tpu_torch.ops.sweep [--kernels gcn,attn,gcn_bwd,attn_bwd]
+    python -m paddlexde_tpu_torch.ops.sweep
 
 For each configuration in ``examples/configs`` at batch 32 and T=12, the
 GCN kernels (forward K2, backward K3) and the attention kernels (forward
@@ -14,14 +14,12 @@ plain version's time (CUDA events) and both bounds of ``ops/timing.py``
 Forward shapes other than D3STN's at D=128 (SYNTH) take the generic
 kernels; the backward kernels take D=64 and D=128.
 
-``--kernels`` picks some of the four (all by default). Prints the card line,
-one line per configuration, and a JSON list of the measurements as the last
-line. Exits non-zero when a kernel disagrees.
+Prints the card line, one line per configuration, and a JSON list of the
+measurements as the last line. Exits non-zero when a kernel disagrees.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import subprocess
@@ -133,16 +131,7 @@ def _attn(name, n, d, heads, ks, gen, dev):
             "kernel": "d3stn" if d3stn else "generic"}
 
 
-KERNELS = ("gcn", "attn", "gcn_bwd", "attn_bwd")
-
-
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", default=",".join(KERNELS),
-                        help="comma-separated subset of " + ",".join(KERNELS))
-    kernels = parser.parse_args(argv).kernels.split(",")
-    if not set(kernels) <= set(KERNELS):
-        raise SystemExit(f"sweep: --kernels takes {KERNELS}, got {kernels}")
+def main():
     if not torch.cuda.is_available():
         raise SystemExit("sweep: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -159,18 +148,17 @@ def main(argv=None):
     for name in CONFIGS:
         cfg = load_config(str(root / "examples" / "configs" / f"{name}.json"))
         n, d, heads, ks = cfg.num_nodes, cfg.d_model, cfg.head, cfg.kernel_size
-        row = {"config": name, "n": n, "d": d, "heads": heads}
-        for kernel in kernels:
-            if kernel in ("gcn", "gcn_bwd"):
-                row[kernel] = (_gcn if kernel == "gcn" else _gcn_bwd)(name, n, d, gen, dev)
-            else:
-                row[kernel] = (_attn if kernel == "attn" else _attn_bwd)(name, n, d, heads, ks,
-                                                                         gen, dev)
-            torch.cuda.empty_cache()
+        g = _gcn(name, n, d, gen, dev)
+        a = _attn(name, n, d, heads, ks, gen, dev)
+        gb = _gcn_bwd(name, n, d, gen, dev)
+        torch.cuda.empty_cache()
+        ab = _attn_bwd(name, n, d, heads, ks, gen, dev)
         print(f"{name} [B={BATCH}, N={n}, T={T_LEN}, D={d}, H={heads}]: "
-              + "; ".join(_fmt(k if "kernel" not in row[k] else f"{k} {row[k]['kernel']}", row[k])
-                          for k in kernels), flush=True)
-        rows.append(row)
+              + "; ".join((_fmt(f"gcn {g['kernel']}", g), _fmt(f"attn {a['kernel']}", a),
+                           _fmt("gcn_bwd", gb), _fmt("attn_bwd", ab))), flush=True)
+        rows.append({"config": name, "n": n, "d": d, "heads": heads, "gcn": g, "attn": a,
+                     "gcn_bwd": gb, "attn_bwd": ab})
+        torch.cuda.empty_cache()
     print(json.dumps(rows))
 
 
