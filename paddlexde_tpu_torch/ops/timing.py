@@ -15,8 +15,8 @@ Two bounds:
   TFLOP/s, the rest at 67 TFLOP/s, the two times added.
 
 The second is the least time of a float32 kernel that runs its products on
-the tensor cores, as the attention kernels K4 and K5 do; the first is the
-least time of one that does not.
+the tensor cores, as the GCN backward K3 and the attention kernels K4 and
+K5 do; the first is the least time of one that does not (K1, K2).
 """
 
 from __future__ import annotations
