@@ -143,7 +143,7 @@ __device__ __forceinline__ void stage_raw(float (*dst)[D + 4], const float* __re
 
 // nodes r0 .. r0 + NT - 1 of a [N, D] slice -> dst split, K-major over the
 // features (k-block f / 8, tc::b_offset(node, f % 8)); zeros past n. Every
-// load is issued before the first store. A quarter warp takes 8 nodes of
+// load is in flight before the first store. A quarter warp takes 8 nodes of
 // one float4 column: its 16-byte stores hit distinct banks.
 template <int D>
 __device__ __forceinline__ void stage_split(float (*dst)[2][TILE], const float* __restrict__ src,
