@@ -7,22 +7,51 @@
 //   y[b, n, t, :] = sum_m softmax_m(X[n] . X[m] * scale1) * scale2
 //                   * gate[n, m] * X[m]
 //
-// Design. One CTA per (row tile of 32 nodes, t, b), 8 warps of 4 rows each.
-// The whole X slice is staged once into shared memory (N x (D+1) floats;
-// 87.7 KB at N=170, D=128, so the dynamic shared-memory opt-in is set). The
-// row stride D+1 keeps the score loop (lane = node m, running over D) free
-// of bank conflicts. Each warp computes its 4 score rows into a per-warp
-// shared buffer, takes the row softmax with warp shuffles, folds scale2 and
-// the gate row in, then multiplies by X with lane = feature. The [N, N]
-// score block never reaches device memory; x is read and y written once
-// (the re-reads of X by the other row tiles of the same slice hit L2).
+// D = 64 and D = 128 (every configuration the repo ships):
+// gcn_fwd_tc_kernel runs both N^2 D products on the tensor cores in 3xTF32
+// with the pieces of gcn_tc.cuh, for any N. One persistent CTA per SM (two
+// warpgroups, 256 threads) walks the work items (64 rows n, t, b); the
+// nodes m stream through shared memory in tiles of 64. Per tile:
 //
-// Bound: operations (4 N^2 D flops per slice in float32 on the CUDA cores,
-// against 2 N D floats moved). float32 only in this version.
+// 1. the next node tile (this item's next, else the next item's first) is
+//    copied in as it is (cp.async) into the second raw buffer;
+// 2. the scores S = X_n X_m^T as wgmma m64n64k8 (A the item's rows, split
+//    as they are read; B the node tile, split into K-major core matrices).
+//    Warpgroup w takes the features of half the k-steps (one chain of
+//    D / 16), and the two halves add in float32 as they are exchanged;
+// 3. the row softmax online (running max and sum, in base 2: the scores
+//    scaled by scale1 log2(e), then exp2) on the CUDA cores, each warpgroup
+//    for half of the rows; e gate goes split into shared memory as the B
+//    operand of the mix;
+// 4. the next tile is split into the split buffer, which the scores have
+//    done with; then the mix Y^T = X_m^T (e gate)^T with the features on M
+//    (warpgroup w takes features 64 w .. 64 w + 63; at D = 64 warpgroup 0
+//    alone), A read transposed from the raw tile and split as it is read:
+//    one chain of 8 k-steps (24 products) added to the float32 output,
+//    which the rescale by alpha joins.
+//
+// The next item's rows are copied in once this item's last scores are
+// taken. y = scale2 / l * out is written once; the [N, N] block never
+// reaches device memory. Bound: operations (4 N^2 D flops per slice, in
+// 3xTF32 on the tensor cores, and 5 N^2 on the CUDA cores) against 2 N D
+// floats moved. Shared memory (213.5 KB at D = 128) holds one CTA per SM.
+//
+// Other widths (D a multiple of 32 up to 256) take gcn_fwd_kernel on the
+// CUDA cores: one CTA per (row tile of 32 nodes, t, b), 8 warps of 4 rows
+// each. The whole X slice is staged once into shared memory (N x (D+1)
+// floats), so it raises past 227 KB. The row stride D+1 keeps the score
+// loop (lane = node m, running over D) free of bank conflicts. Each warp
+// computes its 4 score rows into a per-warp shared buffer, takes the row
+// softmax with warp shuffles, folds scale2 and the gate row in, then
+// multiplies by X with lane = feature.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "gcn_tc.cuh"
 
 namespace {
 
@@ -136,196 +165,205 @@ gcn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
 
 }  // namespace
 
-// ---------------------------------------------------------------------------
-// D = 128 (every configuration the repo ships except the synthetic one): a
-// register-tiled kernel for any N. Same CTA grid (32 rows of one (b, t)
-// slice per CTA), 4 warps of 8 rows. The CTA's rows are staged once; the
-// nodes stream through shared memory in tiles of MT = 64 (row stride D+4
-// floats: 16-byte aligned, conflict-free float4 reads), staged with
-// cp.async. Scores: lane l holds 8 rows x nodes {l, l+32} of the tile.
-// Softmax online across tiles; the gated exponentials go to a per-warp
-// shared buffer. Mix: lane l holds the 8 rows x features 4l..4l+3 and reads
-// 4 nodes of probabilities and 4 rows of X per step. Tiles beat staging the
-// whole slice even where it fits: 59 KB admit 3 CTAs per SM, and an H100
-// measured the whole-slice variant slower at N=170, no faster at N=80
-// (PERF.md).
-// ---------------------------------------------------------------------------
+namespace {
 
-namespace d128 {
+using namespace gcn_tc;
 
-constexpr int D = 128;
-constexpr int LD = D + 4;
-constexpr int WARPS = 4;
-constexpr int RPW = 8;              // rows per warp
-constexpr int ROWS = WARPS * RPW;   // rows per CTA
-constexpr int MT = 64;              // nodes per tile
-constexpr int TJ = MT / 32;         // node slots per lane per tile
+template <int D>
+struct FwdSmem {
+  float xn[NT][D + 4];          // the item's rows of x, as they are: A of the scores
+  float xr[2][NT][D + 4];       // two node tiles of x, as they are: A of the mix;
+                                // the next one copied in under this one
+  float xm[D / 8][2][TILE];     // the node tile split (k = features): B of the scores
+  float ew[NT / 8][2][TILE];    // e gate split, [k-block of m][big | small], N = n:
+                                // B of the mix
+  float ex[NT][EX];             // score halves of the rows the other warpgroup takes
+  float alpha[NT];
+  float yscale[NT];             // scale2 / l of each row
+};
 
-__host__ __device__ constexpr int smem_bytes() {
-  return ((ROWS + MT) * LD + ROWS * MT) * (int)sizeof(float);
+// a node tile as it is (raw, [NT][D + 4]) -> dst split, as stage_split
+// writes it
+template <int D>
+__device__ __forceinline__ void split_raw(float (*dst)[2][TILE], const float (*raw)[D + 4]) {
+  float4 v[SPLIT_ITER<D>];
+#pragma unroll
+  for (int i = 0; i < SPLIT_ITER<D>; ++i) {
+    const int u = threadIdx.x + i * THREADS;
+    v[i] = *reinterpret_cast<const float4*>(&raw[split_node<D>(u)][4 * split_quad<D>(u)]);
+  }
+  store_split<D>(dst, v);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-// Each row's softmax is taken online (running max and sum, the accumulated
-// output rescaled when the max grows), as in flash attention:
-// y = scale2 / sum_m e_m * sum_m e_m gate[n, m] X[m], e_m = exp(s_m - max).
-// Any N fits in 59 KB of shared memory.
-__global__ void __launch_bounds__(WARPS * 32)
-gcn_fwd_d128_tiled_kernel(const float* __restrict__ x, const float* __restrict__ gate,
-                          float* __restrict__ y, int n, int t_len, float scale1, float scale2) {
-  extern __shared__ __align__(16) float smem_tiled[];
-  float* sq = smem_tiled;        // [ROWS][LD]: this CTA's rows
-  float* sk = sq + ROWS * LD;    // [MT][LD]: one tile of nodes
-  float* sp = sk + MT * LD;      // [ROWS][MT]: gated exponentials of the tile
-  const int t = blockIdx.y;
-  const int64_t b = blockIdx.z;
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+gcn_fwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gate,
+                  float* __restrict__ y, int nb, int n, int t_len, float scale1, float scale2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  FwdSmem<D>& s = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
+  constexpr int KS = D / 16;       // k-steps of a warpgroup's half of a score
   const int64_t node_stride = (int64_t)t_len * D;
-  const float* xbt = x + (b * n * t_len + t) * (int64_t)D;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row_base = blockIdx.x * ROWS;
+  const int wg = threadIdx.x >> 7;
+  const int r = wg_row();
+  const int tq = threadIdx.x & 3;
+  const bool mixer = wg < D / 64;  // warpgroup w mixes features 64 w .. 64 w + 63
+  const int fr = wg * 64 + r;      // its features fr and fr + 8
+  const int rl = r + 8 * wg;       // the row of the thread's online softmax
+  const int tiles = (n + NT - 1) / NT;
+  const int items = tiles * t_len * nb;
+  // the scores in base 2: exp(v scale1) = exp2(v scale1 log2(e))
+  const float sl2 = scale1 * 1.44269504088896341f;
+  // work item: (row block, t, b), row blocks fastest; x and y of item i
+  // start at slice(i)
+  auto slice = [&](int i) {
+    const int bt = i / tiles;  // b * t_len + t
+    return ((int64_t)(bt / t_len) * n * t_len + bt % t_len) * D;
+  };
+  if ((int)blockIdx.x >= items) return;
 
-  for (int r = warp; r < ROWS; r += WARPS) {
-    float* dst = sq + r * LD + lane * 4;
-    if (row_base + r < n)
-      cp_async16(dst, xbt + (row_base + r) * node_stride + lane * 4);
-    else
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  stage_raw<D>(s.xn, x + slice(blockIdx.x), (blockIdx.x % tiles) * NT, n, node_stride);
+  stage_raw<D>(s.xr[0], x + slice(blockIdx.x), 0, n, node_stride);
+  tc::cp_async_commit();
+  tc::cp_async_wait_all();
+  __syncthreads();
+  split_raw<D>(s.xm, s.xr[0]);
+  tc::fence_proxy_async();
+  __syncthreads();
 
-  const int lr0 = warp * RPW;  // this warp's first row in sq
-  const int row0 = row_base + lr0;
-  float run_max[RPW], run_sum[RPW], out[RPW][4];
+  // persistent: each CTA takes the items blockIdx.x + k gridDim.x
+  int cur = 0;  // the raw buffer holding the current node tile
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int n0 = (item % tiles) * NT;
+    const int64_t off = slice(item);
+    const int next = item + gridDim.x;
+    const float* xnext = next < items ? x + slice(next) : nullptr;
+    const float* grow = gate + (int64_t)min(n0 + rl, n - 1) * n;
+    float run_max = -INFINITY, run_sum = 0.f;
+    float out[32];  // mixers: Y^T [feature, row] in the m64n64 fragment
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    run_max[i] = -INFINITY;
-    run_sum[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[i][e] = 0.f;
-  }
-  float* pw = sp + lr0 * MT;
+    for (int i = 0; i < 32; ++i) out[i] = 0.f;
 
-  for (int m0 = 0; m0 < n; m0 += MT) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int m = warp; m < MT; m += WARPS) {
-      float* dst = sk + m * LD + lane * 4;
-      if (m0 + m < n)
-        cp_async16(dst, xbt + (m0 + m) * node_stride + lane * 4);
+    for (int m0 = 0; m0 < n; m0 += NT) {
+      const bool last = m0 + NT >= n;
+      const bool next_rows = last && xnext != nullptr;
+      const bool more = !last || xnext != nullptr;
+      if (more) {  // the next node tile (this item's next, else the next item's first)
+        stage_raw<D>(s.xr[cur ^ 1], last ? xnext : x + off, last ? 0 : m0 + NT, n, node_stride);
+        tc::cp_async_commit();
+      }
+      float gt[16];  // the gate of the thread's row, loaded under the scores
+#pragma unroll
+      for (int i = 0; i < 16; ++i) gt[i] = grow[min(m0 + (i / 2) * 8 + 2 * tq + i % 2, n - 1)];
+
+      float sc[32];  // warpgroup w: the score over the features of its k-steps
+      score_tile<D, KS>(s.xn, s.xm, sc, wg * KS);
+      swap_out(s.ex, sc, wg);
+      __syncthreads();
+      if (next_rows) {  // the rows are read: the next item's
+        stage_raw<D>(s.xn, xnext, (next % tiles) * NT, n, node_stride);
+        tc::cp_async_commit();
+      }
+
+      {
+        float sv[16], dv[16];
+        swap_in(s.ex, sc, wg, sv, dv);
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          sv[i] = (sv[i] + dv[i]) * sl2;
+          if (m0 + (i / 2) * 8 + 2 * tq + i % 2 < n) tmax = fmaxf(tmax, sv[i]);
+        }
+        const float new_max = fmaxf(run_max, quad_max(tmax));
+        const float alpha = exp2f(run_max - new_max);  // 0 on the first tile
+        float tsum = 0.f;
+#pragma unroll
+        for (int nb8 = 0; nb8 < 8; ++nb8) {  // columns 8 nb8 + 2 tq + e, e = 0, 1
+          float w[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * nb8 + e;
+            const float ev = m0 + 8 * nb8 + 2 * tq + e < n ? exp2f(sv[i] - new_max) : 0.f;
+            tsum += ev;
+            w[e] = ev * gt[i];
+          }
+          uint32_t b0, s0, b1, s1;
+          tc::split_tf32(w[0], b0, s0);
+          tc::split_tf32(w[1], b1, s1);
+          float* tile = &s.ew[nb8][0][tc::b_offset(rl, 2 * tq)];
+          *reinterpret_cast<uint2*>(tile) = make_uint2(b0, b1);
+          *reinterpret_cast<uint2*>(tile + TILE) = make_uint2(s0, s1);
+        }
+        run_sum = run_sum * alpha + quad_sum(tsum);
+        run_max = new_max;
+        if (tq == 0) {
+          s.alpha[rl] = alpha;
+          if (last) s.yscale[rl] = scale2 / run_sum;
+        }
+      }
+      if (next_rows)  // the next node tile has landed; the next rows may not yet
+        tc::cp_async_wait_prev();
       else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
+        tc::cp_async_wait_all();
+      tc::fence_proxy_async();
+      __syncthreads();
 
-    float acc[RPW][TJ];
+      // the scores are done with the split tile: the next one goes in
+      if (more) split_raw<D>(s.xm, s.xr[cur ^ 1]);
+      if (mixer) {
+        // A = X^T of the tile
+        auto frag = [&](int j, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+          transposed_frag<D>(s.xr[cur], fr, j, ab, as);
+        };
+        float al[16];
 #pragma unroll
-    for (int i = 0; i < RPW; ++i)
+        for (int i = 0; i < 16; ++i) al[i] = s.alpha[(i / 2) * 8 + 2 * tq + i % 2];
+        // sum_m (e gate)[n, m] x_m
+        float part[1][32];
+        chain<NT / 8, 1>(part, frag, [&](int, int j) { return &s.ew[j][0][0]; });
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
-    for (int c = 0; c < D; c += 4) {
-      float4 xr[RPW];
+        for (int i = 0; i < 32; ++i) out[i] = out[i] * al[2 * (i / 4) + i % 2] + part[0][i];
+        if (last) {  // y = out scale2 / l; a warp's store covers 4 rows x 8 features
+          float* yrow = y + off + fr;
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) xr[i] = *reinterpret_cast<const float4*>(sq + (lr0 + i) * LD + c);
+          for (int i = 0; i < 16; ++i) {
+            const int row = (i / 2) * 8 + 2 * tq + i % 2;
+            if (n0 + row < n) {
+              const float f = s.yscale[row];
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const float4 xm = *reinterpret_cast<const float4*>(sk + (lane + 32 * j) * LD + c);
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          float a = acc[i][j];
-          a = fmaf(xr[i].x, xm.x, a);
-          a = fmaf(xr[i].y, xm.y, a);
-          a = fmaf(xr[i].z, xm.z, a);
-          a = fmaf(xr[i].w, xm.w, a);
-          acc[i][j] = a;
+              for (int h = 0; h < 2; ++h)
+                yrow[(n0 + row) * node_stride + 8 * h] = out[4 * (i / 2) + 2 * h + i % 2] * f;
+            }
+          }
         }
       }
+      tc::cp_async_wait_all();  // the next item's rows
+      tc::fence_proxy_async();
+      __syncthreads();
+      cur ^= 1;
     }
-
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        acc[i][j] *= scale1;
-        if (m0 + lane + 32 * j < n) tmax = fmaxf(tmax, acc[i][j]);
-      }
-      const float new_max = fmaxf(run_max[i], warp_max(tmax));
-      const float alpha = expf(run_max[i] - new_max);  // 0 on the first tile
-      const float* grow = gate + (int64_t)min(row0 + i, n - 1) * n;
-      float tsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const int m = m0 + lane + 32 * j;
-        const float e = m < n ? expf(acc[i][j] - new_max) : 0.f;
-        tsum += e;
-        pw[i * MT + lane + 32 * j] = m < n ? e * grow[m] : 0.f;
-      }
-      run_sum[i] = run_sum[i] * alpha + warp_sum(tsum);
-      run_max[i] = new_max;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[i][e] *= alpha;
-    }
-    __syncwarp();
-
-    for (int m = 0; m < MT; m += 4) {
-      float4 xv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) xv[u] = *reinterpret_cast<const float4*>(sk + (m + u) * LD + lane * 4);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float4 p4 = *reinterpret_cast<const float4*>(pw + i * MT + m);
-        const float pu[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          out[i][0] = fmaf(pu[u], xv[u].x, out[i][0]);
-          out[i][1] = fmaf(pu[u], xv[u].y, out[i][1]);
-          out[i][2] = fmaf(pu[u], xv[u].z, out[i][2]);
-          out[i][3] = fmaf(pu[u], xv[u].w, out[i][3]);
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    if (row0 + i >= n) break;
-    const float f = scale2 / run_sum[i];
-    *reinterpret_cast<float4*>(y + ((b * n + row0 + i) * t_len + t) * (int64_t)D + lane * 4) =
-        make_float4(out[i][0] * f, out[i][1] * f, out[i][2] * f, out[i][3] * f);
   }
 }
 
-int launch(const void* x, const void* gate, void* y, int b, int n, int t_len, float scale1,
-           float scale2, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gcn_fwd_d128_tiled_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes());
+template <int D>
+int launch_tc(const void* x, const void* gate, void* y, int b, int n, int t_len, float scale1,
+              float scale2, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(gcn_fwd_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)sizeof(FwdSmem<D>));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + ROWS - 1) / ROWS, t_len, b);
-  gcn_fwd_d128_tiled_kernel<<<grid, WARPS * 32, smem_bytes(), stream>>>(
-      (const float*)x, (const float*)gate, (float*)y, n, t_len, scale1, scale2);
+  const int64_t items = (int64_t)((n + NT - 1) / NT) * t_len * b;
+  if (items > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = (int)std::min<int64_t>(items, sm_count());
+  gcn_fwd_tc_kernel<D><<<grid, THREADS, sizeof(FwdSmem<D>), stream>>>(
+      (const float*)x, (const float*)gate, (float*)y, b, n, t_len, scale1, scale2);
   return (int)cudaGetLastError();
 }
 
-}  // namespace d128
+}  // namespace
 
 extern "C" int pxt_gcn_fwd_smem_bytes(int n, int d) {
-  if (d == d128::D) return d128::smem_bytes();
+  if (d == 128) return (int)sizeof(FwdSmem<128>);
+  if (d == 64) return (int)sizeof(FwdSmem<64>);
   return (n * (d + 1) + kRowsPerCta * n) * (int)sizeof(float);
 }
 
@@ -334,8 +372,8 @@ extern "C" int pxt_gcn_fwd_f32(const void* x, const void* gate, void* y, int b,
                                float scale2, void* stream) {
   if (d % 32 != 0 || d > 32 * kMaxDk) return (int)cudaErrorInvalidValue;
   if ((int64_t)b * n * t_len == 0) return 0;
-  if (d == d128::D)
-    return d128::launch(x, gate, y, b, n, t_len, scale1, scale2, (cudaStream_t)stream);
+  if (d == 128) return launch_tc<128>(x, gate, y, b, n, t_len, scale1, scale2, (cudaStream_t)stream);
+  if (d == 64) return launch_tc<64>(x, gate, y, b, n, t_len, scale1, scale2, (cudaStream_t)stream);
   const int smem = pxt_gcn_fwd_smem_bytes(n, d);
   cudaError_t err = cudaFuncSetAttribute(
       gcn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

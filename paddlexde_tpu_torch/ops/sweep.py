@@ -11,8 +11,9 @@ max-abs error <= 1e-4, TF32 off; the attention gradients by
 ``attn.bwd_errors``) and timed: device time of one call (profiler trace), the
 plain version's time (CUDA events) and both bounds of ``ops/timing.py``
 (float32 on the CUDA cores, and the products in 3xTF32 on the tensor cores).
-Forward shapes other than D3STN's at D=128 (SYNTH) take the generic
-kernels; the backward kernels take D=64 and D=128.
+The GCN kernels take D=64 and D=128 on the tensor cores (every shipped
+configuration); attention forward shapes other than D3STN's at D=128
+(SYNTH) take the generic attention kernel.
 
 Prints the card line, one line per configuration, and a JSON list of the
 measurements as the last line. Exits non-zero when a kernel disagrees.
@@ -69,7 +70,7 @@ def _gcn(name, n, d, gen, dev):
     res = {"err": _norm_err(run(), want), "ms": device_ms(run, "gcn_fwd_"),
            "plain_ms": time_ms(lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2)),
            **_bounds(gcn_work(BATCH, n, T_LEN, d)),
-           "kernel": "d128" if d == 128 else "generic"}
+           "kernel": "tc" if d in (64, 128) else "generic"}
     if res["err"] > TOL:
         raise RuntimeError(f"{name}: GCN error {res['err']:.3e} > {TOL:g}")
     return res

@@ -40,18 +40,29 @@ def test_spline_kernel(dev, dtype, tol, derivative):
     assert _norm_err(got, spline.gather_eval_plain(series, t, q, derivative)) <= tol
 
 
-# D=128 takes the register-tiled kernel (node tiles of 64 with an online
-# softmax; N within one tile, across tiles, and at the PEMS04, PEMS03 and
-# PEMS07 sizes); other D the generic one
+# D=64 and D=128 take the tensor-core kernel (3xTF32, node tiles of 64 with
+# an online softmax; N within one tile, across tiles, at SYNTH's N=16 and at
+# the HZME, PEMS08, PEMS04, PEMS03 and PEMS07 sizes; more work items than
+# SMs, so that a CTA walks several): within 1e-5 of the float64 plain
+# version and the same bits twice. Other D take the generic kernel, held at
+# 1e-4 against the float32 plain version.
 @pytest.mark.parametrize("shape", [(2, 17, 3, 32), (1, 45, 2, 128), (2, 100, 2, 128),
                                    (1, 170, 3, 128), (1, 200, 1, 128), (1, 307, 2, 128),
-                                   (1, 358, 2, 128), (1, 883, 1, 128), (2, 33, 1, 256)])
+                                   (1, 358, 2, 128), (1, 883, 1, 128), (2, 33, 1, 256),
+                                   (2, 80, 3, 128), (4, 100, 20, 128), (2, 16, 12, 64),
+                                   (1, 170, 3, 64), (3, 70, 40, 64)])
 def test_gcn_kernel(dev, shape):
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(*shape, generator=g, device=dev)
     gate = torch.rand(shape[1], shape[1], generator=g, device=dev)
-    got = gcn.gcn_spatial_mix_kernel(x, gate, 0.3)
-    assert _norm_err(got, gcn.gcn_spatial_mix_plain(x, gate, 0.3)) <= 1e-4
+    before = _build.LAUNCHES["gcn_fwd"]
+    (got,) = _bitwise_twice(lambda: (gcn.gcn_spatial_mix_kernel(x, gate, 0.3),))
+    assert _build.LAUNCHES["gcn_fwd"] == before + 2
+    if shape[-1] in (64, 128):
+        want = gcn.gcn_spatial_mix_plain(x.double(), gate.double(), 0.3, dtype_name="float64")
+        assert _norm_err(got.double(), want) <= 1e-5
+    else:
+        assert _norm_err(got, gcn.gcn_spatial_mix_plain(x, gate, 0.3)) <= 1e-4
 
 
 def test_gcn_kernel_refuses_a_slice_beyond_shared_memory(dev):

@@ -60,6 +60,15 @@ def test_kernel_paths_refuse_cpu_tensors():
         gcn.gcn_spatial_mix(x, gate, impl="triton")
 
 
+@pytest.mark.parametrize("source", ["gcn.cu", "gcn_bwd.cu"])
+def test_gcn_kernels_rebuild_when_their_shared_header_changes(source):
+    """K2 and K3 share their tensor-core pieces (csrc/gcn_tc.cuh, which
+    includes tc_conv.cuh); each library's build hash covers both."""
+    from paddlexde_tpu_torch.ops import _build
+
+    assert _build._headers(source) == ["gcn_tc.cuh", "tc_conv.cuh"]
+
+
 @pytest.fixture
 def _f32_jax():
     """The TPU kernel in interpret mode computes in float32 (as its own tests

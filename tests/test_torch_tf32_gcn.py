@@ -1,4 +1,5 @@
-"""The arithmetic of the GCN backward kernel K3 on the tensor cores, emulated on the CPU.
+"""The arithmetic of the GCN kernels K3 (backward) and K2 (forward) on the
+tensor cores, emulated on the CPU.
 
 K3 (``paddlexde_tpu_torch/ops/csrc/gcn_bwd.cu``) runs its N^2 D products as
 TF32 tensor-core products in 3xTF32: each float32 operand splits into
@@ -20,6 +21,18 @@ float64 (pinned to the JAX TPU kernel in interpret mode by
 ``tests/test_torch_gcn.py``) at a normalised max-abs error of 1e-5, the
 limit K3 is held to on the card. One TF32 product (big_a big_b alone) misses
 that limit, which is why the kernel pays for three.
+
+K2 (``paddlexde_tpu_torch/ops/csrc/gcn.cu``, D = 64 and 128) runs its two
+N^2 D products in 3xTF32 as K3 does (above). Its scores are two chains, one
+per warpgroup, each over half of the features (D / 2: 8 k-steps at D = 128,
+4 at D = 64), added in float32; it takes the softmax online over node tiles
+of 64 (running max and sum) in base 2 (the scores scaled by scale1 log2(e),
+then exp2), gates e on the CUDA cores, mixes each tile in
+one chain of 64 nodes, rescales the float32 output by alpha as the chain
+adds to it, and writes y = out * (scale2 / l) at the end. ``k2_slice``
+emulates one (batch, step) slice that way and holds it against
+``gcn_spatial_mix_plain`` in float64 at 1e-5, the limit K2 is held to on
+the card; one TF32 product misses it.
 """
 
 import math
@@ -60,12 +73,32 @@ def chain(a, b, terms):
     return np.float32(sum(p.astype(np.float64) @ q.astype(np.float64) for p, q in pairs))
 
 
-def product(a, b, terms):
-    """a @ b over K in chains of CHAIN_K, the chains added in float32."""
+def product(a, b, terms, chain_k=CHAIN_K):
+    """a @ b over K in chains of chain_k, the chains added in float32."""
     acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    for k0 in range(0, a.shape[1], CHAIN_K):
-        acc = np.float32(acc + chain(a[:, k0 : k0 + CHAIN_K], b[k0 : k0 + CHAIN_K], terms))
+    for k0 in range(0, a.shape[1], chain_k):
+        acc = np.float32(acc + chain(a[:, k0 : k0 + chain_k], b[k0 : k0 + chain_k], terms))
     return acc
+
+
+def k2_slice(x, gate, scale2, terms=3):
+    """y of one slice x [N, D] as K2 computes it."""
+    n, d = x.shape
+    f32 = np.float32
+    sl2 = f32(f32(1.0 / math.sqrt(d)) * f32(math.log2(math.e)))  # softmax in base 2
+    s = product(x, x.T, terms, chain_k=d // 2)  # the two warpgroups' halves
+    run_max = np.full((n, 1), -np.inf, f32)
+    run_sum = np.zeros((n, 1), f32)
+    out = np.zeros((n, d), f32)
+    for m0 in range(0, n, NT):
+        st = f32(s[:, m0 : m0 + NT] * sl2)
+        new_max = np.maximum(run_max, st.max(axis=1, keepdims=True))
+        alpha = np.exp2(run_max - new_max).astype(f32)
+        e = np.exp2(st - new_max).astype(f32)
+        run_sum = f32(run_sum * alpha + e.sum(axis=1, keepdims=True, dtype=f32))
+        run_max = new_max
+        out = f32(out * alpha + chain(f32(e * gate[:, m0 : m0 + NT]), x[m0 : m0 + NT], terms))
+    return f32(out * f32(f32(scale2) / run_sum))
 
 
 def k3_slice(x, g, gate, scale2, terms=3):
@@ -112,11 +145,11 @@ def k3_slice(x, g, gate, scale2, terms=3):
     return f32(dx + col), dgate
 
 
-def _slice(seed):
+def _slice(seed, n=N, d=D):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((N, D)).astype(np.float32)
-    g = rng.standard_normal((N, D)).astype(np.float32)
-    gate = (0.5 * rng.random((N, N))).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    gate = (0.5 * rng.random((n, n))).astype(np.float32)
     return x, g, gate
 
 
@@ -157,3 +190,28 @@ def test_split_is_exact():
     assert np.array_equal(tf32(big), big) and np.array_equal(truncate(small), small)
     # big + small is x to within the truncation of small: 2^-21 of |x|
     assert np.all(np.abs((big.astype(np.float64) + small) - x) <= 2.0 ** -21 * np.abs(x))
+
+
+def _want_fwd(x, gate, scale2):
+    y = gcn.gcn_spatial_mix_plain(torch.tensor(x).double()[None, :, None],
+                                  torch.tensor(gate).double(), scale2, dtype_name="float64")
+    return y[0, :, 0].numpy()
+
+
+# PEMS08's slice at both widths the kernel takes, and SYNTH's N = 16 (a
+# quarter of one node tile)
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("n,d", [(170, 128), (170, 64), (16, 64)])
+def test_3xtf32_gcn_forward_matches_float64(n, d, seed):
+    x, _, gate = _slice(seed, n, d)
+    scale2 = 1.0 / math.sqrt(d)
+    y = k2_slice(x, gate, scale2)
+    want = _want_fwd(x, gate, scale2)
+    assert y.shape == want.shape and y.dtype == np.float32
+    assert _err(y, want) <= TOL
+
+
+def test_one_tf32_product_misses_the_forward_tolerance():
+    x, _, gate = _slice(2)
+    scale2 = 1.0 / math.sqrt(D)
+    assert _err(k2_slice(x, gate, scale2, terms=1), _want_fwd(x, gate, scale2)) > 10 * TOL
