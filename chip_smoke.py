@@ -5,12 +5,14 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds the five hand-written Hopper kernels from ``paddlexde_tpu_torch/
+It builds the seven hand-written Hopper kernels from ``paddlexde_tpu_torch/
 ops/csrc``, prints the compiler's registers, spills and shared memory of
 the GCN and attention kernels and the count of tensor-core instructions in
-their libraries (it fails if one has none, or if a GCN kernel spills), and
-runs three phases (PyTorch's TF32 off throughout; the GCN and attention
-kernels run their products in 3xTF32):
+their libraries (it fails if one has none, if a GCN kernel spills, or if a
+bfloat16 kernel spills or has no HGMMA), and runs three phases (PyTorch's TF32
+off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
+float32 GCN and attention kernels run their products in 3xTF32, the
+bfloat16 ones in bfloat16):
 
 1. each kernel against its plain PyTorch version at the PEMS08 shapes: the
    forward kernels against the float32 and float64 plain versions (GCN K2
@@ -18,10 +20,14 @@ kernels run their products in 3xTF32):
    the backward kernels (GCN K3, attention K5) against the float32 and
    float64 plain backward (K3 within 1e-5 of float64), each run twice and
    required to give the same bits, with K3's and K5's device time per
-   kernel;
+   kernel; the bfloat16 forward kernels (GCN, attention) against their
+   plain bfloat16 versions (within one bfloat16 ulp at the top binade, on at
+   most 1% of elements) and run twice for the same bits;
 2. serving: PEMS08-width ``Predictor`` requests (random weights from a
    seeded generator) through the kernels and against the same Predictor
-   forced to the plain versions;
+   forced to the plain versions, in float32 and then in bfloat16
+   (``compute_dtype="bfloat16"``: the bfloat16 GCN and attention kernels;
+   both bfloat16 forecasts also against the float32 one);
 3. training: the PEMS08 config at batch 32 on a synthetic series; one
    ``Trainer`` step on the kernels against one on the plain versions (loss
    and every gradient), the launches of a step by counter and profiler, the
@@ -33,8 +39,9 @@ traces. It prints:
 
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-  main paths (serving and the two-epoch train), error, time, bound (the
-  3xTF32 bound of ``ops/timing.py``), plain-version time and library time;
+  main paths (serving in float32 and in bfloat16 and the two-epoch train),
+  error, time, bound (the 3xTF32 bound of ``ops/timing.py``, the bfloat16
+  bound for the bfloat16 kernels), plain-version time and library time;
 - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result lines. With no CUDA card, or
@@ -58,11 +65,18 @@ TOL = {"spline": 1e-5, "gcn_fwd": 1e-4, "gcn_bwd": 1e-4, "attn_fwd": 1e-4, "attn
 GCN_FWD_TOL64 = 1e-5
 GCN_BWD_TOL64 = 1e-5
 PREDICTOR_TOL = 5e-4
+# a bfloat16 kernel against its plain version: within one bfloat16 ulp at the
+# top binade (ops/compare.py), on at most this share of elements
+BF16_SHARE = 0.01
 # the train step on the kernels against the plain versions on the card:
 # loss relative, each gradient tensor normalised max-abs
 TRAIN_TOL = 1e-3
-LAUNCHES_PER_BATCH = {"spline": 2, "gcn_fwd": 4, "gcn_bwd": 0, "attn_fwd": 6, "attn_bwd": 0}
-LAUNCHES_PER_STEP = {"spline": 4, "gcn_fwd": 4, "gcn_bwd": 4, "attn_fwd": 6, "attn_bwd": 6}
+LAUNCHES_PER_BATCH = {"spline": 2, "gcn_fwd": 4, "gcn_bwd": 0, "attn_fwd": 6, "attn_bwd": 0,
+                      "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0}
+LAUNCHES_PER_BATCH_BF16 = {"spline": 2, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
+                           "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6}
+LAUNCHES_PER_STEP = {"spline": 4, "gcn_fwd": 4, "gcn_bwd": 4, "attn_fwd": 6, "attn_bwd": 6,
+                     "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0}
 # CUDA symbol substrings in a profiler trace; one wrapper call launches one
 # kernel of each symbol
 KERNEL_NAMES = {
@@ -72,6 +86,8 @@ KERNEL_NAMES = {
     "attn_fwd": ("attn_fwd_wsplit_kernel", "attn_fwd_d3stn_kernel"),  # D3STN's shape
     "attn_bwd": ("attn_bwd_wt_kernel", "attn_bwd_qkv_conv_kernel", "attn_bwd_core_kernel",
                  "attn_bwd_dx_conv_kernel", "attn_bwd_dw_kernel", "attn_bwd_sum_kernel"),
+    "gcn_fwd_bf16": ("gcn_bf16_fwd_kernel",),
+    "attn_fwd_bf16": ("attn_bf16_wcast_kernel", "attn_bf16_fwd_kernel"),
 }
 SOURCES = {
     "spline": ("paddlexde_tpu_torch/ops/csrc/spline.cu", "paddlexde_tpu/ops/spline_pallas.py:84"),
@@ -79,7 +95,11 @@ SOURCES = {
     "gcn_bwd": ("paddlexde_tpu_torch/ops/csrc/gcn_bwd.cu", "paddlexde_tpu/ops/gcn_pallas.py:70"),
     "attn_fwd": ("paddlexde_tpu_torch/ops/csrc/attn.cu", "paddlexde_tpu/ops/attn_pallas.py:248"),
     "attn_bwd": ("paddlexde_tpu_torch/ops/csrc/attn_bwd.cu", "paddlexde_tpu/ops/attn_pallas.py:494"),
+    "gcn_fwd_bf16": ("paddlexde_tpu_torch/ops/csrc/gcn_bf16.cu", "paddlexde_tpu/ops/gcn_pallas.py:54"),
+    "attn_fwd_bf16": ("paddlexde_tpu_torch/ops/csrc/attn_bf16.cu",
+                      "paddlexde_tpu/ops/attn_pallas.py:248"),
 }
+BF16_KERNELS = ("gcn_fwd_bf16", "attn_fwd_bf16")
 
 
 
@@ -131,26 +151,32 @@ def ptxas_report(log):
 
 
 def build_report():
-    """Registers and spills of every kernel of the four tensor-core
-    libraries (GCN forward and backward, attention forward and backward),
-    and the tensor-core instructions (HMMA/HGMMA) in their SASS. The GCN
-    kernels must not spill."""
+    """Registers and spills of every kernel of the six tensor-core
+    libraries (GCN forward and backward, attention forward and backward,
+    the bfloat16 GCN and attention forwards), and the tensor-core
+    instructions (HMMA/HGMMA) in their SASS. The GCN kernels and the
+    bfloat16 kernels must not spill; the bfloat16 libraries must hold
+    HGMMA (wgmma)."""
     from paddlexde_tpu_torch.ops import _build
 
-    for lib in ("gcn", "gcn_bwd", "attn", "attn_bwd"):
+    for lib in ("gcn", "gcn_bwd", "attn", "attn_bwd", "gcn_bf16", "attn_bf16"):
         log = _build.build_log(lib)
         for line in log.splitlines():
             if "warning" in line.lower():
                 print(f"  nvcc {lib}: {line.strip()}", flush=True)
+        no_spills = lib.startswith("gcn") or lib.endswith("bf16")
         for name, regs, stores, loads, stack in ptxas_report(log):
             print(f"  ptxas {lib}: {name}: {regs} registers, spill stores {stores} B, "
                   f"spill loads {loads} B, stack {stack} B", flush=True)
-            require(not lib.startswith("gcn") or stores + loads == 0, f"{lib}: {name} spills")
+            require(not no_spills or stores + loads == 0, f"{lib}: {name} spills")
         sass = subprocess.run([_build.tool("cuobjdump"), "-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, timeout=600, check=True).stdout
         n_tc = sum(1 for line in sass.splitlines() if "HMMA" in line or "HGMMA" in line)
-        print(f"  {lib}: {n_tc} tensor-core instructions (HMMA/HGMMA) in the SASS", flush=True)
+        n_hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+        print(f"  {lib}: {n_tc} tensor-core instructions (HMMA/HGMMA) in the SASS, "
+              f"{n_hgmma} HGMMA", flush=True)
         require(n_tc > 0, f"the {lib} library has no tensor-core instruction")
+        require(not lib.endswith("bf16") or n_hgmma > 0, f"the {lib} library has no HGMMA")
 
 
 # --------------------------------------------------------------------------
@@ -369,6 +395,91 @@ def check_attn_bwd(torch, dev, gen):
                       "bitwise equal twice")
 
 
+def check_bf16(torch, label, run, plain):
+    """A bfloat16 kernel call against its plain version: finite, the same
+    bits twice, within one bfloat16 ulp at the top binade on at most
+    BF16_SHARE of elements. Returns (err, ulp, share)."""
+    from paddlexde_tpu_torch.ops.compare import bf16_errors
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    require(got.dtype == torch.bfloat16, f"{label}: output {got.dtype}, expected bfloat16")
+    require(torch.isfinite(got.float()).all().item(), f"{label}: non-finite output")
+    require(torch.equal(got, again), f"{label}: two runs on the same inputs differ")
+    err, ulp, share = bf16_errors(got, plain())
+    print(f"  {label}: vs the plain bfloat16 version max_abs_err(normalised) {err:.3e} "
+          f"(one bfloat16 ulp at the top binade {ulp:.3e}), {share:.4%} of elements differ "
+          f"(at most {BF16_SHARE:.0%}); bitwise equal twice", flush=True)
+    require(err <= ulp and share <= BF16_SHARE,
+            f"{label}: kernel disagrees with its plain version ({err:.3e} > {ulp:.3e} or "
+            f"{share:.4%} of elements)")
+    return err, ulp, share
+
+
+def check_gcn_bf16(torch, dev, gen):
+    from paddlexde_tpu_torch.ops import gcn
+    from paddlexde_tpu_torch.ops.timing import bound_bf16_ms, device_ms, gcn_work, time_ms
+
+    b, n, t_len, d = 32, 170, 12, 128
+    x32 = torch.randn(b, n, t_len, d, generator=gen, device=dev)
+    gate = 0.5 * torch.rand(n, n, generator=gen, device=dev)
+    scale2 = 1.0 / d ** 0.5
+    # x in bfloat16 takes the bfloat16 scores; x in float32, last, is what
+    # D3STN passes (its LayerNorm output) and the result kept
+    for x in (x32.to(torch.bfloat16), x32):
+        run = lambda: gcn.gcn_spatial_mix_bf16_kernel(x, gate, scale2)  # noqa: E731
+        plain = lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2, "bfloat16")  # noqa: E731
+        err, ulp, share = check_bf16(torch, f"gcn bf16 kernel, x {x.dtype}", run, plain)
+        work = gcn_work(b, n, t_len, d, x_bytes=x.element_size(), y_bytes=2)
+        res = dict(err=err, ulp=ulp, share=share, ms=device_ms(run, KERNEL_NAMES["gcn_fwd_bf16"][0]),
+                   wrapper_ms=time_ms(run), plain_ms=time_ms(plain), bound16=bound_bf16_ms(work))
+        print(f"  gcn bf16 kernel, x {x.dtype}: kernel {res['ms']:.4f} ms (device), plain "
+              f"{res['plain_ms']:.4f} ms, bfloat16 bound {res['bound16'][0]:.4f} ms by "
+              f"{res['bound16'][1]}", flush=True)
+    res["shape"] = f"x [{b},{n},{t_len},{d}] float32, gate [{n},{n}] -> y bfloat16"
+    return res
+
+
+def check_attn_bf16(torch, dev, gen):
+    from paddlexde_tpu_torch.ops import attn
+    from paddlexde_tpu_torch.ops.timing import (
+        attn_work,
+        bound_bf16_ms,
+        device_ms,
+        device_ms_by_kernel,
+        time_ms,
+    )
+
+    b, n, t_len, d, heads, ks = 32, 170, 12, 128, 8, 3
+    mq, mk, vs = (torch.randn(b, n, t_len, d, generator=gen, device=dev) for _ in range(3))
+    bound = (6.0 / (2 * ks * d)) ** 0.5
+    weights = []
+    for _ in range(4):
+        weights.append((2 * torch.rand(ks, d, d, generator=gen, device=dev) - 1) * bound)
+        weights.append(0.1 * torch.randn(d, generator=gen, device=dev))
+    errs, shares, ulps, times, wrapper_times, plain_times = [], [], [], [], [], []
+    for flags in ((False, False, False), (True, True, True), (True, False, False)):
+        args = (mq, mk, vs, *weights, *flags, heads)
+        run = lambda: attn.fused_temporal_attention_bf16_kernel(*args)  # noqa: E731
+        plain = lambda: attn.fused_temporal_attention_plain(*args, "bfloat16")  # noqa: E731
+        err, ulp, share = check_bf16(torch, f"attention bf16 kernel, flags {flags}", run, plain)
+        errs.append(err)
+        ulps.append(ulp)
+        shares.append(share)
+        times.append(device_ms(run, "attn_bf16_"))
+        print_by_kernel(device_ms_by_kernel(run, "attn_bf16_"), flags)
+        wrapper_times.append(time_ms(run))
+        plain_times.append(time_ms(plain))
+    work = attn_work(b, n, t_len, d, heads, ks, in_bytes=4, out_bytes=2)
+    i = max(range(3), key=lambda k: errs[k] / ulps[k])
+    return dict(err=errs[i], ulp=ulps[i], share=max(shares), ms=statistics.mean(times),
+                wrapper_ms=statistics.mean(wrapper_times), plain_ms=statistics.mean(plain_times),
+                bound16=bound_bf16_ms(work),
+                per_flags=list(zip(errs, times, plain_times)),
+                shape=f"[{b},{n},{t_len},{d}] float32 -> bfloat16, H={heads}, K={ks}, "
+                      "3 flag sets")
+
+
 def kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -389,6 +500,22 @@ def kernel_phase(torch, dev):
                   f"plain {flags_res[2]:.4f} ms", flush=True)
         require(res["err"] <= TOL[name], f"{name}: kernel disagrees with its plain version "
                 f"({res['err']:.3e} > {TOL[name]:g})")
+        res["bound_main"] = res["bound3"]
+        results[name] = res
+    for name, fn in (("gcn_fwd_bf16", check_gcn_bf16), ("attn_fwd_bf16", check_attn_bf16)):
+        res = fn(torch, dev, gen)
+        f32 = results[name[: -len("_bf16")]]
+        print(f"kernel {name} ({res['shape']}): max_abs_err(normalised)={res['err']:.3e} "
+              f"(one bfloat16 ulp {res['ulp']:.3e}), {res['share']:.4%} of elements differ; "
+              f"kernel {res['ms']:.4f} ms (device, profiler; the float32 kernel "
+              f"{f32['ms']:.4f} ms), wrapper {res['wrapper_ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms (CUDA events), bound {res['bound16'][0]:.4f} ms by "
+              f"{res['bound16'][1]} (bfloat16 products), launches per bfloat16 Predictor batch "
+              f"{LAUNCHES_PER_BATCH_BF16[name]}", flush=True)
+        for flags_res in res.get("per_flags", ()):
+            print(f"  flag set: err {flags_res[0]:.3e}, kernel {flags_res[1]:.4f} ms (device), "
+                  f"plain {flags_res[2]:.4f} ms", flush=True)
+        res["bound_main"] = res["bound16"]
         results[name] = res
     return results
 
@@ -424,7 +551,29 @@ def serve(pred, series, windows, starts):
     return outs, secs
 
 
-def predictor_phase(torch, dev):
+def bf16_distances(np, out, ref, f32):
+    """The bfloat16 forecast on the kernels (``out``) against the one on the
+    plain versions (``ref``), and the plain one against the float32
+    forecast (``f32``) of the same weights: (max, mean) of each absolute
+    difference over max |f32|."""
+    scale = np.abs(f32).max()
+    k, q = np.abs(out - ref) / scale, np.abs(ref - f32) / scale
+    return (k.max(), k.mean()), (q.max(), q.mean())
+
+
+def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
+    """Serve PEMS08-width requests with ``compute_dtype=dtype`` through the
+    kernels and through the plain versions; returns the main path's
+    launches, the forward's device time per batch of 32 and the outputs.
+
+    In float32 the kernels' forecasts must lie within PREDICTOR_TOL of the
+    plain versions'. In bfloat16 a float32 sum that the kernels take in
+    another order can cross a bfloat16 rounding boundary, and the next
+    roundings carry the ulp on through the layers, so the two forecasts are
+    held against the float32 forecasts ``f32_outs`` of the same weights: the
+    kernels' and the plain version's bfloat16 forecasts must lie closer to
+    each other than the plain bfloat16 forecast lies to the float32 one, by
+    at least half on the mean."""
     import dataclasses
 
     import numpy as np
@@ -441,7 +590,9 @@ def predictor_phase(torch, dev):
             return history_index(lags, src, self.his_span, interpolation="cubic",
                                  use_kernel=False)
 
-    cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"))
+    bf16 = dtype == "bfloat16"
+    per_batch = LAUNCHES_PER_BATCH_BF16 if bf16 else LAUNCHES_PER_BATCH
+    cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"), compute_dtype=dtype)
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla")
     n, his = cfg.num_nodes, cfg.his_len
     rng = np.random.default_rng(0)
@@ -458,7 +609,7 @@ def predictor_phase(torch, dev):
                       generator=torch.Generator().manual_seed(0))
     plain.model.load_state_dict(pred.model.state_dict())
     n_params = sum(p.numel() for p in pred.model.parameters())
-    print(f"Predictor: PEMS08 config (N={n}, his_len={his}, d_model={cfg.d_model}, "
+    print(f"Predictor ({dtype}): PEMS08 config (N={n}, his_len={his}, d_model={cfg.d_model}, "
           f"heads={cfg.head}, {cfg.encoder_num_layers}+{cfg.decoder_num_layers} layers, "
           f"top_k={cfg.top_k}), {n_params} random parameters (seed 0)", flush=True)
 
@@ -474,25 +625,49 @@ def predictor_phase(torch, dev):
     launches = dict(_build.LAUNCHES)
     n_batches = 3 + -(-len(starts) // pred.batch_size)
     plain_outs, plain_secs = serve(plain, series, windows, starts)
-    print(f"main path: {n_batches} Predictor batches, launches {launches}", flush=True)
-    for name, per_batch in LAUNCHES_PER_BATCH.items():
-        require(launches[name] == per_batch * n_batches,
-                f"{name}: {launches[name]} launches on the main path, expected "
-                f"{per_batch} x {n_batches} batches")
+    print(f"main path ({dtype}): {n_batches} Predictor batches, launches {launches}", flush=True)
+    for name, count in per_batch.items():
+        require(launches[name] == count * n_batches,
+                f"{name}: {launches[name]} launches on the {dtype} main path, expected "
+                f"{count} x {n_batches} batches")
 
     shapes = [(32, n, cfg.tgt_len), (32, n, cfg.tgt_len), (7, n, cfg.tgt_len),
               (len(starts), n, cfg.tgt_len)]
-    for out, ref, shape in zip(outs, plain_outs, shapes):
+    for i, (out, ref, shape) in enumerate(zip(outs, plain_outs, shapes)):
         require(out.shape == shape, f"Predictor output {out.shape}, expected {shape}")
         require(np.isfinite(out).all(), "Predictor output is not finite")
-        err = np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-30)
-        print(f"  request {shape}: kernels vs plain versions on the card, "
-              f"normalised max-abs err {err:.3e} (tol {PREDICTOR_TOL:g})", flush=True)
-        require(err <= PREDICTOR_TOL, f"Predictor {shape} disagrees with the plain path: {err:.3e}")
+        require(out.dtype == np.float32, f"Predictor output {out.dtype}, expected float32")
+        if not bf16:
+            err = np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-30)
+            print(f"  request {shape}: kernels vs plain versions on the card, "
+                  f"normalised max-abs err {err:.3e} (tol {PREDICTOR_TOL:g})", flush=True)
+            require(err <= PREDICTOR_TOL,
+                    f"Predictor {shape} disagrees with the plain path: {err:.3e}")
+            continue
+        (k_max, k_mean), (q_max, q_mean) = bf16_distances(np, out, ref, f32_outs[i])
+        (f_max, f_mean), _ = bf16_distances(np, out, f32_outs[i], f32_outs[i])
+        print(f"  request {shape}, bfloat16, over max |float32 forecast|: kernels vs plain "
+              f"versions on the card max {k_max:.3e} mean {k_mean:.3e}; plain bfloat16 vs "
+              f"float32 max {q_max:.3e} mean {q_mean:.3e}; kernels' bfloat16 vs float32 max "
+              f"{f_max:.3e} mean {f_mean:.3e}", flush=True)
+        require(k_max <= q_max and k_mean <= 0.5 * q_mean,
+                f"bfloat16 Predictor {shape}: the kernels' forecast is {k_max:.3e} (mean "
+                f"{k_mean:.3e}) from the plain version's, which is {q_max:.3e} (mean "
+                f"{q_mean:.3e}) from the float32 forecast")
     require(np.array_equal(outs[3][:64], np.concatenate([outs[0], outs[1]])),
             "predict_series differs from the host-window path")
     ragged_err = np.abs(outs[2] - outs[1][25:32]).max() / np.abs(outs[1]).max()
-    require(ragged_err <= 1e-6, f"the ragged batch differs from the full batch ({ragged_err:.3e})")
+    print(f"  the ragged batch of 7 vs the same rows of the full batch: {ragged_err:.3e}",
+          flush=True)
+    if bf16:  # rows are independent: at most what the two bfloat16 paths differ by
+        (k_max, _), _ = bf16_distances(np, outs[2], outs[1][25:32], f32_outs[1][25:32])
+        (q_max, _), _ = bf16_distances(np, plain_outs[1][25:32], f32_outs[1][25:32],
+                                       f32_outs[1][25:32])
+        require(k_max <= q_max, f"the bfloat16 ragged batch differs from the full batch "
+                f"({k_max:.3e} > {q_max:.3e})")
+    else:
+        require(ragged_err <= 1e-6,
+                f"the ragged batch differs from the full batch ({ragged_err:.3e})")
     for label, s in (("kernels", secs), ("plain", plain_secs)):
         print(f"  {label}: request seconds (host clock, host array in, numpy out): "
               f"batch32 {s[0]:.4f}, batch32 {s[1]:.4f}, batch7 {s[2]:.4f}, "
@@ -504,12 +679,29 @@ def predictor_phase(torch, dev):
     src = torch.as_tensor(windows[:32]).to(dev)
     fwd_ms = time_ms(lambda: pred.forward(src), reps=10)
     plain_fwd_ms = time_ms(lambda: plain.forward(src), reps=10)
-    print(f"  Predictor.forward, resident batch of 32 (CUDA events, median of 10): "
+    print(f"  Predictor.forward ({dtype}), resident batch of 32 (CUDA events, median of 10): "
           f"kernels {fwd_ms:.3f} ms ({32e3 / fwd_ms:.1f} samples/s), "
           f"plain {plain_fwd_ms:.3f} ms ({32e3 / plain_fwd_ms:.1f} samples/s)", flush=True)
 
-    traced_launches(torch, lambda: pred.forward(src), LAUNCHES_PER_BATCH, "one batch of 32")
-    return launches
+    device_us, by_name = traced_launches(torch, lambda: pred.forward(src), per_batch,
+                                         f"one {dtype} batch of 32")
+    print(f"  Predictor.forward ({dtype}): device time per batch of 32 {device_us / 1e3:.3f} ms "
+          f"({32e6 / device_us:.1f} samples/s on the card's clock; idle share "
+          f"{1 - device_us / 1e3 / fwd_ms:.1%} of the event-timed forward)", flush=True)
+    if bf16:
+        from paddlexde_tpu_torch.ops.timing import attn_work, bound_bf16_ms, gcn_work
+
+        b, t_len, d = 32, cfg.tgt_len, cfg.d_model
+        bounds = {"gcn_fwd_bf16": bound_bf16_ms(gcn_work(b, n, t_len, d, 4, 2)),
+                  "attn_fwd_bf16": bound_bf16_ms(attn_work(b, n, t_len, d, cfg.head,
+                                                           cfg.kernel_size, 4, 2))}
+        for key in BF16_KERNELS:
+            ms = sum(us for name, us in by_name.items()
+                     if any(sym in name for sym in KERNEL_NAMES[key])) / 1e3
+            print(f"  {key} in the traced batch: {ms:.4f} ms in {per_batch[key]} calls, "
+                  f"{ms / per_batch[key]:.4f} ms a call against its bfloat16 bound "
+                  f"{bounds[key][0]:.4f} ms ({bounds[key][1]})", flush=True)
+    return launches, device_us / 1e3, outs
 
 
 def trace(torch, fn):
@@ -734,6 +926,8 @@ def main():
     sys.path.insert(0, str(HERE))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products summed in float32, as the JAX package sums them
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
 
     card = card_line()
@@ -744,17 +938,20 @@ def main():
     print(f"kernels built in {secs:.1f} s", flush=True)
     build_report()
     kernels = kernel_phase(torch, dev)
-    serve_launches = predictor_phase(torch, dev)
+    serve_launches, f32_ms, f32_outs = predictor_phase(torch, dev)
+    bf16_launches, bf16_ms, _ = predictor_phase(torch, dev, "bfloat16", f32_outs)
+    print(f"serving device time per batch of 32: float32 {f32_ms:.3f} ms, bfloat16 "
+          f"{bf16_ms:.3f} ms", flush=True)
     train_launches = train_phase(torch, dev)
-    launches = {k: serve_launches[k] + train_launches[k] for k in kernels}
+    launches = {k: serve_launches[k] + bf16_launches[k] + train_launches[k] for k in kernels}
     for name in kernels:
         require(launches[name] > 0, f"{name} was never launched on the main paths")
     print(card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": launches[k], "max_abs_err": v["err"], "ms": v["ms"],
-         "plain_ms": v["plain_ms"], "bound_ms": v["bound3"][0], "bound_by": v["bound3"][1],
-         "library_ms": None}
+         "plain_ms": v["plain_ms"], "bound_ms": v["bound_main"][0],
+         "bound_by": v["bound_main"][1], "library_ms": None}
         for k, v in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,7 +52,7 @@ class D3STNConfig:
     with_adj: bool = True
     with_sc: bool = True
     solver: str = "euler"
-    compute_dtype: str = "float32"  # "bfloat16" is not ported yet (ROADMAP.md)
+    compute_dtype: str = "float32"  # "bfloat16": serving only (ROADMAP.md)
     gcn_impl: str = "auto"  # spatial-attention GCN: kernel K2 or plain
     attn_impl: str = "auto"  # temporal-context attention: kernel K4 or plain
 
@@ -86,7 +86,7 @@ class D3STNConfig:
             ("gcn_impl", ("auto", "xla", "pallas")),
             ("attn_impl", ("auto", "xla", "pallas")),
             ("attention", ("Corr", "Vanilla")),
-            ("compute_dtype", ("float32",)),
+            ("compute_dtype", ("float32", "bfloat16")),
         ):
             val = getattr(self, field)
             if val not in allowed:

@@ -20,6 +20,14 @@ Trains and serves with ``dropout == 0`` (every shipped config): on the card
 the GCN and attention blocks run their forward and backward kernels. Dropout
 in training mode is not ported (the kernels have no dropout input yet,
 ROADMAP.md).
+
+``compute_dtype="bfloat16"`` serves with the JAX model's cast points: the
+input dense layers and the GCN projection compute in bfloat16 (inputs and
+weights rounded, a bfloat16 result, the bias added in bfloat16), the
+attention and GCN blocks return bfloat16, and the top-k mix uses the
+bfloat16-rounded matrix in float32 arithmetic. The embedding concatenation,
+LayerNorm, the residual adds and the generator stay float32. The JAX model's
+SiLU on bfloat16 rounds after each of its operations (:func:`_silu_bf16`).
 """
 
 from __future__ import annotations
@@ -50,6 +58,22 @@ def topk_mix_matrix(matrix: torch.Tensor, k: int) -> torch.Tensor:
     vals, idx = torch.sort(matrix, dim=-1, descending=True, stable=True)
     weights = torch.softmax(vals[:, :k], dim=-1)
     return torch.zeros_like(matrix).scatter_(1, idx[:, :k], weights)
+
+
+def _dense(x, layer: nn.Linear, bf16: bool):
+    """``layer(x)``; in bfloat16 as flax ``nn.Dense(dtype=bfloat16)``: x and
+    the kernel rounded, the product (float32 sums) rounded, then the
+    rounded bias added in bfloat16."""
+    if not bf16:
+        return layer(x)
+    y = F.linear(x.to(torch.bfloat16), layer.weight.to(torch.bfloat16))
+    return y if layer.bias is None else y + layer.bias.to(torch.bfloat16)
+
+
+def _silu_bf16(x):
+    """``jax.nn.silu`` on bfloat16: x * (1 / (1 + exp(-x))) with every
+    operation rounded to bfloat16 (``F.silu`` rounds once)."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def _xavier_(param: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:
@@ -93,7 +117,10 @@ class MultiHeadAttentionAwareTemporalContext(nn.Module):
     def _mix(self, x):
         if self.mix_matrix is None:
             return x
-        return torch.einsum("nm,bmtd->bntd", self.mix_matrix.to(x.dtype), x)
+        mix = self.mix_matrix
+        if self.cfg.compute_dtype == "bfloat16":  # the JAX model rounds the matrix
+            mix = mix.to(torch.bfloat16)
+        return torch.einsum("nm,bmtd->bntd", mix.to(x.dtype), x)
 
     def forward(self, query, key, value, is_mask: bool = False):
         cfg = self.cfg
@@ -134,6 +161,8 @@ class SpatialAttentionGCN(nn.Module):
             x, self.gate(), 1.0 / math.sqrt(cfg.d_model), cfg.compute_dtype,
             impl=cfg.gcn_impl,
         )
+        if cfg.compute_dtype == "bfloat16":
+            return _silu_bf16(_dense(x_gcn, self.proj, True))
         return F.silu(self.proj(x_gcn))
 
 
@@ -265,7 +294,8 @@ class D3STN(nn.Module):
                 _xavier_(module.embedding, t * n, d * n, generator)
 
     def _embed(self, x, dense):
-        parts = [dense(x[..., :1]), self.temporal_section_week(x), self.temporal_section_day(x)]
+        value = _dense(x[..., :1], dense, self.cfg.compute_dtype == "bfloat16")
+        parts = [value.float(), self.temporal_section_week(x), self.temporal_section_day(x)]
         if self.adaptive_embedding_encoder is not None:
             parts.append(self.adaptive_embedding_encoder(parts[0]))
         return torch.cat(parts, dim=-1)

@@ -93,7 +93,8 @@ class Trainer:
     the plain PyTorch versions of the kernels. ``epoch_callback(epoch,
     trainer)`` fires after each epoch's eval; ``enc_idx_init`` /
     ``dec_idx_init`` override :func:`init_lag_anchors`. ``mesh`` is the JAX
-    Trainer's multi-device argument and is refused.
+    Trainer's multi-device argument and is refused, and so is
+    ``compute_dtype="bfloat16"``.
     """
 
     def __init__(self, cfg: D3STNConfig, data: Optional[np.ndarray] = None,
@@ -105,6 +106,12 @@ class Trainer:
             raise NotImplementedError(
                 "mesh / multi-process training is not ported (ROADMAP.md, queue 1 "
                 "item 10); the port's Trainer runs on one card"
+            )
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={cfg.compute_dtype!r} trains only in the JAX package: the "
+                "bfloat16 backward kernels K3 and K5 are still to port (ROADMAP.md, "
+                "queue 2); the port serves in bfloat16 (Predictor)"
             )
         self.cfg = cfg
         self.device = resolve_device(device)

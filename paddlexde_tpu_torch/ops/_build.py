@@ -17,7 +17,9 @@ Python wrappers raise on a non-zero code (:func:`check`).
 ``LAUNCHES`` counts kernel launches per kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels. The backward wrappers (``gcn_bwd``,
-``attn_bwd``) launch several CUDA kernels per call and count the call once.
+``attn_bwd``) and the attention forwards launch several CUDA kernels per
+call and count the call once. The bfloat16 forwards count under keys of
+their own (``gcn_fwd_bf16``, ``attn_fwd_bf16``).
 """
 
 from __future__ import annotations
@@ -38,13 +40,15 @@ __all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "library_path",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
-SOURCES = ("spline.cu", "gcn.cu", "gcn_bwd.cu", "attn.cu", "attn_bwd.cu")
+SOURCES = ("spline.cu", "gcn.cu", "gcn_bwd.cu", "attn.cu", "attn_bwd.cu", "gcn_bf16.cu",
+           "attn_bf16.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
-LAUNCHES: Dict[str, int] = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0}
+LAUNCHES: Dict[str, int] = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
+                            "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -11,8 +11,10 @@ mix commutes with the conv, so the model hoists it). A CUDA tensor goes to
 the hand-written kernels under a ``torch.autograd.Function`` (forward
 ``csrc/attn.cu``, backward ``csrc/attn_bwd.cu``), a CPU tensor to the plain
 PyTorch version under autograd; ``impl="xla"`` picks the plain version on
-any device and ``impl="pallas"`` demands the kernels. float32 only, without
-the dropout input; dropout and bfloat16 are still to port.
+any device and ``impl="pallas"`` demands the kernels. ``dtype_name=
+"bfloat16"`` runs the forward in bfloat16 (``csrc/attn_bf16.cu`` on the
+card, serving only). No dropout input; dropout and the bfloat16 backward are
+still to port.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ __all__ = [
     "fused_temporal_attention",
     "fused_temporal_attention_plain",
     "fused_temporal_attention_kernel",
+    "fused_temporal_attention_bf16_kernel",
     "fused_temporal_attention_bwd_plain",
     "fused_temporal_attention_bwd_kernel",
     "bwd_errors",
@@ -47,9 +50,20 @@ def _pad_cfg(k: int, causal: bool):
 
 def temporal_conv_plain(x, w, b, causal: bool, dt=torch.float32):
     """out[t] = b + sum_j xpad[t + j] @ w[j] over ``x [..., T, D]``,
-    ``w [K, D_in, D_out]``."""
+    ``w [K, D_in, D_out]``. In bfloat16 (the TPU ``_tconv_tile``) each tap
+    multiplies bf16(x) by bf16(w[j]) with a float32 sum, the taps add in
+    float32, the sum rounds once to bfloat16 and bf16(b) adds in bfloat16."""
     k = w.shape[0]
     pad = _pad_cfg(k, causal)
+    if dt == torch.bfloat16:
+        xp = F.pad(x.to(dt).float(), (0, 0, pad[0], pad[1]))
+        t = x.shape[-2]
+        w = w.to(dt).float()
+        acc = None
+        for j in range(k):
+            part = torch.einsum("...td,df->...tf", xp[..., j : j + t, :], w[j])
+            acc = part if acc is None else acc + part
+        return acc.to(dt) + b.to(dt)
     xp = F.pad(x.to(dt), (0, 0, pad[0], pad[1]))
     t = x.shape[-2]
     w = w.to(dt)
@@ -60,8 +74,15 @@ def temporal_conv_plain(x, w, b, causal: bool, dt=torch.float32):
 def fused_temporal_attention_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                                    causal_q: bool, causal_kv: bool, is_mask: bool,
                                    heads: int, dtype_name: str = "float32"):
-    """Plain PyTorch version (the JAX ``_ref_impl``)."""
+    """Plain PyTorch version (the JAX ``_ref_impl``; in bfloat16 the
+    rounding points of the TPU ``_fwd_kernel``, :func:`_attention_core_bf16`)."""
     dt = _dt(dtype_name)
+    if dt == torch.bfloat16:
+        q = temporal_conv_plain(mq, wq, bq, causal_q, dt)
+        k = temporal_conv_plain(mk, wk, bk, causal_kv, dt)
+        v = temporal_conv_plain(vsrc, wv, bv, causal_kv, dt)
+        return temporal_conv_plain(_attention_core_bf16(q, k, v, is_mask, heads), wo, bo,
+                                   False, dt)
     q = temporal_conv_plain(mq, wq, bq, causal_q, dt)
     k = temporal_conv_plain(mk, wk, bk, causal_kv, dt)
     v = temporal_conv_plain(vsrc, wv, bv, causal_kv, dt)
@@ -82,6 +103,27 @@ def fused_temporal_attention_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
     attn = torch.softmax(scores, dim=-1).to(dt)
     x = torch.einsum("bnhqk,bnkhd->bnqhd", attn, v).reshape(b, n, t_q, d)
     return temporal_conv_plain(x, wo, bo, False, dt)
+
+
+def _attention_core_bf16(q, k, v, is_mask: bool, heads: int):
+    """softmax(q_h k_h^T / sqrt(dh)) v_h on bfloat16 q, k, v, as the TPU
+    ``_blockdiag_state`` computes it: the scores in float32 times 1/sqrt(dh),
+    the mask added, the row maximum taken over every head's scores of a
+    query step, the exponentials summed per head and divided in float32;
+    bf16(p) @ v accumulated in float32 and rounded to bfloat16."""
+    b, n, t_q, d = q.shape
+    t_k = k.shape[-2]
+    head_dim = d // heads
+    s = torch.einsum("bnqhd,bnkhd->bnqhk", q.float().reshape(b, n, t_q, heads, head_dim),
+                     k.float().reshape(b, n, t_k, heads, head_dim)) * (1.0 / math.sqrt(head_dim))
+    if is_mask:
+        above = torch.triu(torch.ones(t_q, t_k, dtype=torch.bool, device=s.device), diagonal=1)
+        s = s + torch.where(above, torch.finfo(torch.float32).min, 0.0)[:, None, :]
+    e = torch.exp(s - s.amax(dim=(-2, -1), keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
+    x = torch.einsum("bnqhk,bnkhd->bnqhd", p.float(),
+                     v.float().reshape(b, n, t_k, heads, head_dim))
+    return x.to(torch.bfloat16).reshape(b, n, t_q, d)
 
 
 def _tconv_bwd_input_plain(g, w, causal: bool):
@@ -209,17 +251,72 @@ def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo
 _BWD_FLAGS = ((False, False, False), (True, True, True), (True, False, False))
 
 
-def _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads):
+def _check_d3stn_shape(kernel, mq, mk, wq, causal_q, causal_kv, is_mask, heads, other):
     d, t_q, t_k, ks = mq.shape[-1], mq.shape[-2], mk.shape[-2], wq.shape[0]
     flags = (bool(causal_q), bool(causal_kv), bool(is_mask))
     if not (t_q == t_k == 12 and ks == 3 and d in (64, 128) and heads == d // 16
             and flags in _BWD_FLAGS):
         raise ValueError(
-            "the attention backward kernel takes T = 12, K = 3, head dim 16 with "
+            f"the {kernel} kernel takes T = 12, K = 3, head dim 16 with "
             "D = 128 (8 heads) or 64 (4 heads) and D3STN's three flag sets; got "
             f"mq {tuple(mq.shape)}, mk {tuple(mk.shape)}, K={ks}, heads={heads}, "
-            f"(causal_q, causal_kv, is_mask)={flags}; attn_impl=\"xla\" trains it"
+            f"(causal_q, causal_kv, is_mask)={flags}; attn_impl=\"xla\" {other}"
         )
+
+
+def _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads):
+    _check_d3stn_shape("attention backward", mq, mk, wq, causal_q, causal_kv, is_mask, heads,
+                       "trains it")
+
+
+def fused_temporal_attention_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
+                                         causal_q: bool, causal_kv: bool, is_mask: bool,
+                                         heads: int):
+    """The CUDA forward kernel in bfloat16 (no autograd): activations
+    float32 or bfloat16, weights float32; returns bfloat16. One call
+    launches the weight cast and the fused kernel (``csrc/attn_bf16.cu``)
+    and counts once."""
+    arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo)
+    if not mq.is_cuda:
+        raise ValueError("fused_temporal_attention_bf16_kernel needs CUDA tensors")
+    if any(a.dtype not in (torch.float32, torch.bfloat16) for a in arrays[:3]) or any(
+            a.dtype != torch.float32 for a in arrays[3:]):
+        raise TypeError("the bfloat16 attention kernel takes float32 or bfloat16 inputs "
+                        "and float32 weights")
+    _check_d3stn_shape("bfloat16 attention", mq, mk, wq, causal_q, causal_kv, is_mask, heads,
+                       "runs other shapes")
+    b, n, t_len, d = mq.shape
+    ks = wq.shape[0]
+    for a in (mk, vsrc):
+        if a.shape != mq.shape:
+            raise ValueError(f"mk/vsrc {tuple(a.shape)} do not match mq {tuple(mq.shape)}")
+    for w in (wq, wk, wv, wo):
+        if w.shape != (ks, d, d):
+            raise ValueError(f"conv weights must be [{ks}, {d}, {d}], got {tuple(w.shape)}")
+    for bias in (bq, bk, bv, bo):
+        if bias.shape != (d,):
+            raise ValueError(f"conv biases must be [{d}], got {tuple(bias.shape)}")
+    # a bfloat16 activation converts exactly; the kernel rounds float32 ones
+    arrays = [a.float().contiguous() for a in arrays]
+    out = torch.empty(mq.shape, dtype=torch.bfloat16, device=mq.device)
+    rows = b * n
+    if not rows:
+        return out
+    # the four weight banks in bfloat16, in the order the tensor cores read them
+    scratch = torch.empty(4 * ks * d * d, dtype=torch.bfloat16, device=mq.device)
+    lib = _build.library("attn_bf16")
+    ptrs = (ctypes.c_void_p * 11)(*[a.data_ptr() for a in arrays])
+    fn = lib.pxt_attn_fwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    with torch.cuda.device(mq.device):
+        stream = torch.cuda.current_stream(mq.device).cuda_stream
+        code = fn(ptrs, out.data_ptr(), scratch.data_ptr(), rows, d, int(causal_q),
+                  int(causal_kv), int(is_mask), stream)
+    _build.check(lib, code, "attn_bf16_fwd_kernel")
+    _build.LAUNCHES["attn_fwd_bf16"] += 1
+    return out
 
 
 def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g,
@@ -333,12 +430,18 @@ def fused_temporal_attention(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
         return fused_temporal_attention_plain(*args, dtype_name)
     if not mq.is_cuda:
         raise ValueError("attn_impl='pallas' needs CUDA tensors (the kernel runs on the card)")
-    if dtype_name != "float32":
+    if dtype_name not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"the attention kernel runs float32 only; compute_dtype={dtype_name!r} "
-            "is still to port (ROADMAP.md)"
-        )
-    if not (torch.is_grad_enabled() and any(a.requires_grad for a in args[:11])):
-        return fused_temporal_attention_kernel(*args)  # serving: no autograd node
+            f"the attention kernels take float32 or bfloat16, not {dtype_name!r}")
+    serving = not (torch.is_grad_enabled() and any(a.requires_grad for a in args[:11]))
+    if dtype_name == "bfloat16":
+        if not serving:
+            raise NotImplementedError(
+                "the bfloat16 attention backward is still to port (ROADMAP.md); the "
+                "bfloat16 kernel serves under torch.no_grad()"
+            )
+        return fused_temporal_attention_bf16_kernel(*args)
+    if serving:
+        return fused_temporal_attention_kernel(*args)  # no autograd node
     _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads)
     return _FusedTemporalAttention.apply(*args)

@@ -10,8 +10,9 @@ gradient). A CUDA tensor goes to the hand-written kernels under a
 ``torch.autograd.Function`` (forward ``csrc/gcn.cu``, backward
 ``csrc/gcn_bwd.cu``), a CPU tensor to the plain PyTorch version under
 autograd; ``impl="xla"`` picks the plain version on any device and
-``impl="pallas"`` demands the kernels. float32 only; bfloat16 is still to
-port.
+``impl="pallas"`` demands the kernels. ``dtype_name="bfloat16"`` runs the
+forward in bfloat16 (``csrc/gcn_bf16.cu`` on the card, serving only; its
+backward is still to port).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ __all__ = [
     "gcn_spatial_mix",
     "gcn_spatial_mix_plain",
     "gcn_spatial_mix_kernel",
+    "gcn_spatial_mix_bf16_kernel",
     "gcn_spatial_mix_bwd_plain",
     "gcn_spatial_mix_bwd_kernel",
 ]
@@ -39,8 +41,19 @@ def _dt(name: str):
 
 
 def gcn_spatial_mix_plain(x, gate, scale2: float = 1.0, dtype_name: str = "float32"):
-    """Plain PyTorch version (the JAX ``_ref_impl`` einsum chain)."""
+    """Plain PyTorch version (the JAX ``_ref_impl`` einsum chain).
+
+    In bfloat16 it keeps the rounding points of the TPU ``_fwd_kernel``:
+    the scores from x in float32 (a bfloat16 x converts exactly) times
+    1/sqrt(D), the softmax in float32 times ``scale2``, a = bf16(p) *
+    bf16(gate) rounded to bfloat16, then a @ bf16(x) accumulated in float32
+    and rounded to bfloat16."""
     dt = _dt(dtype_name)
+    if dt == torch.bfloat16:
+        xf = x.float()
+        score = torch.einsum("bntd,bmtd->btnm", xf, xf) * (1.0 / math.sqrt(x.shape[-1]))
+        a = (torch.softmax(score, dim=-1) * scale2).to(dt) * gate.to(dt)
+        return torch.einsum("btnm,bmtd->bntd", a.float(), x.to(dt).float()).to(dt)
     score = torch.einsum("bntd,bmtd->btnm", x, x) / math.sqrt(x.shape[-1])
     score = torch.softmax(score.to(torch.promote_types(dt, torch.float32)), dim=-1) * scale2
     adj = score.to(dt) * gate.to(dt)
@@ -145,6 +158,42 @@ def gcn_spatial_mix_bwd_kernel(x, gate, g, scale2: float = 1.0):
     return dx, dgate
 
 
+def gcn_spatial_mix_bf16_kernel(x, gate, scale2: float = 1.0):
+    """The CUDA forward kernel in bfloat16 (no autograd): x float32 or
+    bfloat16, gate float32; returns y in bfloat16 (``csrc/gcn_bf16.cu``)."""
+    if not x.is_cuda:
+        raise ValueError("gcn_spatial_mix_bf16_kernel needs a CUDA tensor")
+    if x.dtype not in (torch.float32, torch.bfloat16) or gate.dtype != torch.float32:
+        raise TypeError("the bfloat16 GCN kernel takes float32 or bfloat16 x and float32 gate")
+    if x.dim() != 4:
+        raise ValueError(f"x [B, N, T, D] expected, got {tuple(x.shape)}")
+    b, n, t_len, d = x.shape
+    if gate.shape != (n, n):
+        raise ValueError(f"gate {tuple(gate.shape)} must be [{n}, {n}]")
+    if d not in (64, 128):
+        raise ValueError(
+            f"the bfloat16 GCN kernel takes D = 64 or 128, got x {tuple(x.shape)}; "
+            "gcn_impl=\"xla\" runs other widths"
+        )
+    x = x.contiguous()
+    gate = gate.to(x.device).contiguous()
+    y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    if x.numel() == 0:
+        return y
+    lib = _build.library("gcn_bf16")
+    fn = lib.pxt_gcn_fwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(x.data_ptr(), gate.data_ptr(), y.data_ptr(), b, n, t_len, d,
+                  int(x.dtype == torch.bfloat16), 1.0 / math.sqrt(d), float(scale2), stream)
+    _build.check(lib, code, "gcn_bf16_fwd_kernel")
+    _build.LAUNCHES["gcn_fwd_bf16"] += 1
+    return y
+
+
 class _GcnSpatialMix(torch.autograd.Function):
     """Forward K2, backward K3 (``_vjp_fwd``/``_vjp_bwd`` of the JAX file)."""
 
@@ -171,12 +220,17 @@ def gcn_spatial_mix(x, gate, scale2: float = 1.0, dtype_name: str = "float32",
         return gcn_spatial_mix_plain(x, gate, scale2, dtype_name)
     if not x.is_cuda:
         raise ValueError("gcn_impl='pallas' needs CUDA tensors (the kernel runs on the card)")
-    if dtype_name != "float32":
-        raise NotImplementedError(
-            f"the GCN kernel runs float32 only; compute_dtype={dtype_name!r} "
-            "is still to port (ROADMAP.md)"
-        )
-    if not (torch.is_grad_enabled() and (x.requires_grad or gate.requires_grad)):
-        return gcn_spatial_mix_kernel(x, gate, scale2)  # serving: no autograd node
+    if dtype_name not in ("float32", "bfloat16"):
+        raise NotImplementedError(f"the GCN kernels take float32 or bfloat16, not {dtype_name!r}")
+    serving = not (torch.is_grad_enabled() and (x.requires_grad or gate.requires_grad))
+    if dtype_name == "bfloat16":
+        if not serving:
+            raise NotImplementedError(
+                "the bfloat16 GCN backward is still to port (ROADMAP.md); the bfloat16 "
+                "kernel serves under torch.no_grad()"
+            )
+        return gcn_spatial_mix_bf16_kernel(x, gate, scale2)
+    if serving:
+        return gcn_spatial_mix_kernel(x, gate, scale2)  # no autograd node
     _check_bwd_shape(x)
     return _GcnSpatialMix.apply(x, gate, float(scale2))

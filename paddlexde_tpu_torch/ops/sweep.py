@@ -13,7 +13,10 @@ plain version's time (CUDA events) and both bounds of ``ops/timing.py``
 (float32 on the CUDA cores, and the products in 3xTF32 on the tensor cores).
 The GCN kernels take D=64 and D=128 on the tensor cores (every shipped
 configuration); attention forward shapes other than D3STN's at D=128
-(SYNTH) take the generic attention kernel.
+(SYNTH) take the generic attention kernel. The bfloat16 forwards (GCN with x
+float32, as D3STN passes it, and attention) are held against their plain
+bfloat16 versions (within one bfloat16 ulp at the top binade on at most 1%
+of elements, ``ops/compare.py``) and timed against the bfloat16 bound.
 
 Prints the card line, one line per configuration, and a JSON list of the
 measurements as the last line. Exits non-zero when a kernel disagrees.
@@ -31,10 +34,12 @@ import torch
 
 from ..models.d3stn.config import load_config
 from . import _build, attn, gcn
+from .compare import bf16_errors
 from .timing import (
     attn_bwd_work,
     attn_work,
     bound_3xtf32_ms,
+    bound_bf16_ms,
     bound_ms,
     device_ms,
     gcn_bwd_work,
@@ -74,6 +79,49 @@ def _gcn(name, n, d, gen, dev):
     if res["err"] > TOL:
         raise RuntimeError(f"{name}: GCN error {res['err']:.3e} > {TOL:g}")
     return res
+
+
+def _bf16_check(name, kernel, got, want):
+    err, ulp, share = bf16_errors(got, want)
+    if err > ulp or share > 0.01:
+        raise RuntimeError(f"{name}: bfloat16 {kernel} error {err:.3e} (ulp {ulp:.3e}), "
+                           f"{share:.4%} of elements differ")
+    return err
+
+
+def _fmt16(name, r):
+    return (f"{name} {r['ms']:.4f} ms (err {r['err']:.2e}), plain {r['plain_ms']:.4f} ms, "
+            f"bfloat16 bound {r['bound16_ms']:.4f} ms")
+
+
+def _gcn_bf16(name, n, d, gen, dev):
+    x = torch.randn(BATCH, n, T_LEN, d, generator=gen, device=dev)
+    gate = 0.5 * torch.rand(n, n, generator=gen, device=dev)
+    scale2 = 1.0 / math.sqrt(d)
+    run = lambda: gcn.gcn_spatial_mix_bf16_kernel(x, gate, scale2)  # noqa: E731
+    plain = lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2, "bfloat16")  # noqa: E731
+    return {"err": _bf16_check(name, "GCN", run(), plain()), "ms": device_ms(run, "gcn_bf16_"),
+            "plain_ms": time_ms(plain),
+            "bound16_ms": bound_bf16_ms(gcn_work(BATCH, n, T_LEN, d, 4, 2))[0]}
+
+
+def _attn_bf16(name, n, d, heads, ks, gen, dev):
+    mq, mk, vs = (torch.randn(BATCH, n, T_LEN, d, generator=gen, device=dev) for _ in range(3))
+    lim = math.sqrt(6.0 / (2 * ks * d))
+    weights = []
+    for _ in range(4):
+        weights.append((2 * torch.rand(ks, d, d, generator=gen, device=dev) - 1) * lim)
+        weights.append(0.1 * torch.randn(d, generator=gen, device=dev))
+    errs, times, plain_times = [], [], []
+    for flags in ((False, False, False), (True, True, True), (True, False, False)):
+        args = (mq, mk, vs, *weights, *flags, heads)
+        run = lambda: attn.fused_temporal_attention_bf16_kernel(*args)  # noqa: E731
+        plain = lambda: attn.fused_temporal_attention_plain(*args, "bfloat16")  # noqa: E731
+        errs.append(_bf16_check(name, "attention", run(), plain()))
+        times.append(device_ms(run, "attn_bf16_"))
+        plain_times.append(time_ms(plain))
+    return {"err": max(errs), "ms": sum(times) / 3, "plain_ms": sum(plain_times) / 3,
+            "bound16_ms": bound_bf16_ms(attn_work(BATCH, n, T_LEN, d, heads, ks, 4, 2))[0]}
 
 
 def _gcn_bwd(name, n, d, gen, dev):
@@ -137,6 +185,7 @@ def main():
         raise SystemExit("sweep: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
@@ -154,11 +203,15 @@ def main():
         gb = _gcn_bwd(name, n, d, gen, dev)
         torch.cuda.empty_cache()
         ab = _attn_bwd(name, n, d, heads, ks, gen, dev)
+        torch.cuda.empty_cache()
+        g16 = _gcn_bf16(name, n, d, gen, dev)
+        a16 = _attn_bf16(name, n, d, heads, ks, gen, dev)
         print(f"{name} [B={BATCH}, N={n}, T={T_LEN}, D={d}, H={heads}]: "
               + "; ".join((_fmt(f"gcn {g['kernel']}", g), _fmt(f"attn {a['kernel']}", a),
-                           _fmt("gcn_bwd", gb), _fmt("attn_bwd", ab))), flush=True)
+                           _fmt("gcn_bwd", gb), _fmt("attn_bwd", ab), _fmt16("gcn_bf16", g16),
+                           _fmt16("attn_bf16", a16))), flush=True)
         rows.append({"config": name, "n": n, "d": d, "heads": heads, "gcn": g, "attn": a,
-                     "gcn_bwd": gb, "attn_bwd": ab})
+                     "gcn_bwd": gb, "attn_bwd": ab, "gcn_bf16": g16, "attn_bf16": a16})
         torch.cuda.empty_cache()
     print(json.dumps(rows))
 

@@ -12,11 +12,14 @@ Two bounds:
 - :func:`bound_ms`, float32 on the CUDA cores: every operation at 67 TFLOP/s;
 - :func:`bound_3xtf32_ms`, the products on the tensor cores in 3xTF32 (three
   TF32 products per float32 product, float32 accuracy) at 494.7 / 3
-  TFLOP/s, the rest at 67 TFLOP/s, the two times added.
+  TFLOP/s, the rest at 67 TFLOP/s, the two times added;
+- :func:`bound_bf16_ms`, the products on the tensor cores in bfloat16 at
+  989 TFLOP/s (dense), the rest at 67 TFLOP/s, the two times added.
 
 The second is the least time of a float32 kernel that runs its products on
-the tensor cores, as the GCN backward K3 and the attention kernels K4 and
-K5 do; the first is the least time of one that does not (K1, K2).
+the tensor cores, as the GCN kernels K2 and K3 and the attention kernels K4
+and K5 do; the first is the least time of one that does not (K1); the third
+is that of the bfloat16 forms of K2 and K4.
 """
 
 from __future__ import annotations
@@ -26,15 +29,17 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOPS", "PEAK_TF32_FLOPS", "Work", "time_ms",
-           "device_ms", "device_ms_by_kernel", "bound_ms", "bound_3xtf32_ms", "gcn_work", "gcn_bwd_work", "attn_work",
-           "attn_bwd_work"]
+__all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOPS", "PEAK_TF32_FLOPS", "PEAK_BF16_FLOPS", "Work",
+           "time_ms", "device_ms", "device_ms_by_kernel", "bound_ms", "bound_3xtf32_ms",
+           "bound_bf16_ms", "gcn_work", "gcn_bwd_work", "attn_work", "attn_bwd_work"]
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
-# operations/s on the CUDA cores and TF32 operations/s on the tensor cores
+# operations/s on the CUDA cores and TF32 and bfloat16 operations/s on the
+# tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
+PEAK_BF16_FLOPS = 989e12
 
 
 class Work(NamedTuple):
@@ -67,28 +72,34 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms_by_kernel(fn, symbol: str, reps: int = 10) -> dict:
+def device_ms_by_kernel(fn, symbol: str, reps: int = 10, traces: int = 3) -> dict:
     """Median device time (ms) of each CUDA kernel whose name contains
     ``symbol`` in one call of ``fn``, from a profiler trace of ``reps``
-    calls (the wrapper's host-side preparation is not in it)."""
+    calls (the wrapper's host-side preparation is not in it).
+
+    A trace can miss launch records (9 of 10 seen at PEMS08 shapes, 3 of 10
+    for a microsecond kernel, once all of them); it cannot gain one. A
+    trace that saw none of a kernel's launches is taken again, up to
+    ``traces`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.name:
-            by_name.setdefault(e.name, []).append(e.device_time)
-    # a trace can miss launch records (9 of 10 seen at PEMS08 shapes, 3 of
-    # 10 for a microsecond kernel); it cannot gain one
-    if not by_name or any(not 1 <= len(t) <= reps for t in by_name.values()):
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.name:
+                by_name.setdefault(e.name, []).append(e.device_time)
         counts = {k: len(v) for k, v in by_name.items()}
-        raise RuntimeError(f"profiler saw launches {counts} of {symbol}, expected {reps} each")
-    return {name: statistics.median(t) / 1e3 for name, t in by_name.items()}
+        if any(c > reps for c in counts.values()):
+            break
+        if by_name:
+            return {name: statistics.median(t) / 1e3 for name, t in by_name.items()}
+    raise RuntimeError(f"profiler saw launches {counts} of {symbol}, expected {reps} each")
 
 
 def device_ms(fn, symbol: str, reps: int = 10) -> float:
@@ -116,22 +127,35 @@ def bound_3xtf32_ms(work: Work):
     return _bound(work.bytes / PEAK_BYTES_PER_S * 1e3, t_ops * 1e3)
 
 
-def gcn_work(b: int, n: int, t_len: int, d: int) -> Work:
-    """One GCN forward over ``x [b, n, t, d]``: x and gate read, y written;
-    per (b, t) slice the scores x x^T and the mix (2 N^2 D products each),
-    the softmax and gating (5 N^2)."""
-    return Work(4 * (2 * b * n * t_len * d + n * n), b * t_len * 4 * n * n * d,
+def bound_bf16_ms(work: Work):
+    """``(ms, "bytes" | "operations")`` with the products in bfloat16 on the
+    tensor cores and the other operations on the CUDA cores."""
+    t_ops = work.products / PEAK_BF16_FLOPS + work.other / PEAK_F32_FLOPS
+    return _bound(work.bytes / PEAK_BYTES_PER_S * 1e3, t_ops * 1e3)
+
+
+def gcn_work(b: int, n: int, t_len: int, d: int, x_bytes: int = 4, y_bytes: int = 4) -> Work:
+    """One GCN forward over ``x [b, n, t, d]``: x (``x_bytes`` per element)
+    and the float32 gate read, y (``y_bytes``) written; per (b, t) slice the
+    scores x x^T and the mix (2 N^2 D products each), the softmax and gating
+    (5 N^2)."""
+    act = b * n * t_len * d
+    return Work((x_bytes + y_bytes) * act + 4 * n * n, b * t_len * 4 * n * n * d,
                 b * t_len * 5 * n * n)
 
 
-def attn_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int) -> Work:
-    """One attention forward: three inputs and four conv weights read, the
-    output written; per (b, n) row four K-tap convs (the products), the
-    scores, softmax and P.V of the attention core."""
+def attn_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int, in_bytes: int = 4,
+              out_bytes: int = 4) -> Work:
+    """One attention forward: three inputs (``in_bytes`` per element) and
+    four float32 conv weights read, the output (``out_bytes``) written; per
+    (b, n) row four K-tap convs (the products), the scores, softmax and P.V
+    of the attention core."""
     dh = d // heads
     conv = 4 * 2 * ks * d * d * t_len
     core = 4 * heads * t_len * t_len * dh + 3 * heads * t_len * t_len
-    return Work(4 * (4 * b * n * t_len * d + 4 * (ks * d * d + d)), b * n * conv, b * n * core)
+    act = b * n * t_len * d
+    return Work((3 * in_bytes + out_bytes) * act + 4 * 4 * (ks * d * d + d), b * n * conv,
+                b * n * core)
 
 
 def gcn_bwd_work(b: int, n: int, t_len: int, d: int) -> Work:

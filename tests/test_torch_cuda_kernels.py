@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from paddlexde_tpu_torch.ops import _build, attn, gcn, spline
+from paddlexde_tpu_torch.ops.compare import bf16_errors
 
 pytestmark = pytest.mark.cuda
 
@@ -145,6 +146,83 @@ def test_attention_bwd_kernel(dev, flags, b, n, d, heads):
     for a, w in zip(got, want):
         assert a.shape == w.shape
     assert max(attn.bwd_errors(got, want)) <= 1e-5
+
+
+def _bf16_close(got, want):
+    """Within one bfloat16 ulp at the top binade, on at most 1% of elements."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    err, ulp, share = bf16_errors(got, want)
+    assert err <= ulp and share <= 0.01, (err, ulp, share)
+
+
+# the bfloat16 K2 (csrc/gcn_bf16.cu): N within one node tile, across tiles
+# (HZME's 80, PEMS08's 170: the scores held in registers) and past 3 tiles
+# (200, PEMS04's 307: two passes), D = 64 and 128, x float32 (as D3STN passes
+# it) and bfloat16; against the plain bfloat16 version on the card, the same
+# bits twice
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 64), (2, 16, 3, 128), (2, 80, 3, 64),
+                                   (2, 80, 3, 128), (1, 170, 3, 64), (2, 170, 3, 128),
+                                   (1, 200, 2, 64), (1, 307, 2, 128)])
+def test_gcn_bf16_kernel(dev, shape, x_dtype):
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(*shape, generator=g, device=dev).to(x_dtype)
+    gate = torch.rand(shape[1], shape[1], generator=g, device=dev)
+    scale2 = shape[-1] ** -0.5
+    before = _build.LAUNCHES["gcn_fwd_bf16"]
+    (got,) = _bitwise_twice(lambda: (gcn.gcn_spatial_mix_bf16_kernel(x, gate, scale2),))
+    assert _build.LAUNCHES["gcn_fwd_bf16"] == before + 2
+    _bf16_close(got, gcn.gcn_spatial_mix_plain(x, gate, scale2, "bfloat16"))
+    # the routed function serves through the same kernel
+    with torch.no_grad():
+        assert torch.equal(gcn.gcn_spatial_mix(x, gate, scale2, "bfloat16"), got)
+
+
+def test_gcn_bf16_kernel_refuses_other_widths(dev):
+    x = torch.zeros(1, 5, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="gcn_impl"):
+        gcn.gcn_spatial_mix_bf16_kernel(x, torch.zeros(5, 5, device=dev))
+
+
+# the bfloat16 K4 (csrc/attn_bf16.cu): B*N = 37 (a ragged last tile of 16
+# rows) and 340, D = 128 with 8 heads and 64 with 4, D3STN's three flag sets
+@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
+@pytest.mark.parametrize("b,n,d,heads", [(1, 37, 128, 8), (1, 37, 64, 4), (2, 170, 128, 8),
+                                         (2, 170, 64, 4)])
+def test_attention_bf16_kernel(dev, flags, b, n, d, heads):
+    g = torch.Generator(device=dev).manual_seed(7)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    arrays = [r(b, n, 12, d), r(b, n, 12, d), r(b, n, 12, d)]
+    for _ in range(4):
+        arrays += [r(3, d, d) / d ** 0.5, 0.1 * r(d)]
+    before = _build.LAUNCHES["attn_fwd_bf16"]
+    (got,) = _bitwise_twice(lambda: (attn.fused_temporal_attention_bf16_kernel(*arrays, *flags,
+                                                                               heads),))
+    assert _build.LAUNCHES["attn_fwd_bf16"] == before + 2
+    _bf16_close(got, attn.fused_temporal_attention_plain(*arrays, *flags, heads, "bfloat16"))
+    with torch.no_grad():
+        assert torch.equal(attn.fused_temporal_attention(*arrays, *flags, heads, "bfloat16"), got)
+
+
+@pytest.mark.parametrize("d,heads,t_len,flags", [(32, 2, 12, (False, False, False)),
+                                                 (128, 4, 12, (False, False, False)),
+                                                 (128, 8, 9, (False, False, False)),
+                                                 (128, 8, 12, (False, True, False))])
+def test_attention_bf16_kernel_refuses_other_shapes(dev, d, heads, t_len, flags):
+    arrays = [torch.zeros(1, 3, t_len, d, device=dev) for _ in range(3)]
+    for _ in range(4):
+        arrays += [torch.zeros(3, d, d, device=dev), torch.zeros(d, device=dev)]
+    with pytest.raises(ValueError, match="attn_impl"):
+        attn.fused_temporal_attention_bf16_kernel(*arrays, *flags, heads)
+
+
+def test_bf16_kernels_refuse_gradients(dev):
+    x = torch.randn(1, 5, 12, 64, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gcn.gcn_spatial_mix(x, torch.rand(5, 5, device=dev), 0.125, "bfloat16")
+    weights = [torch.zeros(3, 64, 64, device=dev), torch.zeros(64, device=dev)] * 4
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attn.fused_temporal_attention(x, x, x, *weights, False, False, False, 4, "bfloat16")
 
 
 def test_autograd_through_the_kernels(dev):
