@@ -561,6 +561,118 @@ def bf16_distances(np, out, ref, f32):
     return (k.max(), k.mean()), (q.max(), q.mean())
 
 
+def within_bf16_spread(k, q):
+    """The rule for two bfloat16 forecasts of one model: their distance ``k``
+    (max, mean) at most the plain bfloat16 forecast's distance ``q`` from the
+    float32 one on the max, and at most half of it on the mean."""
+    return k[0] <= q[0] and k[1] <= 0.5 * q[1]
+
+
+def parent_conv_bf16(torch, orig):
+    """``temporal_conv_plain`` with the rounding points the port had before
+    it followed the TPU kernel: each tap rounded to bfloat16 and the taps
+    summed in bfloat16 (the JAX ``_tconv_ref``)."""
+    import torch.nn.functional as F
+
+    from paddlexde_tpu_torch.ops import attn
+
+    def conv(x, w, b, causal, dt=torch.float32):
+        if dt != torch.bfloat16:
+            return orig(x, w, b, causal, dt)
+        k, t = w.shape[0], x.shape[-2]
+        pad = attn._pad_cfg(k, causal)
+        xp, w = F.pad(x.to(dt), (0, 0, pad[0], pad[1])), w.to(dt)
+        return sum(torch.einsum("...td,df->...tf", xp[..., j : j + t, :], w[j])
+                   for j in range(k)) + b.to(dt)
+
+    return conv
+
+
+def bf16_scores_of_bf16_x(torch, orig):
+    """``gcn_spatial_mix_plain`` that rounds a float32 x to bfloat16 before
+    its scores (the TPU kernel keeps them float32)."""
+
+    def mix(x, gate, scale2=1.0, dtype_name="float32"):
+        if dtype_name == "bfloat16":
+            x = x.to(torch.bfloat16)
+        return orig(x, gate, scale2, dtype_name)
+
+    return mix
+
+
+# the D3STN sublayers that run a bfloat16 kernel: attention and GCN blocks
+BF16_SUBLAYERS = ("self_attn", "src_attn", "gcn")
+
+
+def capture_sublayers(model, fn):
+    """``(name, args, kwargs, output)`` of every call of an attention or GCN
+    sublayer of ``model`` during ``fn()``."""
+    calls, handles = [], []
+    for name, module in model.named_modules():
+        if name.rsplit(".", 1)[-1] in BF16_SUBLAYERS:
+            handles.append(module.register_forward_hook(
+                lambda m, args, kwargs, out, name=name: calls.append((name, args, kwargs, out)),
+                with_kwargs=True))
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def sublayer_errors(torch, plain_model, calls):
+    """Each captured sublayer call run again in ``plain_model`` on the same
+    inputs, against the captured output by the bfloat16 measure: (the
+    largest error in top-binade ulps, the largest share of elements that
+    differ, and whether both hold: at most one ulp, at most BF16_SHARE)."""
+    from paddlexde_tpu_torch.ops.compare import bf16_errors
+
+    ratio, share = 0.0, 0.0
+    with torch.no_grad():
+        for name, args, kwargs, out in calls:
+            err, ulp, sh = bf16_errors(out, plain_model.get_submodule(name)(*args, **kwargs))
+            ratio, share = max(ratio, err / ulp), max(share, sh)
+    return ratio, share, ratio <= 1 and share <= BF16_SHARE
+
+
+def bf16_witness_and_controls(torch, np, plain, cpu, batch, plain_out, f32_out, calls):
+    """Readings that show what the bfloat16 checks tell apart, on one batch
+    of 32:
+
+    - the witness: the plain versions on the CPU (the same rounding points,
+      other float32 sum orders) against the plain versions on the card;
+    - two controls, each put in place of a plain version on the card: the
+      attention conv at the parent's rounding points and the GCN taking its
+      scores from bfloat16 x. The sublayer check must reject both; the
+      forecast rule's verdict is printed."""
+    from paddlexde_tpu_torch.ops import attn, gcn
+
+    _, q = bf16_distances(np, plain_out, plain_out, f32_out)
+    w, _ = bf16_distances(np, cpu(batch), plain_out, f32_out)
+    print(f"  witness: plain bfloat16 on the CPU vs on the card, over max |float32 forecast|: "
+          f"max {w[0]:.3e} mean {w[1]:.3e} (plain bfloat16 vs float32 max {q[0]:.3e} mean "
+          f"{q[1]:.3e}); the forecast rule "
+          f"{'holds' if within_bf16_spread(w, q) else 'fails'}", flush=True)
+    controls = (("control 1, attention taps summed in bfloat16", attn, "temporal_conv_plain",
+                 parent_conv_bf16),
+                ("control 2, GCN scores of bfloat16 x", gcn, "gcn_spatial_mix_plain",
+                 bf16_scores_of_bf16_x))
+    for label, module, name, make in controls:
+        orig = getattr(module, name)
+        setattr(module, name, make(torch, orig))
+        try:
+            c, _ = bf16_distances(np, plain(batch), plain_out, f32_out)
+            ratio, share, ok = sublayer_errors(torch, plain.model, calls)
+        finally:
+            setattr(module, name, orig)
+        print(f"  {label}: forecast vs the plain versions' max {c[0]:.3e} mean {c[1]:.3e}, the "
+              f"forecast rule {'holds' if within_bf16_spread(c, q) else 'rejects it'}; "
+              f"sublayers vs the kernels' up to {ratio:.2f} ulp on up to {share:.4%} of "
+              f"elements, the sublayer check {'holds' if ok else 'rejects it'}", flush=True)
+        require(not ok, f"the bfloat16 sublayer check does not reject {label}")
+
+
 def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
     """Serve PEMS08-width requests with ``compute_dtype=dtype`` through the
     kernels and through the plain versions; returns the main path's
@@ -570,10 +682,11 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
     plain versions'. In bfloat16 a float32 sum that the kernels take in
     another order can cross a bfloat16 rounding boundary, and the next
     roundings carry the ulp on through the layers, so the two forecasts are
-    held against the float32 forecasts ``f32_outs`` of the same weights: the
-    kernels' and the plain version's bfloat16 forecasts must lie closer to
-    each other than the plain bfloat16 forecast lies to the float32 one, by
-    at least half on the mean."""
+    held against the float32 forecasts ``f32_outs`` of the same weights
+    (:func:`within_bf16_spread`); each attention and GCN sublayer of one
+    batch must agree with its plain version on the same inputs by the
+    bfloat16 measure (:func:`sublayer_errors`), a check that two controls
+    must fail (:func:`bf16_witness_and_controls`)."""
     import dataclasses
 
     import numpy as np
@@ -650,7 +763,7 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
               f"versions on the card max {k_max:.3e} mean {k_mean:.3e}; plain bfloat16 vs "
               f"float32 max {q_max:.3e} mean {q_mean:.3e}; kernels' bfloat16 vs float32 max "
               f"{f_max:.3e} mean {f_mean:.3e}", flush=True)
-        require(k_max <= q_max and k_mean <= 0.5 * q_mean,
+        require(within_bf16_spread((k_max, k_mean), (q_max, q_mean)),
                 f"bfloat16 Predictor {shape}: the kernels' forecast is {k_max:.3e} (mean "
                 f"{k_mean:.3e}) from the plain version's, which is {q_max:.3e} (mean "
                 f"{q_mean:.3e}) from the float32 forecast")
@@ -659,15 +772,22 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
     ragged_err = np.abs(outs[2] - outs[1][25:32]).max() / np.abs(outs[1]).max()
     print(f"  the ragged batch of 7 vs the same rows of the full batch: {ragged_err:.3e}",
           flush=True)
-    if bf16:  # rows are independent: at most what the two bfloat16 paths differ by
-        (k_max, _), _ = bf16_distances(np, outs[2], outs[1][25:32], f32_outs[1][25:32])
-        (q_max, _), _ = bf16_distances(np, plain_outs[1][25:32], f32_outs[1][25:32],
-                                       f32_outs[1][25:32])
-        require(k_max <= q_max, f"the bfloat16 ragged batch differs from the full batch "
-                f"({k_max:.3e} > {q_max:.3e})")
-    else:
-        require(ragged_err <= 1e-6,
-                f"the ragged batch differs from the full batch ({ragged_err:.3e})")
+    require(ragged_err <= 1e-6, f"the ragged batch differs from the full batch ({ragged_err:.3e})")
+    src = torch.as_tensor(windows[:32]).to(dev)
+    if bf16:
+        # teacher-forced: each attention and GCN sublayer of one batch on the
+        # kernels against the plain sublayer on the same inputs
+        calls = capture_sublayers(pred.model, lambda: pred.forward(src))
+        ratio, share, ok = sublayer_errors(torch, plain.model, calls)
+        print(f"  {len(calls)} attention and GCN sublayer calls, kernels vs plain versions on "
+              f"the same inputs: up to {ratio:.2f} bfloat16 ulp at the top binade on up to "
+              f"{share:.4%} of elements (at most 1 ulp, {BF16_SHARE:.0%})", flush=True)
+        require(ok, "a bfloat16 sublayer disagrees with its plain version")
+        cpu = PlainPredictor(plain_cfg, None, enc, dec, adj, sc, batch_size=32, device="cpu")
+        cpu.model.load_state_dict(pred.model.state_dict())
+        bf16_witness_and_controls(torch, np, plain, cpu, windows[:32], plain_outs[0],
+                                  f32_outs[0], calls)
+        del calls
     for label, s in (("kernels", secs), ("plain", plain_secs)):
         print(f"  {label}: request seconds (host clock, host array in, numpy out): "
               f"batch32 {s[0]:.4f}, batch32 {s[1]:.4f}, batch7 {s[2]:.4f}, "
@@ -676,7 +796,6 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
               f"{len(starts) / s[3]:.1f} samples/s resident", flush=True)
 
     # steady-state device latency of one resident batch of 32
-    src = torch.as_tensor(windows[:32]).to(dev)
     fwd_ms = time_ms(lambda: pred.forward(src), reps=10)
     plain_fwd_ms = time_ms(lambda: plain.forward(src), reps=10)
     print(f"  Predictor.forward ({dtype}), resident batch of 32 (CUDA events, median of 10): "
@@ -706,16 +825,23 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
 
 def trace(torch, fn):
     """Launches per kernel key and symbol, total device time (us) and device
-    time per kernel name, from a profiler trace of one call of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
+    time per kernel name, from a profiler trace of one call of ``fn``. A
+    warm-up step runs ``fn`` once before the recorded one: a trace that
+    starts on the first launch can drop that launch's record."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     counts = {k: [0] * len(symbols) for k, symbols in KERNEL_NAMES.items()}
     device_us, by_name = 0.0, {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # the schedule's step annotation spans the step on the device
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.name.startswith(
+                "ProfilerStep"):
             continue
         device_us += evt.device_time
         by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time
@@ -926,8 +1052,6 @@ def main():
     sys.path.insert(0, str(HERE))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bfloat16 products summed in float32, as the JAX package sums them
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
 
     card = card_line()

@@ -63,11 +63,21 @@ def topk_mix_matrix(matrix: torch.Tensor, k: int) -> torch.Tensor:
 def _dense(x, layer: nn.Linear, bf16: bool):
     """``layer(x)``; in bfloat16 as flax ``nn.Dense(dtype=bfloat16)``: x and
     the kernel rounded, the product (float32 sums) rounded, then the
-    rounded bias added in bfloat16."""
+    rounded bias added in bfloat16. The sums go into a float32 result
+    (cuBLAS's bfloat16 GEMM with a float32 output on the card, a float32
+    product of the rounded values elsewhere), so cuBLAS's reduced-precision
+    flag cannot make them bfloat16 sums."""
     if not bf16:
         return layer(x)
-    y = F.linear(x.to(torch.bfloat16), layer.weight.to(torch.bfloat16))
-    return y if layer.bias is None else y + layer.bias.to(torch.bfloat16)
+    bf = torch.bfloat16
+    x, w = x.to(bf), layer.weight.to(bf)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        y = y.reshape(*x.shape[:-1], w.shape[0])
+    else:
+        y = F.linear(x.float(), w.float())
+    y = y.to(bf)
+    return y if layer.bias is None else y + layer.bias.to(bf)
 
 
 def _silu_bf16(x):

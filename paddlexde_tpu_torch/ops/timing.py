@@ -14,7 +14,9 @@ Two bounds:
   TF32 products per float32 product, float32 accuracy) at 494.7 / 3
   TFLOP/s, the rest at 67 TFLOP/s, the two times added;
 - :func:`bound_bf16_ms`, the products on the tensor cores in bfloat16 at
-  989 TFLOP/s (dense), the rest at 67 TFLOP/s, the two times added.
+  989 TFLOP/s (dense), those that must stay float32 (``Work.f32_products``,
+  the scores of a float32 x in the bfloat16 GCN forward) in 3xTF32, the rest
+  at 67 TFLOP/s, the times added.
 
 The second is the least time of a float32 kernel that runs its products on
 the tensor cores, as the GCN kernels K2 and K3 and the attention kernels K4
@@ -44,11 +46,14 @@ PEAK_BF16_FLOPS = 989e12
 
 class Work(NamedTuple):
     """Bytes moved and operations of one call: ``products`` (conv and
-    matrix products) and ``other`` (softmax, scaling, sums, elementwise)."""
+    matrix products) and ``other`` (softmax, scaling, sums, elementwise).
+    ``f32_products`` is the part of ``products`` that a bfloat16 kernel
+    still takes in float32."""
 
     bytes: float
     products: float
     other: float
+    f32_products: float = 0.0
 
     @property
     def flops(self) -> float:
@@ -72,20 +77,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms_by_kernel(fn, symbol: str, reps: int = 10, traces: int = 3) -> dict:
+# A profiler trace can miss launch records (9 of 10 seen at PEMS08 shapes, 3
+# of 10 for a microsecond kernel, once all of them); it cannot gain one. A
+# trace that saw none of a kernel's launches is taken again, up to this many
+# times in all.
+_TRACES = 3
+
+
+def device_ms_by_kernel(fn, symbol: str, reps: int = 10) -> dict:
     """Median device time (ms) of each CUDA kernel whose name contains
     ``symbol`` in one call of ``fn``, from a profiler trace of ``reps``
-    calls (the wrapper's host-side preparation is not in it).
-
-    A trace can miss launch records (9 of 10 seen at PEMS08 shapes, 3 of 10
-    for a microsecond kernel, once all of them); it cannot gain one. A
-    trace that saw none of a kernel's launches is taken again, up to
-    ``traces`` times."""
+    calls (the wrapper's host-side preparation is not in it; see
+    ``_TRACES`` for traces that miss launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(traces):
+    for _ in range(_TRACES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -129,8 +137,10 @@ def bound_3xtf32_ms(work: Work):
 
 def bound_bf16_ms(work: Work):
     """``(ms, "bytes" | "operations")`` with the products in bfloat16 on the
-    tensor cores and the other operations on the CUDA cores."""
-    t_ops = work.products / PEAK_BF16_FLOPS + work.other / PEAK_F32_FLOPS
+    tensor cores, ``work.f32_products`` of them in 3xTF32, and the other
+    operations on the CUDA cores."""
+    t_ops = ((work.products - work.f32_products) / PEAK_BF16_FLOPS
+             + work.f32_products / (PEAK_TF32_FLOPS / 3) + work.other / PEAK_F32_FLOPS)
     return _bound(work.bytes / PEAK_BYTES_PER_S * 1e3, t_ops * 1e3)
 
 
@@ -138,10 +148,12 @@ def gcn_work(b: int, n: int, t_len: int, d: int, x_bytes: int = 4, y_bytes: int 
     """One GCN forward over ``x [b, n, t, d]``: x (``x_bytes`` per element)
     and the float32 gate read, y (``y_bytes``) written; per (b, t) slice the
     scores x x^T and the mix (2 N^2 D products each), the softmax and gating
-    (5 N^2)."""
+    (5 N^2). The scores of a float32 x are float32 products, also in the
+    bfloat16 forward (the TPU kernel's float32 scores)."""
     act = b * n * t_len * d
-    return Work((x_bytes + y_bytes) * act + 4 * n * n, b * t_len * 4 * n * n * d,
-                b * t_len * 5 * n * n)
+    scores = b * t_len * 2 * n * n * d
+    return Work((x_bytes + y_bytes) * act + 4 * n * n, 2 * scores, b * t_len * 5 * n * n,
+                scores if x_bytes == 4 else 0.0)
 
 
 def attn_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int, in_bytes: int = 4,

@@ -172,6 +172,20 @@ def test_bounds_at_pems08(name):
     assert work.bytes / timing.PEAK_BYTES_PER_S * 1e3 < tf32_ms
 
 
+@pytest.mark.parametrize("x_bytes, want", [(4, (0.020929, "operations")),
+                                            (2, (0.010012, "bytes"))])
+def test_bf16_gcn_bound_takes_float32_scores_at_3xtf32(x_bytes, want):
+    """The bfloat16 GCN forward at PEMS08, batch 32: the scores of a float32
+    x (2 N^2 D per slice) at 494.7/3 TFLOP/s, the mix at 989 TFLOP/s, the
+    softmax at 67 TFLOP/s; a bfloat16 x takes every product at 989 and its
+    bytes bind."""
+    from paddlexde_tpu_torch.ops import timing
+
+    work = timing.gcn_work(*_PEMS08[:4], x_bytes=x_bytes, y_bytes=2)
+    assert timing.bound_bf16_ms(work) == (pytest.approx(want[0], rel=1e-4), want[1])
+    assert timing.bound_3xtf32_ms(work) == timing.bound_3xtf32_ms(timing.gcn_work(*_PEMS08[:4]))
+
+
 def test_bound_without_products_is_the_cuda_core_bound():
     from paddlexde_tpu_torch.ops import timing
 

@@ -216,6 +216,35 @@ def test_attention_bf16_kernel_refuses_other_shapes(dev, d, heads, t_len, flags)
         attn.fused_temporal_attention_bf16_kernel(*arrays, *flags, heads)
 
 
+@pytest.mark.parametrize("d_in,bias", [(1, True), (128, False)])
+def test_bf16_dense_sums_in_float32_whatever_the_flag(dev, d_in, bias):
+    """The bfloat16 dense layer gives the same bits with cuBLAS's
+    reduced-precision flag on and off, within one bfloat16 ulp of the CPU's
+    float32 sums on at most 1% of elements."""
+    from paddlexde_tpu_torch.models.d3stn.model import _dense
+
+    g = torch.Generator().manual_seed(d_in)
+    layer = torch.nn.Linear(d_in, 128, bias=bias)
+    with torch.no_grad():
+        layer.weight.normal_(generator=g)
+        if bias:
+            layer.bias.normal_(generator=g)
+    x = torch.randn(4, 170, 12, d_in, generator=g)
+    want = _dense(x, layer, True)
+    layer = layer.to(dev)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        got = []
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = on
+            got.append(_dense(x.to(dev), layer, True))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    assert got[0].dtype == torch.bfloat16 and torch.equal(got[0], got[1])
+    err, ulp, share = bf16_errors(got[0], want)
+    assert err <= ulp and share <= 0.01, (err, ulp, share)
+
+
 def test_bf16_kernels_refuse_gradients(dev):
     x = torch.randn(1, 5, 12, 64, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
