@@ -5,12 +5,12 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds the seven hand-written Hopper kernels from ``paddlexde_tpu_torch/
+It builds the eight hand-written Hopper kernels from ``paddlexde_tpu_torch/
 ops/csrc``, prints the compiler's registers, spills and shared memory of
 the GCN and attention kernels and the count of tensor-core instructions in
 their libraries (it fails if one has none, if a GCN kernel spills, or if a
-bfloat16 kernel spills or has no HGMMA), and runs three phases (PyTorch's TF32
-off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
+bfloat16 kernel spills or has no HGMMA), and runs four phases (PyTorch's
+TF32 off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
 float32 GCN and attention kernels run their products in 3xTF32, the
 bfloat16 ones in bfloat16):
 
@@ -22,7 +22,11 @@ bfloat16 ones in bfloat16):
    required to give the same bits, with K3's and K5's device time per
    kernel; the bfloat16 forward kernels (GCN, attention) against their
    plain bfloat16 versions (within one bfloat16 ulp at the top binade, on at
-   most 1% of elements) and run twice for the same bits;
+   most 1% of elements) and run twice for the same bits; the bfloat16
+   attention backward K5 against the plain bfloat16 backward
+   (``attn.bwd_errors`` within ATTN_BWD_BF16_TOL, the parent's route
+   printed as a control) and K3 on a bfloat16 cotangent, bit for bit K3 on
+   ``g.float()``, both the same bits twice;
 2. serving: PEMS08-width ``Predictor`` requests (random weights from a
    seeded generator) through the kernels and against the same Predictor
    forced to the plain versions, in float32 and then in bfloat16
@@ -32,16 +36,24 @@ bfloat16 ones in bfloat16):
    ``Trainer`` step on the kernels against one on the plain versions (loss
    and every gradient), the launches of a step by counter and profiler, the
    step time, then a short two-phase ``Trainer.train()`` whose best
-   checkpoint a ``Predictor`` serves through the kernels.
+   checkpoint a ``Predictor`` serves through the kernels;
+4. training in bfloat16 at PEMS08 width and depth, batch 32: one step on
+   the kernels against the plain bfloat16 versions, within the plain
+   step's distance from the float32 step (loss and every gradient); each
+   attention sublayer's backward teacher-forced on the step's inputs and
+   cotangent, with the parent's route as a control that must fail; the
+   launches of a step by counter and profiler, the step time, then
+   BF16_STEPS more steps with a finite loss.
 
 Launch counts are checked by the wrappers' counters and by ``torch.profiler``
 traces. It prints:
 
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-  main paths (serving in float32 and in bfloat16 and the two-epoch train),
-  error, time, bound (the 3xTF32 bound of ``ops/timing.py``, the bfloat16
-  bound for the bfloat16 kernels), plain-version time and library time;
+  main paths (serving in float32 and in bfloat16, the two-epoch train and
+  the bfloat16 train steps), error, time, bound (the 3xTF32 bound of
+  ``ops/timing.py``, the bfloat16 bound for the bfloat16 kernels),
+  plain-version time and library time;
 - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result lines. With no CUDA card, or
@@ -51,6 +63,7 @@ without the ``paddlexde_tpu_torch`` package beside this file, it fails too.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -68,17 +81,31 @@ PREDICTOR_TOL = 5e-4
 # a bfloat16 kernel against its plain version: within one bfloat16 ulp at the
 # top binade (ops/compare.py), on at most this share of elements
 BF16_SHARE = 0.01
+# the bfloat16 attention backward against its plain bfloat16 version on the
+# same inputs: the largest of attn.bwd_errors' 11 normalised errors. The two
+# round dq, dk and dv to bfloat16 after float32 sums taken in other orders,
+# so a few land one ulp apart and carry it into the input and weight
+# gradients
+ATTN_BWD_BF16_TOL = 2e-3
 # the train step on the kernels against the plain versions on the card:
 # loss relative, each gradient tensor normalised max-abs
 TRAIN_TOL = 1e-3
-LAUNCHES_PER_BATCH = {"spline": 2, "gcn_fwd": 4, "gcn_bwd": 0, "attn_fwd": 6, "attn_bwd": 0,
-                      "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0}
-LAUNCHES_PER_BATCH_BF16 = {"spline": 2, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
-                           "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6}
-LAUNCHES_PER_STEP = {"spline": 4, "gcn_fwd": 4, "gcn_bwd": 4, "attn_fwd": 6, "attn_bwd": 6,
-                     "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0}
+# further bfloat16 train steps after the checked one (finite loss)
+BF16_STEPS = 8
+# the gradients that the model's backward rounds to bfloat16: the bfloat16
+# dense layers' weights and biases (flax's transposed products and sums)
+BF16_ROUNDED_GRADS = ("encoder_dense.", "decoder_dense.", ".gcn.proj.")
+_ZERO = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
+         "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0, "gcn_bwd_bf16": 0, "attn_bwd_bf16": 0}
+LAUNCHES_PER_BATCH = {**_ZERO, "spline": 2, "gcn_fwd": 4, "attn_fwd": 6}
+LAUNCHES_PER_BATCH_BF16 = {**_ZERO, "spline": 2, "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6}
+LAUNCHES_PER_STEP = {**_ZERO, "spline": 4, "gcn_fwd": 4, "gcn_bwd": 4, "attn_fwd": 6,
+                     "attn_bwd": 6}
+LAUNCHES_PER_STEP_BF16 = {**_ZERO, "spline": 4, "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6,
+                          "gcn_bwd_bf16": 4, "attn_bwd_bf16": 6}
 # CUDA symbol substrings in a profiler trace; one wrapper call launches one
-# kernel of each symbol
+# kernel of each symbol. K3 on a bfloat16 cotangent (counter gcn_bwd_bf16)
+# launches the gcn_bwd kernels: a trace counts it under gcn_bwd
 KERNEL_NAMES = {
     "spline": ("hermite_gather_kernel",),
     "gcn_fwd": ("gcn_fwd_",),  # gcn_fwd_tc_kernel (D=64, 128) or gcn_fwd_kernel
@@ -88,7 +115,11 @@ KERNEL_NAMES = {
                  "attn_bwd_dx_conv_kernel", "attn_bwd_dw_kernel", "attn_bwd_sum_kernel"),
     "gcn_fwd_bf16": ("gcn_bf16_fwd_kernel",),
     "attn_fwd_bf16": ("attn_bf16_wcast_kernel", "attn_bf16_fwd_kernel"),
+    "attn_bwd_bf16": ("attn_bwd_bf16_wcast_kernel", "attn_bwd_bf16_qkv_conv_kernel",
+                      "attn_bwd_bf16_core_kernel", "attn_bwd_bf16_dx_conv_kernel",
+                      "attn_bwd_bf16_dw_kernel", "attn_bwd_bf16_sum_kernel"),
 }
+TRACED_AS = {"gcn_bwd_bf16": "gcn_bwd"}
 SOURCES = {
     "spline": ("paddlexde_tpu_torch/ops/csrc/spline.cu", "paddlexde_tpu/ops/spline_pallas.py:84"),
     "gcn_fwd": ("paddlexde_tpu_torch/ops/csrc/gcn.cu", "paddlexde_tpu/ops/gcn_pallas.py:54"),
@@ -98,6 +129,9 @@ SOURCES = {
     "gcn_fwd_bf16": ("paddlexde_tpu_torch/ops/csrc/gcn_bf16.cu", "paddlexde_tpu/ops/gcn_pallas.py:54"),
     "attn_fwd_bf16": ("paddlexde_tpu_torch/ops/csrc/attn_bf16.cu",
                       "paddlexde_tpu/ops/attn_pallas.py:248"),
+    "gcn_bwd_bf16": ("paddlexde_tpu_torch/ops/csrc/gcn_bwd.cu", "paddlexde_tpu/ops/gcn_pallas.py:70"),
+    "attn_bwd_bf16": ("paddlexde_tpu_torch/ops/csrc/attn_bwd_bf16.cu",
+                      "paddlexde_tpu/ops/attn_pallas.py:494"),
 }
 BF16_KERNELS = ("gcn_fwd_bf16", "attn_fwd_bf16")
 
@@ -151,15 +185,16 @@ def ptxas_report(log):
 
 
 def build_report():
-    """Registers and spills of every kernel of the six tensor-core
+    """Registers and spills of every kernel of the seven tensor-core
     libraries (GCN forward and backward, attention forward and backward,
-    the bfloat16 GCN and attention forwards), and the tensor-core
+    the bfloat16 GCN and attention forwards, the bfloat16 attention
+    backward), and the tensor-core
     instructions (HMMA/HGMMA) in their SASS. The GCN kernels and the
     bfloat16 kernels must not spill; the bfloat16 libraries must hold
     HGMMA (wgmma)."""
     from paddlexde_tpu_torch.ops import _build
 
-    for lib in ("gcn", "gcn_bwd", "attn", "attn_bwd", "gcn_bf16", "attn_bf16"):
+    for lib in ("gcn", "gcn_bwd", "attn", "attn_bwd", "gcn_bf16", "attn_bf16", "attn_bwd_bf16"):
         log = _build.build_log(lib)
         for line in log.splitlines():
             if "warning" in line.lower():
@@ -480,6 +515,114 @@ def check_attn_bf16(torch, dev, gen):
                       "3 flag sets")
 
 
+def attn_inputs(torch, dev, gen, b=32, n=170, t_len=12, d=128, ks=3):
+    """mq, mk, vs and the four convs' weights at a D3STN shape (the model's
+    xavier bound, small biases)."""
+    acts = [torch.randn(b, n, t_len, d, generator=gen, device=dev) for _ in range(3)]
+    bound = (6.0 / (2 * ks * d)) ** 0.5
+    weights = []
+    for _ in range(4):
+        weights.append((2 * torch.rand(ks, d, d, generator=gen, device=dev) - 1) * bound)
+        weights.append(0.1 * torch.randn(d, generator=gen, device=dev))
+    return acts, weights
+
+
+def attn_bwd_bf16_errors(torch, args, control=False):
+    """The bfloat16 attention backward kernel on ``args`` (mq, mk, vs, the
+    weights, g, the flags, heads) against the plain bfloat16 backward on the
+    same inputs: the largest of ``attn.bwd_errors``. ``control`` holds the
+    parent's route instead of the kernel: autograd through the plain
+    bfloat16 forward, which rounds dx_attn to bfloat16 before the core."""
+    from paddlexde_tpu_torch.ops import attn
+
+    want = attn.fused_temporal_attention_bwd_plain(*args, "bfloat16")
+    if control:
+        leaves = [a.detach().requires_grad_() for a in args[:11]]
+        y = attn.fused_temporal_attention_plain(*leaves, *args[12:], "bfloat16")
+        got = torch.autograd.grad(y, leaves, args[11])
+    else:
+        got = attn.fused_temporal_attention_bwd_bf16_kernel(*args)
+    return max(attn.bwd_errors(got, want))
+
+
+def check_attn_bwd_bf16(torch, dev, gen):
+    from paddlexde_tpu_torch.ops import attn
+    from paddlexde_tpu_torch.ops.timing import (
+        attn_bwd_work,
+        bound_bf16_ms,
+        device_ms,
+        device_ms_by_kernel,
+        time_ms,
+    )
+
+    b, n, t_len, d, heads, ks = 32, 170, 12, 128, 8, 3
+    acts, weights = attn_inputs(torch, dev, gen)
+    g = torch.randn(b, n, t_len, d, generator=gen, device=dev).to(torch.bfloat16)
+    errs, controls, times, wrapper_times, plain_times = [], [], [], [], []
+    for flags in ((False, False, False), (True, True, True), (True, False, False)):
+        args = (*acts, *weights, g, *flags, heads)
+        run = lambda: attn.fused_temporal_attention_bwd_bf16_kernel(*args)  # noqa: E731
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        require(all(torch.isfinite(a).all().item() for a in got),
+                f"attn_bwd_bf16 kernel {flags}: non-finite output")
+        require(same_bits(torch, got, again), f"attn_bwd_bf16 kernel {flags}: two runs differ")
+        require(all(a.dtype == torch.float32 for a in got),
+                f"attn_bwd_bf16 kernel {flags}: gradients not float32")
+        errs.append(attn_bwd_bf16_errors(torch, args))
+        controls.append(attn_bwd_bf16_errors(torch, args, control=True))
+        print(f"  flags {flags}: K5 bf16 vs the plain bfloat16 backward {errs[-1]:.3e} (limit "
+              f"{ATTN_BWD_BF16_TOL:g}); control, autograd through the plain forward (the "
+              f"parent's route) {controls[-1]:.3e}", flush=True)
+        require(errs[-1] <= ATTN_BWD_BF16_TOL,
+                f"attn_bwd_bf16 kernel {flags}: {errs[-1]:.3e} > {ATTN_BWD_BF16_TOL:g}")
+        times.append(device_ms(run, "attn_bwd_bf16_"))
+        print_by_kernel(device_ms_by_kernel(run, "attn_bwd_bf16_"), flags)
+        wrapper_times.append(time_ms(run))
+        plain_times.append(time_ms(
+            lambda: attn.fused_temporal_attention_bwd_plain(*args, "bfloat16")))
+    work = attn_bwd_work(b, n, t_len, d, heads, ks, in_bytes=4, g_bytes=2)
+    return dict(err=max(errs), control=min(controls), ms=statistics.mean(times),
+                wrapper_ms=statistics.mean(wrapper_times), plain_ms=statistics.mean(plain_times),
+                bound16=bound_bf16_ms(work), per_flags=list(zip(errs, times, plain_times)),
+                shape=f"[{b},{n},{t_len},{d}] float32, g bfloat16, H={heads}, K={ks}, 3 flag "
+                      "sets, 11 gradients; bitwise equal twice")
+
+
+def check_gcn_bwd_bf16(torch, dev, gen):
+    """K3 on a bfloat16 cotangent: the float32 kernel on g.float(), bit for
+    bit; its time with the cast."""
+    from paddlexde_tpu_torch.ops import gcn
+    from paddlexde_tpu_torch.ops.timing import (
+        bound_bf16_ms,
+        device_ms_by_kernel,
+        gcn_bwd_work,
+        time_ms,
+    )
+
+    b, n, t_len, d = 32, 170, 12, 128
+    x = torch.randn(b, n, t_len, d, generator=gen, device=dev)
+    gate = 0.5 * torch.rand(n, n, generator=gen, device=dev)
+    g = torch.randn(b, n, t_len, d, generator=gen, device=dev).to(torch.bfloat16)
+    scale2 = 1.0 / d ** 0.5
+    run = lambda: gcn.gcn_spatial_mix_bwd_bf16_kernel(x, gate, g, scale2)  # noqa: E731
+    got, again = run(), run()
+    want = gcn.gcn_spatial_mix_bwd_kernel(x, gate, g.float(), scale2)
+    torch.cuda.synchronize()
+    require(same_bits(torch, got, again), "gcn_bwd_bf16: two runs differ")
+    require(same_bits(torch, got, want), "gcn_bwd_bf16: K3 on a bfloat16 g differs from K3 on "
+            "g.float()")
+    plain = lambda: gcn.gcn_spatial_mix_bwd_plain(x, gate, g.float(), scale2)  # noqa: E731
+    err = max(norm_err(a, w) for a, w in zip(got, plain()))
+    by_kernel = device_ms_by_kernel(run, "")  # the cast and the three K3 kernels
+    print_by_kernel(by_kernel)
+    cast_ms = sum(ms for name, ms in by_kernel.items() if "gcn_bwd_" not in name)
+    return dict(err=err, ms=sum(by_kernel.values()), cast_ms=cast_ms, wrapper_ms=time_ms(run),
+                plain_ms=time_ms(plain), bound16=bound_bf16_ms(gcn_bwd_work(b, n, t_len, d, 2)),
+                shape=f"x [{b},{n},{t_len},{d}] float32, g bfloat16 -> dx float32, dgate "
+                      f"[{n},{n}]; bitwise equal to K3 on g.float() and twice")
+
+
 def kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -512,6 +655,23 @@ def kernel_phase(torch, dev):
               f"{res['plain_ms']:.4f} ms (CUDA events), bound {res['bound16'][0]:.4f} ms by "
               f"{res['bound16'][1]} (bfloat16 products), launches per bfloat16 Predictor batch "
               f"{LAUNCHES_PER_BATCH_BF16[name]}", flush=True)
+        for flags_res in res.get("per_flags", ()):
+            print(f"  flag set: err {flags_res[0]:.3e}, kernel {flags_res[1]:.4f} ms (device), "
+                  f"plain {flags_res[2]:.4f} ms", flush=True)
+        res["bound_main"] = res["bound16"]
+        results[name] = res
+    for name, fn in (("gcn_bwd_bf16", check_gcn_bwd_bf16), ("attn_bwd_bf16", check_attn_bwd_bf16)):
+        res = fn(torch, dev, gen)
+        f32 = results[name[: -len("_bf16")]]
+        print(f"kernel {name} ({res['shape']}): max_abs_err(normalised)={res['err']:.3e} "
+              f"against the plain bfloat16 backward; kernel {res['ms']:.4f} ms (device, "
+              f"profiler; the float32 kernel {f32['ms']:.4f} ms), wrapper "
+              f"{res['wrapper_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms (CUDA events), bound "
+              f"{res['bound16'][0]:.4f} ms by {res['bound16'][1]} (bfloat16 products; K3's stay "
+              f"float32, 3xTF32), launches per bfloat16 train step "
+              f"{LAUNCHES_PER_STEP_BF16[name]}", flush=True)
+        if "cast_ms" in res:
+            print(f"  of which the cast of g to float32 {res['cast_ms']:.4f} ms", flush=True)
         for flags_res in res.get("per_flags", ()):
             print(f"  flag set: err {flags_res[0]:.3e}, kernel {flags_res[1]:.4f} ms (device), "
                   f"plain {flags_res[2]:.4f} ms", flush=True)
@@ -673,6 +833,19 @@ def bf16_witness_and_controls(torch, np, plain, cpu, batch, plain_out, f32_out, 
         require(not ok, f"the bfloat16 sublayer check does not reject {label}")
 
 
+def with_plain_history(cls):
+    """``cls`` (Predictor or Trainer) with the spline class in place of the
+    spline kernel: with ``*_impl="xla"`` the plain reference path."""
+    from paddlexde_tpu_torch import history_index
+
+    class Plain(cls):
+        def _history(self, lags, src):
+            return history_index(lags, src, self.his_span, interpolation="cubic",
+                                 use_kernel=False)
+
+    return Plain
+
+
 def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
     """Serve PEMS08-width requests with ``compute_dtype=dtype`` through the
     kernels and through the plain versions; returns the main path's
@@ -691,17 +864,11 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
 
     import numpy as np
 
-    from paddlexde_tpu_torch import history_index
     from paddlexde_tpu_torch.models.d3stn import Predictor, load_config
     from paddlexde_tpu_torch.ops import _build
     from paddlexde_tpu_torch.ops.timing import time_ms
 
-    class PlainPredictor(Predictor):
-        """The reference: the spline class in place of the spline kernel."""
-
-        def _history(self, lags, src):
-            return history_index(lags, src, self.his_span, interpolation="cubic",
-                                 use_kernel=False)
+    PlainPredictor = with_plain_history(Predictor)
 
     bf16 = dtype == "bfloat16"
     per_batch = LAUNCHES_PER_BATCH_BF16 if bf16 else LAUNCHES_PER_BATCH
@@ -858,6 +1025,10 @@ def traced_launches(torch, fn, expected, label):
     10-launch trace), never add one: up to 3 traces, the first with every
     count exact passes. Returns the device time (us) and the time by kernel
     name of that trace."""
+    by_symbols = {k: 0 for k in KERNEL_NAMES}
+    for key, per_call in expected.items():
+        by_symbols[TRACED_AS.get(key, key)] += per_call
+    expected = by_symbols
     for attempt in range(3):
         counts, device_us, by_name = trace(torch, fn)
         print(f"  profiler, {label} (trace {attempt + 1}): kernel launches {counts}, "
@@ -895,28 +1066,29 @@ def grad_errors(names, got, want):
     return errs
 
 
+def train_inputs(np, n):
+    """The train phases' graph (seeded) and synthetic series of 14 days."""
+    from paddlexde_tpu_torch.models.d3stn import synthetic_traffic_npz
+
+    rng = np.random.default_rng(0)
+    a = rng.random((n, n))
+    sc = ((a + a.T) / 2).astype(np.float32)
+    adj = (rng.random((n, n)) < 0.03).astype(np.float32)
+    adj = np.maximum(adj, adj.T)
+    return adj, sc, synthetic_traffic_npz(num_nodes=n, seq_len=288 * 14)
+
+
 def train_phase(torch, dev):
     import dataclasses
     import shutil
 
     import numpy as np
 
-    from paddlexde_tpu_torch import history_index
-    from paddlexde_tpu_torch.models.d3stn import (
-        Predictor,
-        Trainer,
-        load_config,
-        synthetic_traffic_npz,
-    )
+    from paddlexde_tpu_torch.models.d3stn import Predictor, Trainer, load_config
     from paddlexde_tpu_torch.ops import _build
     from paddlexde_tpu_torch.ops.timing import time_ms
 
-    class PlainTrainer(Trainer):
-        """The reference: the spline class in place of the spline kernel."""
-
-        def _history(self, lags, src):
-            return history_index(lags, src, self.his_span, interpolation="cubic",
-                                 use_kernel=False)
+    PlainTrainer = with_plain_history(Trainer)
 
     save_dir = HERE / "experiments" / "chip_smoke"
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -925,12 +1097,7 @@ def train_phase(torch, dev):
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla",
                                     save_dir=str(save_dir / "plain"))
     n = cfg.num_nodes
-    rng = np.random.default_rng(0)
-    a = rng.random((n, n))
-    sc = ((a + a.T) / 2).astype(np.float32)
-    adj = (rng.random((n, n)) < 0.03).astype(np.float32)
-    adj = np.maximum(adj, adj.T)
-    data = synthetic_traffic_npz(num_nodes=n, seq_len=288 * 14)
+    adj, sc, data = train_inputs(np, n)
     t0 = time.perf_counter()
     tr = Trainer(cfg, data=data, adj_matrix=adj, sc_matrix=sc, device=dev)
     plain = PlainTrainer(plain_cfg, data=data, adj_matrix=adj, sc_matrix=sc, device=dev)
@@ -1042,6 +1209,172 @@ def train_phase(torch, dev):
     return launches
 
 
+def train_bf16_phase(torch, dev):
+    """The bfloat16 train step at PEMS08 width and depth, batch 32: one step
+    on the kernels against the same step on the plain bfloat16 versions,
+    both held against the float32 step (the reference spread, as the
+    bfloat16 Predictor is held in phase 2); each attention sublayer's
+    backward teacher-forced on the inputs and cotangent captured in the
+    step, with the parent's route as a control that must fail; launches by
+    counter and profiler; step time, device time by kernel, idle share; a
+    few more steps on the synthetic series, whose loss stays finite.
+    Returns the launches of those steps."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from paddlexde_tpu_torch.models.d3stn import Trainer, load_config
+    from paddlexde_tpu_torch.ops import _build, attn
+    from paddlexde_tpu_torch.ops.timing import time_ms
+
+    PlainTrainer = with_plain_history(Trainer)
+
+    save_dir = HERE / "experiments" / "chip_smoke_bf16"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"), batch_size=32,
+                      compute_dtype="bfloat16", train_epochs=1, finetune_epochs=0,
+                      save_dir=str(save_dir))
+    adj, sc, data = train_inputs(np, cfg.num_nodes)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, data=data, adj_matrix=adj, sc_matrix=sc, device=dev)
+    plain = PlainTrainer(dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla",
+                                             save_dir=str(save_dir / "plain")),
+                         data=data, adj_matrix=adj, sc_matrix=sc, device=dev)
+    f32 = Trainer(dataclasses.replace(cfg, compute_dtype="float32", save_dir=str(save_dir / "f32")),
+                  data=data, adj_matrix=adj, sc_matrix=sc, device=dev)
+    for other in (plain, f32):
+        other.model.load_state_dict(tr.model.state_dict())
+    print(f"bfloat16 Trainer: PEMS08 config at batch 32 ({cfg.encoder_num_layers}+"
+          f"{cfg.decoder_num_layers} layers, d_model {cfg.d_model}, his_len {cfg.his_len}), "
+          f"random parameters (seed {cfg.seed}); built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 1. one step's loss and gradients on the kernels, on the plain bfloat16
+    # versions and in float32, the kernels' bfloat16 backward calls recorded
+    starts = next(tr.train_dataset.batch_starts(cfg.batch_size, shuffle=True, seed=cfg.seed))
+    src, tgt = tr.windows(starts)
+    kl = 1.0
+    calls = []
+    kernel = attn.fused_temporal_attention_bwd_bf16_kernel
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    outs = []
+    for trainer in (tr, plain, f32):
+        attn.fused_temporal_attention_bwd_bf16_kernel = record
+        try:
+            total, _, _ = trainer.loss_fn(src, tgt, kl)
+            grads = torch.autograd.grad(total, trainer.state_tensors(), materialize_grads=True)
+        finally:
+            attn.fused_temporal_attention_bwd_bf16_kernel = kernel
+        outs.append((total.item(), grads))
+    require(len(calls) == LAUNCHES_PER_STEP_BF16["attn_bwd_bf16"],
+            f"{len(calls)} bfloat16 attention backward calls in one step")
+    (k_loss, k_grads), (p_loss, p_grads), (f_loss, f_grads) = outs
+    require(np.isfinite(k_loss) and all(torch.isfinite(g).all().item() for g in k_grads),
+            "bfloat16 train step on the kernels: non-finite loss or gradient")
+    names = tr.state_names
+    f_by = dict(zip(names, f_grads))
+    rows = []
+    for name, gk, gp, gf in zip(names, k_grads, p_grads, f_grads):
+        scale = gf.abs().max().item()
+        if name.endswith("key_conv.bias"):
+            prefix = name[: -len("key_conv.bias")]
+            scale = max(f_by[prefix + c + "_conv.bias"].abs().max().item()
+                        for c in ("query", "value", "out"))
+        scale = scale if scale > 0 else 1.0  # a parameter the model does not use (a gate)
+        k, q = (gk - gp).abs().double() / scale, (gp - gf).abs().double() / scale
+        k, q = (k.max().item(), k.mean().item()), (q.max().item(), q.mean().item())
+        if name.endswith("key_conv.bias"):
+            # zero in exact arithmetic: both distances are float32 rounding
+            # noise, held to the float32 step's limit
+            ok = k[0] <= TRAIN_TOL
+        elif any(part in name for part in BF16_ROUNDED_GRADS):
+            # rounded to bfloat16 by the layer's backward: one ulp at the top
+            # binade is the gradient's resolution
+            ulp = 2.0 ** (math.floor(math.log2(scale)) - 7) / scale
+            ok = k[0] <= max(q[0], ulp) and k[1] <= 0.5 * q[1]
+        else:
+            ok = within_bf16_spread(k, q)
+        rows.append((name, k, q, ok))
+    loss_k, loss_q = abs(k_loss - p_loss), abs(p_loss - f_loss)
+    worst = sorted(rows, key=lambda r: -max(r[1][0] / max(r[2][0], 1e-30),
+                                            r[1][1] / max(0.5 * r[2][1], 1e-30)))
+    print(f"  bfloat16 train step at batch 32: loss kernels {k_loss:.6f}, plain bfloat16 "
+          f"{p_loss:.6f}, float32 {f_loss:.6f} (kernels vs plain {loss_k:.3e}, plain vs float32 "
+          f"{loss_q:.3e}); {len(rows)} gradient tensors, kernels vs plain bfloat16 over max "
+          f"|float32 gradient| within the plain's distance from float32 (max, and half of it "
+          f"on the mean; key-conv biases, zero in exact arithmetic, within {TRAIN_TOL:g}; "
+          f"gradients rounded to bfloat16 within one ulp on the max) for "
+          f"{sum(r[3] for r in rows)}; closest to the plain's distance: "
+          + "; ".join(f"{n} max {k[0]:.2e} / {q[0]:.2e}, mean {k[1]:.2e} / {q[1]:.2e}"
+                      f"{'' if ok else ' FAILS'}" for n, k, q, ok in worst[:12]), flush=True)
+    require(loss_k <= loss_q, f"bfloat16 train-step loss: kernels {loss_k:.3e} from the plain "
+            f"versions, which are {loss_q:.3e} from float32")
+    for name, k, q, ok in rows:
+        require(ok, f"bfloat16 train-step gradient {name}: kernels {k[0]:.3e} (mean {k[1]:.3e}) "
+                f"from the plain versions, which are {q[0]:.3e} (mean {q[1]:.3e}) from float32")
+    del outs, k_grads, p_grads, f_grads, f_by, plain, f32
+
+    # 2. teacher-forced: each attention sublayer's backward on the captured
+    # inputs and cotangent, and the control
+    errs = [attn_bwd_bf16_errors(torch, args) for args in calls]
+    controls = [attn_bwd_bf16_errors(torch, args, control=True) for args in calls]
+    print(f"  {len(calls)} attention sublayer backwards of the step, K5 bf16 vs the plain "
+          f"bfloat16 backward on the captured inputs and cotangent: "
+          + ", ".join(f"{e:.3e}" for e in errs) + f" (limit {ATTN_BWD_BF16_TOL:g}); the "
+          "control (the parent's route, dx_attn rounded to bfloat16 before the core): "
+          + ", ".join(f"{e:.3e}" for e in controls), flush=True)
+    require(max(errs) <= ATTN_BWD_BF16_TOL, "a bfloat16 attention sublayer's backward disagrees "
+            "with its plain version")
+    require(max(controls) > ATTN_BWD_BF16_TOL,
+            "the teacher-forced check does not reject the parent's rounding point")
+    del calls
+
+    # 3. launches of one step, by counter and by profiler
+    lr = (1e-4, 1e-5)
+    _build.reset_launches()
+    tr.train_step(src, tgt, kl, *lr)
+    torch.cuda.synchronize()
+    step_launches = dict(_build.LAUNCHES)
+    print(f"  launches of one bfloat16 train step (counters): {step_launches}", flush=True)
+    require(step_launches == LAUNCHES_PER_STEP_BF16,
+            f"one bfloat16 train step launched {step_launches}, expected {LAUNCHES_PER_STEP_BF16}")
+    device_us, by_name = traced_launches(torch, lambda: tr.train_step(src, tgt, kl, *lr),
+                                         LAUNCHES_PER_STEP_BF16,
+                                         "one bfloat16 train step at batch 32")
+
+    # 4. step time
+    step_ms = time_ms(lambda: tr.train_step(src, tgt, kl, *lr), reps=10)
+    by_kernel = {k: sum(us for name, us in by_name.items()
+                        if any(sym in name for sym in KERNEL_NAMES[k])) / 1e3
+                 for k in KERNEL_NAMES}
+    print(f"  bfloat16 train step at batch 32 (CUDA events, median of 10): {step_ms:.3f} ms "
+          f"({32e3 / step_ms:.1f} samples/s); device time in the trace {device_us / 1e3:.3f} ms "
+          f"(idle share {1 - device_us / 1e3 / step_ms:.1%} of the event-timed step); by kernel "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kernel.items() if v)
+          + f", other {device_us / 1e3 - sum(by_kernel.values()):.3f} ms", flush=True)
+
+    # 5. a few more steps on other windows
+    batches = list(tr.train_dataset.batch_starts(cfg.batch_size, shuffle=True, seed=1,
+                                                 drop_last=True))[:BF16_STEPS]
+    _build.reset_launches()
+    losses = [tr.train_step_idx(s_b, kl, *lr)[0] for s_b in batches]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    losses = torch.stack(losses).cpu().numpy()
+    print(f"  {len(batches)} more bfloat16 train steps: losses {losses.tolist()}; launches "
+          f"{launches}", flush=True)
+    require(np.isfinite(losses).all(), "a bfloat16 train step gave a non-finite loss")
+    require(launches == {k: len(batches) * v for k, v in LAUNCHES_PER_STEP_BF16.items()},
+            f"{len(batches)} bfloat16 train steps launched {launches}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return launches, device_us / 1e3
+
+
 def main():
     if not (HERE / "paddlexde_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"paddlexde_tpu_torch/ not found beside {Path(__file__).name}")
@@ -1067,7 +1400,10 @@ def main():
     print(f"serving device time per batch of 32: float32 {f32_ms:.3f} ms, bfloat16 "
           f"{bf16_ms:.3f} ms", flush=True)
     train_launches = train_phase(torch, dev)
-    launches = {k: serve_launches[k] + bf16_launches[k] + train_launches[k] for k in kernels}
+    bf16_train_launches, bf16_step_ms = train_bf16_phase(torch, dev)
+    print(f"bfloat16 train step device time at batch 32: {bf16_step_ms:.3f} ms", flush=True)
+    launches = {k: serve_launches[k] + bf16_launches[k] + train_launches[k]
+                + bf16_train_launches[k] for k in kernels}
     for name in kernels:
         require(launches[name] > 0, f"{name} was never launched on the main paths")
     print(card)

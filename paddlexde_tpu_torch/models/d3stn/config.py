@@ -52,7 +52,8 @@ class D3STNConfig:
     with_adj: bool = True
     with_sc: bool = True
     solver: str = "euler"
-    compute_dtype: str = "float32"  # "bfloat16": serving only (ROADMAP.md)
+    compute_dtype: str = "float32"  # "bfloat16": matmuls, convs and the GCN and
+    # attention blocks in bfloat16 (params, loss and optimizer stay float32)
     gcn_impl: str = "auto"  # spatial-attention GCN: kernel K2 or plain
     attn_impl: str = "auto"  # temporal-context attention: kernel K4 or plain
 

@@ -21,13 +21,16 @@ the GCN and attention blocks run their forward and backward kernels. Dropout
 in training mode is not ported (the kernels have no dropout input yet,
 ROADMAP.md).
 
-``compute_dtype="bfloat16"`` serves with the JAX model's cast points: the
-input dense layers and the GCN projection compute in bfloat16 (inputs and
-weights rounded, a bfloat16 result, the bias added in bfloat16), the
-attention and GCN blocks return bfloat16, and the top-k mix uses the
-bfloat16-rounded matrix in float32 arithmetic. The embedding concatenation,
+``compute_dtype="bfloat16"`` trains and serves with the JAX model's cast
+points: the input dense layers and the GCN projection compute in bfloat16
+(inputs and weights rounded, a bfloat16 result, the bias added in
+bfloat16), the attention and GCN blocks return bfloat16, and the top-k mix
+uses the bfloat16-rounded matrix in float32 arithmetic. The embedding concatenation,
 LayerNorm, the residual adds and the generator stay float32. The JAX model's
 SiLU on bfloat16 rounds after each of its operations (:func:`_silu_bf16`).
+The bfloat16 dense layer and SiLU carry their JAX gradients' rounding
+points (:class:`_DenseBf16`, :class:`_SiluBf16`), the attention and GCN
+blocks those of the TPU backward kernels (``ops/attn.py``, ``ops/gcn.py``).
 """
 
 from __future__ import annotations
@@ -60,30 +63,76 @@ def topk_mix_matrix(matrix: torch.Tensor, k: int) -> torch.Tensor:
     return torch.zeros_like(matrix).scatter_(1, idx[:, :k], weights)
 
 
+def _mm_f32(a, b):
+    """a @ b of bfloat16 matrices with float32 sums and a float32 result:
+    cuBLAS's bfloat16 GEMM with a float32 output on the card, a float32
+    product of the (exactly converted) values on the CPU, which has no such
+    GEMM. So cuBLAS's reduced-precision flag cannot make them bfloat16
+    sums."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _DenseBf16(torch.autograd.Function):
+    """flax ``nn.Dense(dtype=bfloat16)`` on bfloat16 x [M, D_in], kernel
+    w [D_out, D_in] and bias (or None): y = bf16(bf16(x w^T) + b). Its
+    backward rounds where flax's transposed products round: dx = bf16(g w)
+    and dw = bf16(g^T x), float32 sums; db the float32 sum of g, rounded
+    once (JAX on the CPU sums it in bfloat16, an artefact of XLA's CPU
+    backend)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        y = _mm_f32(x, w.t()).to(torch.bfloat16)
+        return y if b is None else y + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = _mm_f32(g, w).to(torch.bfloat16)
+        dw = _mm_f32(g.t(), x).to(torch.bfloat16)
+        db = g.float().sum(dim=0).to(torch.bfloat16) if ctx.has_bias else None
+        return dx, dw, db
+
+
 def _dense(x, layer: nn.Linear, bf16: bool):
     """``layer(x)``; in bfloat16 as flax ``nn.Dense(dtype=bfloat16)``: x and
     the kernel rounded, the product (float32 sums) rounded, then the
-    rounded bias added in bfloat16. The sums go into a float32 result
-    (cuBLAS's bfloat16 GEMM with a float32 output on the card, a float32
-    product of the rounded values elsewhere), so cuBLAS's reduced-precision
-    flag cannot make them bfloat16 sums."""
+    rounded bias added in bfloat16 (:class:`_DenseBf16`)."""
     if not bf16:
         return layer(x)
     bf = torch.bfloat16
-    x, w = x.to(bf), layer.weight.to(bf)
-    if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
-        y = y.reshape(*x.shape[:-1], w.shape[0])
-    else:
-        y = F.linear(x.float(), w.float())
-    y = y.to(bf)
-    return y if layer.bias is None else y + layer.bias.to(bf)
+    w = layer.weight.to(bf)
+    b = None if layer.bias is None else layer.bias.to(bf)
+    y = _DenseBf16.apply(x.to(bf).reshape(-1, x.shape[-1]), w, b)
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+class _SiluBf16(torch.autograd.Function):
+    """``jax.nn.silu`` on bfloat16 and its JAX gradient, every operation
+    rounded to bfloat16: s = 1 / (1 + exp(-x)) and y = x s forward; JAX's
+    ``logistic`` rule backward, dx = bf16(g s) + bf16(bf16(x g) c) with
+    c = bf16(s bf16(1 - s))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1 - s))
 
 
 def _silu_bf16(x):
-    """``jax.nn.silu`` on bfloat16: x * (1 / (1 + exp(-x))) with every
-    operation rounded to bfloat16 (``F.silu`` rounds once)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``jax.nn.silu`` on bfloat16 (``F.silu`` rounds once), with JAX's
+    gradient (:class:`_SiluBf16`)."""
+    return _SiluBf16.apply(x)
 
 
 def _xavier_(param: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:

@@ -93,8 +93,12 @@ class Trainer:
     the plain PyTorch versions of the kernels. ``epoch_callback(epoch,
     trainer)`` fires after each epoch's eval; ``enc_idx_init`` /
     ``dec_idx_init`` override :func:`init_lag_anchors`. ``mesh`` is the JAX
-    Trainer's multi-device argument and is refused, and so is
-    ``compute_dtype="bfloat16"``.
+    Trainer's multi-device argument and is refused. With
+    ``compute_dtype="bfloat16"`` the model computes in bfloat16 (forward and
+    backward, on the card through the bfloat16 kernels) while the
+    parameters, the Adam moments, the loss, the lags and the non-finite
+    guard stay float32, as in the JAX Trainer. ``dropout > 0`` is refused
+    in training (the model raises).
     """
 
     def __init__(self, cfg: D3STNConfig, data: Optional[np.ndarray] = None,
@@ -106,12 +110,6 @@ class Trainer:
             raise NotImplementedError(
                 "mesh / multi-process training is not ported (ROADMAP.md, queue 1 "
                 "item 10); the port's Trainer runs on one card"
-            )
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} trains only in the JAX package: the "
-                "bfloat16 backward kernels K3 and K5 are still to port (ROADMAP.md, "
-                "queue 2); the port serves in bfloat16 (Predictor)"
             )
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -12,9 +12,10 @@ the hand-written kernels under a ``torch.autograd.Function`` (forward
 ``csrc/attn.cu``, backward ``csrc/attn_bwd.cu``), a CPU tensor to the plain
 PyTorch version under autograd; ``impl="xla"`` picks the plain version on
 any device and ``impl="pallas"`` demands the kernels. ``dtype_name=
-"bfloat16"`` runs the forward in bfloat16 (``csrc/attn_bf16.cu`` on the
-card, serving only). No dropout input; dropout and the bfloat16 backward are
-still to port.
+"bfloat16"`` runs the block in bfloat16 (on the card forward
+``csrc/attn_bf16.cu``, backward ``csrc/attn_bwd_bf16.cu``); with gradients
+both routes take the rounding points of the TPU ``_bwd_kernel``
+(:func:`_bwd_plain_bf16`). No dropout input; dropout is still to port.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ __all__ = [
     "fused_temporal_attention_bf16_kernel",
     "fused_temporal_attention_bwd_plain",
     "fused_temporal_attention_bwd_kernel",
+    "fused_temporal_attention_bwd_bf16_kernel",
     "bwd_errors",
 ]
 
@@ -81,7 +83,7 @@ def fused_temporal_attention_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
         q = temporal_conv_plain(mq, wq, bq, causal_q, dt)
         k = temporal_conv_plain(mk, wk, bk, causal_kv, dt)
         v = temporal_conv_plain(vsrc, wv, bv, causal_kv, dt)
-        return temporal_conv_plain(_attention_core_bf16(q, k, v, is_mask, heads), wo, bo,
+        return temporal_conv_plain(_attention_core_bf16(q, k, v, is_mask, heads)[0], wo, bo,
                                    False, dt)
     q = temporal_conv_plain(mq, wq, bq, causal_q, dt)
     k = temporal_conv_plain(mk, wk, bk, causal_kv, dt)
@@ -110,7 +112,8 @@ def _attention_core_bf16(q, k, v, is_mask: bool, heads: int):
     ``_blockdiag_state`` computes it: the scores in float32 times 1/sqrt(dh),
     the mask added, the row maximum taken over every head's scores of a
     query step, the exponentials summed per head and divided in float32;
-    bf16(p) @ v accumulated in float32 and rounded to bfloat16."""
+    bf16(p) @ v accumulated in float32 and rounded to bfloat16. Returns
+    ``(x [b, n, Tq, D] bfloat16, p [b, n, Tq, H, Tk] float32)``."""
     b, n, t_q, d = q.shape
     t_k = k.shape[-2]
     head_dim = d // heads
@@ -120,10 +123,10 @@ def _attention_core_bf16(q, k, v, is_mask: bool, heads: int):
         above = torch.triu(torch.ones(t_q, t_k, dtype=torch.bool, device=s.device), diagonal=1)
         s = s + torch.where(above, torch.finfo(torch.float32).min, 0.0)[:, None, :]
     e = torch.exp(s - s.amax(dim=(-2, -1), keepdim=True))
-    p = (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
-    x = torch.einsum("bnqhk,bnkhd->bnqhd", p.float(),
+    p = e / e.sum(dim=-1, keepdim=True)
+    x = torch.einsum("bnqhk,bnkhd->bnqhd", p.to(torch.bfloat16).float(),
                      v.float().reshape(b, n, t_k, heads, head_dim))
-    return x.to(torch.bfloat16).reshape(b, n, t_q, d)
+    return x.to(torch.bfloat16).reshape(b, n, t_q, d), p
 
 
 def _tconv_bwd_input_plain(g, w, causal: bool):
@@ -149,11 +152,15 @@ def _conv_weight_grads_plain(x, g, k: int, causal: bool):
 
 def fused_temporal_attention_bwd_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g,
                                        causal_q: bool, causal_kv: bool, is_mask: bool,
-                                       heads: int):
+                                       heads: int, dtype_name: str = "float32"):
     """Plain PyTorch backward of :func:`fused_temporal_attention_plain` for
     the output cotangent ``g``: ``(dmq, dmk, dvsrc, dwq, dbq, dwk, dbk, dwv,
     dbv, dwo, dbo)``, written out as the TPU ``_bwd_kernel`` computes it
-    (q, k, v and the softmax recomputed; float64 inputs stay float64)."""
+    (q, k, v and the softmax recomputed; float64 inputs stay float64). In
+    bfloat16 see :func:`_bwd_plain_bf16`."""
+    if _dt(dtype_name) == torch.bfloat16:
+        return _bwd_plain_bf16(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g, causal_q,
+                               causal_kv, is_mask, heads)
     dt = torch.promote_types(mq.dtype, torch.float32)
     mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g = (
         a.to(dt) for a in (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g))
@@ -188,6 +195,52 @@ def fused_temporal_attention_bwd_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo,
     dwv, dbv = _conv_weight_grads_plain(vsrc, dv, ks, causal_kv)
     return (_tconv_bwd_input_plain(dq, wq, causal_q), _tconv_bwd_input_plain(dk, wk, causal_kv),
             _tconv_bwd_input_plain(dv, wv, causal_kv), dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)
+
+
+def _bwd_plain_bf16(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g, causal_q: bool,
+                    causal_kv: bool, is_mask: bool, heads: int):
+    """The bfloat16 backward at the rounding points of the TPU
+    ``_bwd_kernel`` (``dtype_name="bfloat16"``, its block-diagonal middle):
+
+    - q, k, v recomputed as the bfloat16 forward computes them, x_attn =
+      bf16(bf16(p) v) with the float32 p of the row maximum over every head;
+    - dWo, dbo from bf16(x_attn) and bf16(g), float32 sums; dx_attn =
+      bf16(g) bf16(Wo)^T summed in float32 and kept float32;
+    - dv, dp, ds, dq and dk in float32 on the float32 p;
+    - dq, dk and dv rounded to bfloat16 where they enter products: the
+      weight gradients (bf16(input) times the rounded gradient, the bias
+      gradients summing the rounded values in float32) and the input
+      gradients (bf16(d) bf16(W)^T summed in float32), which go out in
+      their inputs' dtypes.
+
+    The weight and bias gradients are float32."""
+    bf = torch.bfloat16
+    r = lambda a: a.to(bf).float()  # noqa: E731  (round to bfloat16, compute in float32)
+    ks = wq.shape[0]
+    q = temporal_conv_plain(mq, wq, bq, causal_q, bf)
+    k = temporal_conv_plain(mk, wk, bk, causal_kv, bf)
+    v = temporal_conv_plain(vsrc, wv, bv, causal_kv, bf)
+    b, n, t_q, d = q.shape
+    t_k = k.shape[-2]
+    head_dim = d // heads
+    x_attn, p = _attention_core_bf16(q, k, v, is_mask, heads)
+    g = r(g)
+    dwo, dbo = _conv_weight_grads_plain(x_attn.float(), g, ks, False)
+    dx_attn = _tconv_bwd_input_plain(g, r(wo), False).reshape(b, n, t_q, heads, head_dim)
+    qh, kh, vh = (a.float().reshape(b, n, -1, heads, head_dim) for a in (q, k, v))
+    dv = torch.einsum("bnqhk,bnqhd->bnkhd", p, dx_attn)
+    dp = torch.einsum("bnqhd,bnkhd->bnqhk", dx_attn, vh)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * (1.0 / math.sqrt(head_dim))
+    dq = torch.einsum("bnqhk,bnkhd->bnqhd", ds, kh)
+    dk = torch.einsum("bnqhk,bnqhd->bnkhd", ds, qh)
+    dq, dk, dv = (r(a.reshape(b, n, -1, d)) for a in (dq, dk, dv))
+    dwq, dbq = _conv_weight_grads_plain(r(mq), dq, ks, causal_q)
+    dwk, dbk = _conv_weight_grads_plain(r(mk), dk, ks, causal_kv)
+    dwv, dbv = _conv_weight_grads_plain(r(vsrc), dv, ks, causal_kv)
+    return (_tconv_bwd_input_plain(dq, r(wq), causal_q).to(mq.dtype),
+            _tconv_bwd_input_plain(dk, r(wk), causal_kv).to(mk.dtype),
+            _tconv_bwd_input_plain(dv, r(wv), causal_kv).to(vsrc.dtype),
+            dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)
 
 
 def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
@@ -264,6 +317,21 @@ def _check_d3stn_shape(kernel, mq, mk, wq, causal_q, causal_kv, is_mask, heads, 
         )
 
 
+def _check_like(mq, acts, weights):
+    """``acts`` (mk, vsrc, and g in a backward) shaped as ``mq``; ``weights``
+    the four convs' [K, D, D] kernels and [D] biases, interleaved."""
+    d, ks = mq.shape[-1], weights[0].shape[0]
+    for a in acts:
+        if a.shape != mq.shape:
+            raise ValueError(f"mk/vsrc/g {tuple(a.shape)} do not match mq {tuple(mq.shape)}")
+    for w in weights[0::2]:
+        if w.shape != (ks, d, d):
+            raise ValueError(f"conv weights must be [{ks}, {d}, {d}], got {tuple(w.shape)}")
+    for bias in weights[1::2]:
+        if bias.shape != (d,):
+            raise ValueError(f"conv biases must be [{d}], got {tuple(bias.shape)}")
+
+
 def _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads):
     _check_d3stn_shape("attention backward", mq, mk, wq, causal_q, causal_kv, is_mask, heads,
                        "trains it")
@@ -287,15 +355,7 @@ def fused_temporal_attention_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, w
                        "runs other shapes")
     b, n, t_len, d = mq.shape
     ks = wq.shape[0]
-    for a in (mk, vsrc):
-        if a.shape != mq.shape:
-            raise ValueError(f"mk/vsrc {tuple(a.shape)} do not match mq {tuple(mq.shape)}")
-    for w in (wq, wk, wv, wo):
-        if w.shape != (ks, d, d):
-            raise ValueError(f"conv weights must be [{ks}, {d}, {d}], got {tuple(w.shape)}")
-    for bias in (bq, bk, bv, bo):
-        if bias.shape != (d,):
-            raise ValueError(f"conv biases must be [{d}], got {tuple(bias.shape)}")
+    _check_like(mq, (mk, vsrc), arrays[3:])
     # a bfloat16 activation converts exactly; the kernel rounds float32 ones
     arrays = [a.float().contiguous() for a in arrays]
     out = torch.empty(mq.shape, dtype=torch.bfloat16, device=mq.device)
@@ -336,15 +396,7 @@ def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo
     _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads)
     b, n, t_len, d = mq.shape
     ks = wq.shape[0]
-    for a in (mk, vsrc, g):
-        if a.shape != mq.shape:
-            raise ValueError(f"mk/vsrc/g {tuple(a.shape)} do not match mq {tuple(mq.shape)}")
-    for w in (wq, wk, wv, wo):
-        if w.shape != (ks, d, d):
-            raise ValueError(f"conv weights must be [{ks}, {d}, {d}], got {tuple(w.shape)}")
-    for bias in (bq, bk, bv, bo):
-        if bias.shape != (d,):
-            raise ValueError(f"conv biases must be [{d}], got {tuple(bias.shape)}")
+    _check_like(mq, (mk, vsrc, g), (wq, bq, wk, bk, wv, bv, wo, bo))
     arrays = [a.contiguous() for a in arrays]
     bank = ks * d * d
     dw = torch.empty(4 * bank + 4 * d, dtype=torch.float32, device=mq.device)
@@ -371,6 +423,67 @@ def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo
                       int(causal_kv), int(is_mask), stream)
         _build.check(lib, code, "attn_bwd kernels")
         _build.LAUNCHES["attn_bwd"] += 1
+    dws = [dw[i * bank : (i + 1) * bank].view(ks, d, d) for i in range(4)]
+    dbs = [dw[4 * bank + i * d : 4 * bank + (i + 1) * d] for i in range(4)]
+    return (*dacts, dws[0], dbs[0], dws[1], dbs[1], dws[2], dbs[2], dws[3], dbs[3])
+
+
+def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g,
+                                             causal_q: bool, causal_kv: bool, is_mask: bool,
+                                             heads: int):
+    """The CUDA backward kernels in bfloat16: the 11 gradients of
+    :func:`fused_temporal_attention_plain` in bfloat16 for the cotangent
+    ``g``, at the rounding points of :func:`_bwd_plain_bf16`. Activations
+    float32 or bfloat16 (each gradient goes out in its input's dtype),
+    weights float32 (their gradients float32), ``g`` bfloat16 (a float32 g
+    is rounded first, as the TPU kernel rounds it where it enters each
+    product). One call launches the weight cast, the q/k/v/dx_attn convs,
+    the attention core, the input-gradient convs, the split weight-gradient
+    products and their fixed-order sum (``csrc/attn_bwd_bf16.cu``) and counts
+    once."""
+    if not mq.is_cuda:
+        raise ValueError("fused_temporal_attention_bwd_bf16_kernel needs CUDA tensors")
+    acts = (mq, mk, vsrc)
+    weights = (wq, bq, wk, bk, wv, bv, wo, bo)
+    if any(a.dtype not in (torch.float32, torch.bfloat16) for a in (*acts, g)) or any(
+            w.dtype != torch.float32 for w in weights):
+        raise TypeError("the bfloat16 attention backward kernel takes float32 or bfloat16 "
+                        "inputs and g and float32 weights")
+    _check_d3stn_shape("bfloat16 attention backward", mq, mk, wq, causal_q, causal_kv, is_mask,
+                       heads, "trains other shapes")
+    b, n, t_len, d = mq.shape
+    ks = wq.shape[0]
+    _check_like(mq, (mk, vsrc, g), weights)
+    # a bfloat16 activation converts exactly; the kernels round float32 ones
+    arrays = ([a.float().contiguous() for a in acts] + [w.contiguous() for w in weights]
+              + [g.to(torch.bfloat16).contiguous()])
+    bank = ks * d * d
+    dw = torch.empty(4 * bank + 4 * d, dtype=torch.float32, device=mq.device)
+    dacts = [torch.empty_like(arrays[i]) for i in range(3)]
+    rows = b * n
+    if not rows:
+        dw.zero_()
+    else:
+        splits = max(1, min(128, -(-rows * t_len // 1024)))
+        lib = _build.library("attn_bwd_bf16")
+        lib.pxt_attn_bwd_bf16_scratch_bytes.restype = ctypes.c_int64
+        lib.pxt_attn_bwd_bf16_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int,
+                                                        ctypes.c_int]
+        scratch = torch.empty(lib.pxt_attn_bwd_bf16_scratch_bytes(rows, splits, d),
+                              dtype=torch.uint8, device=mq.device)
+        ptrs = (ctypes.c_void_p * 12)(*[a.data_ptr() for a in arrays])
+        outs = (ctypes.c_void_p * 4)(*[a.data_ptr() for a in dacts], dw.data_ptr())
+        fn = lib.pxt_attn_bwd_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        with torch.cuda.device(mq.device):
+            stream = torch.cuda.current_stream(mq.device).cuda_stream
+            code = fn(ptrs, outs, scratch.data_ptr(), rows, splits, d, int(causal_q),
+                      int(causal_kv), int(is_mask), stream)
+        _build.check(lib, code, "attn_bwd_bf16 kernels")
+        _build.LAUNCHES["attn_bwd_bf16"] += 1
+    dacts = [a.to(x.dtype) for a, x in zip(dacts, acts)]
     dws = [dw[i * bank : (i + 1) * bank].view(ks, d, d) for i in range(4)]
     dbs = [dw[4 * bank + i * d : 4 * bank + (i + 1) * d] for i in range(4)]
     return (*dacts, dws[0], dbs[0], dws[1], dbs[1], dws[2], dbs[2], dws[3], dbs[3])
@@ -416,32 +529,62 @@ class _FusedTemporalAttention(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+class _FusedTemporalAttentionBf16(torch.autograd.Function):
+    """The bfloat16 block with the TPU ``_bwd_kernel``'s rounding points in
+    its backward: on the card K4 and K5 in bfloat16 (``kernel``), elsewhere
+    their plain versions. Gradients go out in their inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, causal_q, causal_kv,
+                is_mask, heads, kernel):
+        ctx.save_for_backward(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo)
+        ctx.statics = (causal_q, causal_kv, is_mask, heads)
+        ctx.kernel = kernel
+        args = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, causal_q, causal_kv, is_mask, heads)
+        if kernel:
+            return fused_temporal_attention_bf16_kernel(*args)
+        return fused_temporal_attention_plain(*args, "bfloat16")
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        if ctx.kernel:
+            grads = fused_temporal_attention_bwd_bf16_kernel(*saved, g, *ctx.statics)
+        else:
+            grads = fused_temporal_attention_bwd_plain(*saved, g, *ctx.statics, "bfloat16")
+        grads = [a.to(x.dtype) for a, x in zip(grads, saved)]
+        return (*grads, None, None, None, None, None)
+
+
 def fused_temporal_attention(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                              causal_q: bool, causal_kv: bool, is_mask: bool,
                              heads: int, dtype_name: str = "float32",
                              impl: str = "auto"):
     """Fused conv -> MHA -> conv over ``[B, N, T, D]``; weights are the four
     convs' ``[K, D, D]`` kernels and ``[D]`` biases; ``impl`` in
-    ("auto", "xla", "pallas")."""
+    ("auto", "xla", "pallas"). In bfloat16 with gradients both routes go
+    through :class:`_FusedTemporalAttentionBf16`, whose backward follows the
+    TPU kernel's rounding points."""
     if impl not in _IMPLS:
         raise ValueError(f"impl={impl!r} not in {_IMPLS}")
     args = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, causal_q, causal_kv, is_mask, heads)
-    if impl == "xla" or (impl == "auto" and not mq.is_cuda):
-        return fused_temporal_attention_plain(*args, dtype_name)
-    if not mq.is_cuda:
+    kernel = impl == "pallas" or (impl == "auto" and mq.is_cuda)
+    if kernel and not mq.is_cuda:
         raise ValueError("attn_impl='pallas' needs CUDA tensors (the kernel runs on the card)")
-    if dtype_name not in ("float32", "bfloat16"):
+    if kernel and dtype_name not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"the attention kernels take float32 or bfloat16, not {dtype_name!r}")
-    serving = not (torch.is_grad_enabled() and any(a.requires_grad for a in args[:11]))
+    training = torch.is_grad_enabled() and any(a.requires_grad for a in args[:11])
+    if dtype_name == "bfloat16" and training:
+        if kernel:
+            _check_d3stn_shape("bfloat16 attention backward", mq, mk, wq, causal_q, causal_kv,
+                               is_mask, heads, "trains other shapes")
+        return _FusedTemporalAttentionBf16.apply(*args, kernel)
+    if not kernel:
+        return fused_temporal_attention_plain(*args, dtype_name)
     if dtype_name == "bfloat16":
-        if not serving:
-            raise NotImplementedError(
-                "the bfloat16 attention backward is still to port (ROADMAP.md); the "
-                "bfloat16 kernel serves under torch.no_grad()"
-            )
         return fused_temporal_attention_bf16_kernel(*args)
-    if serving:
+    if not training:
         return fused_temporal_attention_kernel(*args)  # no autograd node
     _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads)
     return _FusedTemporalAttention.apply(*args)

@@ -11,8 +11,9 @@ gradient). A CUDA tensor goes to the hand-written kernels under a
 ``csrc/gcn_bwd.cu``), a CPU tensor to the plain PyTorch version under
 autograd; ``impl="xla"`` picks the plain version on any device and
 ``impl="pallas"`` demands the kernels. ``dtype_name="bfloat16"`` runs the
-forward in bfloat16 (``csrc/gcn_bf16.cu`` on the card, serving only; its
-backward is still to port).
+forward in bfloat16 (``csrc/gcn_bf16.cu`` on the card) and the backward as
+the TPU kernel does in bfloat16: the float32 backward on the float32 values
+of x and of the bfloat16 cotangent (``csrc/gcn_bwd.cu`` on the card).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ __all__ = [
     "gcn_spatial_mix_bf16_kernel",
     "gcn_spatial_mix_bwd_plain",
     "gcn_spatial_mix_bwd_kernel",
+    "gcn_spatial_mix_bwd_bf16_kernel",
 ]
 
 _IMPLS = ("auto", "xla", "pallas")
@@ -120,14 +122,8 @@ def gcn_spatial_mix_kernel(x, gate, scale2: float = 1.0):
     return y
 
 
-def gcn_spatial_mix_bwd_kernel(x, gate, g, scale2: float = 1.0):
-    """The CUDA backward kernels: ``(dx, dgate)`` in float32 for the output
-    cotangent ``g``. One call launches the row pass, the column pass and the
-    fixed-order dgate reduction (``csrc/gcn_bwd.cu``) and counts once."""
-    if not x.is_cuda:
-        raise ValueError("gcn_spatial_mix_bwd_kernel needs CUDA tensors")
-    if any(a.dtype != torch.float32 for a in (x, gate, g)):
-        raise TypeError("the GCN backward kernel takes float32 x, gate and g")
+def _bwd_launch(x, gate, g, scale2):
+    """Launch K3 on float32 ``x``, ``gate``, ``g`` (checked by the callers)."""
     if x.dim() != 4 or g.shape != x.shape:
         raise ValueError(f"x and g [B, N, T, D] expected, got {tuple(x.shape)} and {tuple(g.shape)}")
     b, n, t_len, d = x.shape
@@ -154,8 +150,38 @@ def gcn_spatial_mix_bwd_kernel(x, gate, g, scale2: float = 1.0):
         code = fn(x.data_ptr(), g.data_ptr(), gate.data_ptr(), dx.data_ptr(), dgate.data_ptr(),
                   scratch.data_ptr(), b, n, t_len, d, 1.0 / math.sqrt(d), float(scale2), stream)
     _build.check(lib, code, "gcn_bwd kernels")
-    _build.LAUNCHES["gcn_bwd"] += 1
     return dx, dgate
+
+
+def gcn_spatial_mix_bwd_kernel(x, gate, g, scale2: float = 1.0):
+    """The CUDA backward kernels: ``(dx, dgate)`` in float32 for the output
+    cotangent ``g``. One call launches the row pass, the column pass and the
+    fixed-order dgate reduction (``csrc/gcn_bwd.cu``) and counts once."""
+    if not x.is_cuda:
+        raise ValueError("gcn_spatial_mix_bwd_kernel needs CUDA tensors")
+    if any(a.dtype != torch.float32 for a in (x, gate, g)):
+        raise TypeError("the GCN backward kernel takes float32 x, gate and g")
+    out = _bwd_launch(x, gate, g, scale2)
+    _build.LAUNCHES["gcn_bwd"] += 1
+    return out
+
+
+def gcn_spatial_mix_bwd_bf16_kernel(x, gate, g, scale2: float = 1.0):
+    """K3 in bfloat16 (``dtype_name="bfloat16"``): the TPU ``_bwd_kernel``
+    takes x, g and the gate in float32 whatever their dtypes, so this is the
+    float32 kernel on ``x.float()`` and ``g.float()`` (exact conversions of
+    bfloat16 values). x float32 or bfloat16, gate float32, g bfloat16 (or
+    float32); dx goes out in x's dtype, dgate float32. Counts under
+    ``gcn_bwd_bf16``."""
+    if not x.is_cuda:
+        raise ValueError("gcn_spatial_mix_bwd_bf16_kernel needs CUDA tensors")
+    if any(a.dtype not in (torch.float32, torch.bfloat16) for a in (x, g)) or (
+            gate.dtype != torch.float32):
+        raise TypeError("the bfloat16 GCN backward takes float32 or bfloat16 x and g and "
+                        "float32 gate")
+    dx, dgate = _bwd_launch(x.float(), gate, g.float(), scale2)
+    _build.LAUNCHES["gcn_bwd_bf16"] += 1
+    return dx.to(x.dtype), dgate
 
 
 def gcn_spatial_mix_bf16_kernel(x, gate, scale2: float = 1.0):
@@ -210,27 +236,55 @@ class _GcnSpatialMix(torch.autograd.Function):
         return dx, dgate.to(gate.dtype), None
 
 
+class _GcnSpatialMixBf16(torch.autograd.Function):
+    """The bfloat16 GCN mix: forward K2 in bfloat16, backward K3 on the
+    float32 values of x and of the bfloat16 cotangent, which is what the TPU
+    ``_bwd_kernel`` computes in bfloat16; on the card the kernels
+    (``kernel``), elsewhere their plain versions. dx goes out in x's dtype,
+    dgate in the gate's."""
+
+    @staticmethod
+    def forward(ctx, x, gate, scale2, kernel):
+        ctx.save_for_backward(x, gate)
+        ctx.scale2 = scale2
+        ctx.kernel = kernel
+        if kernel:
+            return gcn_spatial_mix_bf16_kernel(x, gate, scale2)
+        return gcn_spatial_mix_plain(x, gate, scale2, "bfloat16")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gate = ctx.saved_tensors
+        if ctx.kernel:
+            dx, dgate = gcn_spatial_mix_bwd_bf16_kernel(x, gate, g, ctx.scale2)
+        else:
+            dx, dgate = gcn_spatial_mix_bwd_plain(x.float(), gate.float(), g.float(), ctx.scale2)
+        return dx.to(x.dtype), dgate.to(gate.dtype), None, None
+
+
 def gcn_spatial_mix(x, gate, scale2: float = 1.0, dtype_name: str = "float32",
                     impl: str = "auto"):
     """``softmax(x x^T / sqrt(D)) * scale2 (.) gate @ x`` over the node axis
-    of ``x [B, N, T, D]``; ``impl`` in ("auto", "xla", "pallas")."""
+    of ``x [B, N, T, D]``; ``impl`` in ("auto", "xla", "pallas"). In
+    bfloat16 with gradients both routes go through
+    :class:`_GcnSpatialMixBf16`."""
     if impl not in _IMPLS:
         raise ValueError(f"impl={impl!r} not in {_IMPLS}")
-    if impl == "xla" or (impl == "auto" and not x.is_cuda):
-        return gcn_spatial_mix_plain(x, gate, scale2, dtype_name)
-    if not x.is_cuda:
+    kernel = impl == "pallas" or (impl == "auto" and x.is_cuda)
+    if kernel and not x.is_cuda:
         raise ValueError("gcn_impl='pallas' needs CUDA tensors (the kernel runs on the card)")
-    if dtype_name not in ("float32", "bfloat16"):
+    if kernel and dtype_name not in ("float32", "bfloat16"):
         raise NotImplementedError(f"the GCN kernels take float32 or bfloat16, not {dtype_name!r}")
-    serving = not (torch.is_grad_enabled() and (x.requires_grad or gate.requires_grad))
+    training = torch.is_grad_enabled() and (x.requires_grad or gate.requires_grad)
+    if dtype_name == "bfloat16" and training:
+        if kernel:
+            _check_bwd_shape(x)
+        return _GcnSpatialMixBf16.apply(x, gate, float(scale2), kernel)
+    if not kernel:
+        return gcn_spatial_mix_plain(x, gate, scale2, dtype_name)
     if dtype_name == "bfloat16":
-        if not serving:
-            raise NotImplementedError(
-                "the bfloat16 GCN backward is still to port (ROADMAP.md); the bfloat16 "
-                "kernel serves under torch.no_grad()"
-            )
         return gcn_spatial_mix_bf16_kernel(x, gate, scale2)
-    if serving:
+    if not training:
         return gcn_spatial_mix_kernel(x, gate, scale2)  # no autograd node
     _check_bwd_shape(x)
     return _GcnSpatialMix.apply(x, gate, float(scale2))

@@ -16,7 +16,10 @@ configuration); attention forward shapes other than D3STN's at D=128
 (SYNTH) take the generic attention kernel. The bfloat16 forwards (GCN with x
 float32, as D3STN passes it, and attention) are held against their plain
 bfloat16 versions (within one bfloat16 ulp at the top binade on at most 1%
-of elements, ``ops/compare.py``) and timed against the bfloat16 bound.
+of elements, ``ops/compare.py``) and timed against the bfloat16 bound, and
+so are the bfloat16 backwards: K5 bf16 against the plain bfloat16 backward
+(``attn.bwd_errors`` <= 2e-3) and K3 on a bfloat16 cotangent with its cast
+(bit for bit K3 on ``g.float()``).
 
 Prints the card line, one line per configuration, and a JSON list of the
 measurements as the last line. Exits non-zero when a kernel disagrees.
@@ -42,6 +45,7 @@ from .timing import (
     bound_bf16_ms,
     bound_ms,
     device_ms,
+    device_ms_by_kernel,
     gcn_bwd_work,
     gcn_work,
     time_ms,
@@ -50,6 +54,8 @@ from .timing import (
 CONFIGS = ("SYNTH", "HZME_OUTFLOW", "PEMS08", "PEMS04", "PEMS03", "PEMS07")
 BATCH, T_LEN = 32, 12
 TOL = 1e-4
+# the bfloat16 attention backward against its plain version (chip_smoke.py)
+ATTN_BWD_BF16_TOL = 2e-3
 
 
 def _norm_err(got, want):
@@ -158,6 +164,46 @@ def _attn_bwd(name, n, d, heads, ks, gen, dev):
             **_bounds(attn_bwd_work(BATCH, n, T_LEN, d, heads, ks))}
 
 
+def _gcn_bwd_bf16(name, n, d, gen, dev):
+    """K3 on a bfloat16 cotangent (with its cast), bit for bit K3 on g.float()."""
+    x = torch.randn(BATCH, n, T_LEN, d, generator=gen, device=dev)
+    g = torch.randn(BATCH, n, T_LEN, d, generator=gen, device=dev).to(torch.bfloat16)
+    gate = 0.5 * torch.rand(n, n, generator=gen, device=dev)
+    scale2 = 1.0 / math.sqrt(d)
+    run = lambda: gcn.gcn_spatial_mix_bwd_bf16_kernel(x, gate, g, scale2)  # noqa: E731
+    plain = lambda: gcn.gcn_spatial_mix_bwd_plain(x, gate, g.float(), scale2)  # noqa: E731
+    got = run()
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, gcn.gcn_spatial_mix_bwd_kernel(x, gate, g.float(), scale2))):
+        raise RuntimeError(f"{name}: K3 on a bfloat16 g differs from K3 on g.float()")
+    return {"err": max(_norm_err(a, w) for a, w in zip(got, plain())),
+            "ms": sum(device_ms_by_kernel(run, "").values()), "plain_ms": time_ms(plain, reps=5),
+            "bound16_ms": bound_bf16_ms(gcn_bwd_work(BATCH, n, T_LEN, d, 2))[0]}
+
+
+def _attn_bwd_bf16(name, n, d, heads, ks, gen, dev):
+    acts = [torch.randn(BATCH, n, T_LEN, d, generator=gen, device=dev) for _ in range(4)]
+    g = acts.pop().to(torch.bfloat16)
+    lim = math.sqrt(6.0 / (2 * ks * d))
+    weights = []
+    for _ in range(4):
+        weights.append((2 * torch.rand(ks, d, d, generator=gen, device=dev) - 1) * lim)
+        weights.append(0.1 * torch.randn(d, generator=gen, device=dev))
+    errs, times, plain_times = [], [], []
+    for flags in ((False, False, False), (True, True, True), (True, False, False)):
+        args = (*acts, *weights, g, *flags, heads)
+        run = lambda: attn.fused_temporal_attention_bwd_bf16_kernel(*args)  # noqa: E731
+        plain = lambda: attn.fused_temporal_attention_bwd_plain(*args, "bfloat16")  # noqa: E731
+        errs.append(max(attn.bwd_errors(run(), plain())))
+        times.append(device_ms(run, "attn_bwd_bf16_"))
+        plain_times.append(time_ms(plain, reps=5))
+    if max(errs) > ATTN_BWD_BF16_TOL:
+        raise RuntimeError(f"{name}: bfloat16 attention backward error {max(errs):.3e} > "
+                           f"{ATTN_BWD_BF16_TOL:g}")
+    return {"err": max(errs), "ms": sum(times) / 3, "plain_ms": sum(plain_times) / 3,
+            "bound16_ms": bound_bf16_ms(attn_bwd_work(BATCH, n, T_LEN, d, heads, ks, 4, 2))[0]}
+
+
 def _attn(name, n, d, heads, ks, gen, dev):
     mq, mk, vs = (torch.randn(BATCH, n, T_LEN, d, generator=gen, device=dev) for _ in range(3))
     lim = math.sqrt(6.0 / (2 * ks * d))
@@ -205,12 +251,17 @@ def main():
         torch.cuda.empty_cache()
         g16 = _gcn_bf16(name, n, d, gen, dev)
         a16 = _attn_bf16(name, n, d, heads, ks, gen, dev)
+        gb16 = _gcn_bwd_bf16(name, n, d, gen, dev)
+        torch.cuda.empty_cache()
+        ab16 = _attn_bwd_bf16(name, n, d, heads, ks, gen, dev)
         print(f"{name} [B={BATCH}, N={n}, T={T_LEN}, D={d}, H={heads}]: "
               + "; ".join((_fmt(f"gcn {g['kernel']}", g), _fmt(f"attn {a['kernel']}", a),
                            _fmt("gcn_bwd", gb), _fmt("attn_bwd", ab), _fmt16("gcn_bf16", g16),
-                           _fmt16("attn_bf16", a16))), flush=True)
+                           _fmt16("attn_bf16", a16), _fmt16("gcn_bwd_bf16", gb16),
+                           _fmt16("attn_bwd_bf16", ab16))), flush=True)
         rows.append({"config": name, "n": n, "d": d, "heads": heads, "gcn": g, "attn": a,
-                     "gcn_bwd": gb, "attn_bwd": ab, "gcn_bf16": g16, "attn_bf16": a16})
+                     "gcn_bwd": gb, "attn_bwd": ab, "gcn_bf16": g16, "attn_bf16": a16,
+                     "gcn_bwd_bf16": gb16, "attn_bwd_bf16": ab16})
         torch.cuda.empty_cache()
     print(json.dumps(rows))
 

@@ -21,7 +21,8 @@ Two bounds:
 The second is the least time of a float32 kernel that runs its products on
 the tensor cores, as the GCN kernels K2 and K3 and the attention kernels K4
 and K5 do; the first is the least time of one that does not (K1); the third
-is that of the bfloat16 forms of K2 and K4.
+is that of the bfloat16 forms of K2, K4 and K5 and of K3 on a bfloat16
+cotangent (whose products stay float32: ``gcn_bwd_work``).
 """
 
 from __future__ import annotations
@@ -170,22 +171,32 @@ def attn_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int, in_bytes:
                 b * n * core)
 
 
-def gcn_bwd_work(b: int, n: int, t_len: int, d: int) -> Work:
-    """One GCN backward: x, g and gate read, dx and dgate written; five N^2 D
-    products per (b, t) slice (the scores recomputed, g x^T, a^T g, ds x
-    and ds^T x) and the softmax backward."""
-    return Work(4 * (3 * b * n * t_len * d + 2 * n * n), b * t_len * 10 * n * n * d,
-                b * t_len * 10 * n * n)
+def gcn_bwd_work(b: int, n: int, t_len: int, d: int, g_bytes: int = 4) -> Work:
+    """One GCN backward: x, g (``g_bytes`` per element) and gate read, dx
+    and dgate written; five N^2 D products per (b, t) slice (the scores
+    recomputed, g x^T, a^T g, ds x and ds^T x) and the softmax backward.
+    Every product is a float32 product, also on a bfloat16 g (the TPU
+    kernel computes its bfloat16 form in float32), so the bfloat16 bound
+    takes them all in 3xTF32."""
+    products = b * t_len * 10 * n * n * d
+    return Work(4 * (2 * b * n * t_len * d + 2 * n * n) + g_bytes * b * n * t_len * d, products,
+                b * t_len * 10 * n * n, products)
 
 
-def attn_bwd_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int) -> Work:
-    """One attention backward: mq, mk, vsrc, g and the four convs' weights
-    read; dmq, dmk, dvsrc and the weight gradients written. Per (b, n) row
-    eleven conv-sized products (q, k, v recomputed, the out conv's input
-    gradient, the three input convs' input gradients, four weight
-    gradients) and the attention core (scores and P.V recomputed, dP, dV,
-    dQ, dK) with its softmax backward."""
+def attn_bwd_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int, in_bytes: int = 4,
+                  g_bytes: int = 4) -> Work:
+    """One attention backward: mq, mk, vsrc (``in_bytes`` per element), g
+    (``g_bytes``) and the four convs' float32 weights read; dmq, dmk, dvsrc
+    (in their inputs' dtypes) and the float32 weight gradients written. Per
+    (b, n) row eleven conv-sized products (q, k, v recomputed, the out
+    conv's input gradient, the three input convs' input gradients, four
+    weight gradients) and the attention core (scores and P.V recomputed, dP,
+    dV, dQ, dK) with its softmax backward. In bfloat16 the products have
+    bfloat16 operands (bfloat16 rate) and the core stays float32 (CUDA
+    cores)."""
     dh = d // heads
     conv = 11 * 2 * ks * d * d * t_len
     core = 12 * heads * t_len * t_len * dh + 8 * heads * t_len * t_len
-    return Work(4 * (7 * b * n * t_len * d + 8 * (ks * d * d + d)), b * n * conv, b * n * core)
+    act = b * n * t_len * d
+    return Work((6 * in_bytes + g_bytes) * act + 4 * 8 * (ks * d * d + d), b * n * conv,
+                b * n * core)

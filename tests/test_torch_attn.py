@@ -186,6 +186,24 @@ def test_bf16_gcn_bound_takes_float32_scores_at_3xtf32(x_bytes, want):
     assert timing.bound_3xtf32_ms(work) == timing.bound_3xtf32_ms(timing.gcn_work(*_PEMS08[:4]))
 
 
+# the bfloat16 backward forms at PEMS08, batch 32, by hand: K5 bfloat16 (g
+# bfloat16, activations float32) its 11 conv products at 989 TFLOP/s
+# (0.071375 ms) and its float32 core at 67 TFLOP/s (0.018707 ms) against 217
+# MB at 3.35 TB/s (0.0649 ms); K3 on a bfloat16 g every product in 3xTF32,
+# as the float32 K3
+@pytest.mark.parametrize("name, kwargs, want", [
+    ("attn_bwd_work", dict(in_bytes=4, g_bytes=2), (0.090082, "operations")),
+    ("gcn_bwd_work", dict(g_bytes=2), (0.087799, "operations")),
+])
+def test_bf16_backward_bounds(name, kwargs, want):
+    from paddlexde_tpu_torch.ops import timing
+
+    args = _PEMS08 if name == "attn_bwd_work" else _PEMS08[:4]
+    work = getattr(timing, name)(*args, **kwargs)
+    assert timing.bound_bf16_ms(work) == (pytest.approx(want[0], rel=1e-4), want[1])
+    assert work.bytes < getattr(timing, name)(*args).bytes
+
+
 def test_bound_without_products_is_the_cuda_core_bound():
     from paddlexde_tpu_torch.ops import timing
 

@@ -329,11 +329,30 @@ def test_predictor_matches_the_pallas_route():
                                ref.astype(np.float64))
 
 
-def test_trainer_refuses_bf16(tmp_path):
-    cfg = D3STNConfig(**KW, save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, data=np.zeros((300, N, 3), np.float32), adj_matrix=np.eye(N),
-                sc_matrix=np.eye(N), device="cpu")
+def test_trainer_takes_a_bf16_step(tmp_path):
+    """A bfloat16 Trainer on the CPU takes a step: finite loss, parameters,
+    moments and lags still float32 and moved; dropout > 0 still raises in
+    training."""
+    rng = np.random.RandomState(0)
+    data = rng.rand(300, N, 3).astype(np.float32)
+    data[..., 1] = np.arange(300)[:, None] // 288 % 7
+    data[..., 2] = np.arange(300)[:, None] % 288
+    adj, sc = _graph(0)
+    cfg = D3STNConfig(**KW, save_dir=str(tmp_path), dataset_name="SYNTH")
+    tr = Trainer(cfg, data=data, adj_matrix=adj, sc_matrix=sc, device="cpu")
+    before = [t.detach().clone() for t in tr.state_tensors()]
+    starts = next(tr.train_dataset.batch_starts(2))
+    loss, align = tr.train_step_idx(starts, 0.5, 1e-3, 1e-2)
+    assert np.isfinite(loss.item()) and np.isfinite(align.item())
+    assert int(tr.opt_state["count"]) == 1
+    assert all(t.dtype == torch.float32 for t in tr.state_tensors())
+    assert all(v.dtype == torch.float32 for k, v in tr.opt_state.items() if k != "count")
+    assert any(not torch.equal(a, b.detach()) for a, b in zip(before, tr.state_tensors()))
+    dropout = Trainer(D3STNConfig(**KW, save_dir=str(tmp_path / "d"), dataset_name="SYNTH",
+                                  dropout=0.1), data=data, adj_matrix=adj, sc_matrix=sc,
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        dropout.train_step_idx(starts, 0.5, 1e-3, 1e-2)
 
 
 def test_config_takes_bf16_and_refuses_other_dtypes():

@@ -245,13 +245,104 @@ def test_bf16_dense_sums_in_float32_whatever_the_flag(dev, d_in, bias):
     assert err <= ulp and share <= 0.01, (err, ulp, share)
 
 
-def test_bf16_kernels_refuse_gradients(dev):
-    x = torch.randn(1, 5, 12, 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gcn.gcn_spatial_mix(x, torch.rand(5, 5, device=dev), 0.125, "bfloat16")
-    weights = [torch.zeros(3, 64, 64, device=dev), torch.zeros(64, device=dev)] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn.fused_temporal_attention(x, x, x, *weights, False, False, False, 4, "bfloat16")
+# the bfloat16 K5 (csrc/attn_bwd_bf16.cu): B*N = 37 (a ragged last tile of
+# 16 rows and of the core's 4), 340 (4 weight-gradient splits) and 5 (one
+# split of 5 rows), D = 128 with 8 heads and 64 with 4, D3STN's three flag
+# sets; against the plain bfloat16 backward on the card by attn.bwd_errors
+# (limit as chip_smoke.py's), the same bits twice
+@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
+@pytest.mark.parametrize("b,n,d,heads", [(1, 5, 128, 8), (1, 37, 128, 8), (1, 37, 64, 4),
+                                         (2, 170, 128, 8), (2, 170, 64, 4)])
+def test_attention_bwd_bf16_kernel(dev, flags, b, n, d, heads):
+    g = torch.Generator(device=dev).manual_seed(8)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    arrays = [r(b, n, 12, d), r(b, n, 12, d), r(b, n, 12, d)]
+    for _ in range(4):
+        arrays += [r(3, d, d) / d ** 0.5, 0.1 * r(d)]
+    cot = r(b, n, 12, d).to(torch.bfloat16)
+    before = _build.LAUNCHES["attn_bwd_bf16"]
+    got = _bitwise_twice(lambda: attn.fused_temporal_attention_bwd_bf16_kernel(*arrays, cot, *flags,
+                                                                               heads))
+    assert _build.LAUNCHES["attn_bwd_bf16"] == before + 2
+    want = attn.fused_temporal_attention_bwd_plain(*arrays, cot, *flags, heads, "bfloat16")
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+    assert max(attn.bwd_errors(got, want)) <= 2e-3
+
+
+def test_attention_bwd_bf16_kernel_takes_bf16_activations(dev):
+    """bfloat16 mq, mk, vs give bfloat16 input gradients, within one ulp of
+    the plain version's on at most 1% of elements."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    arrays = [r(1, 37, 12, 64).to(torch.bfloat16) for _ in range(3)]
+    for _ in range(4):
+        arrays += [r(3, 64, 64) / 8, 0.1 * r(64)]
+    cot = r(1, 37, 12, 64).to(torch.bfloat16)
+    got = attn.fused_temporal_attention_bwd_bf16_kernel(*arrays, cot, False, False, False, 4)
+    want = attn.fused_temporal_attention_bwd_plain(*arrays, cot, False, False, False, 4,
+                                                   "bfloat16")
+    for a, w in zip(got[:3], want[:3]):
+        _bf16_close(a, w)
+    assert max(attn.bwd_errors(got, want)[3:]) <= 2e-3
+
+
+@pytest.mark.parametrize("d,heads,t_len,flags", [(32, 2, 12, (False, False, False)),
+                                                 (128, 4, 12, (False, False, False)),
+                                                 (128, 8, 9, (False, False, False)),
+                                                 (128, 8, 12, (False, True, False))])
+def test_attention_bwd_bf16_kernel_refuses_other_shapes(dev, d, heads, t_len, flags):
+    arrays = [torch.zeros(1, 3, t_len, d, device=dev) for _ in range(3)]
+    for _ in range(4):
+        arrays += [torch.zeros(3, d, d, device=dev), torch.zeros(d, device=dev)]
+    cot = torch.zeros(1, 3, t_len, d, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="attn_impl"):
+        attn.fused_temporal_attention_bwd_bf16_kernel(*arrays, cot, *flags, heads)
+    leaves = [a.requires_grad_() for a in arrays]
+    with pytest.raises(ValueError, match="attn_impl"):
+        attn.fused_temporal_attention(*leaves, *flags, heads, "bfloat16")
+
+
+# K3 on a bfloat16 cotangent: the float32 kernel on g.float(), bit for bit,
+# x float32 and bfloat16
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 17, 3, 64), (1, 170, 3, 128), (2, 80, 3, 128)])
+def test_gcn_bwd_kernel_on_bf16_cotangent(dev, shape, x_dtype):
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(*shape, generator=g, device=dev).to(x_dtype)
+    gate = torch.rand(shape[1], shape[1], generator=g, device=dev)
+    cot = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    dx, dgate = gcn.gcn_spatial_mix_bwd_bf16_kernel(x, gate, cot, 0.3)
+    assert _build.LAUNCHES["gcn_bwd_bf16"] == before["gcn_bwd_bf16"] + 1
+    assert _build.LAUNCHES["gcn_bwd"] == before["gcn_bwd"]
+    want = gcn.gcn_spatial_mix_bwd_kernel(x.float(), gate, cot.float(), 0.3)
+    assert dx.dtype == x_dtype and torch.equal(dx, want[0].to(x_dtype))
+    assert torch.equal(dgate, want[1])
+
+
+def test_bf16_autograd_through_the_kernels(dev):
+    """Gradients of the bfloat16 kernel path against the plain bfloat16 path
+    (impl="xla") on the card, with ``mk is mq``: the GCN's bit for bit but
+    for the kernels' float32 sum orders, the attention's by attn.bwd_errors."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    x = r(2, 9, 12, 64).requires_grad_()
+    gate = torch.rand(9, 9, generator=g, device=dev).requires_grad_()
+    weights = [p.requires_grad_() for _ in range(4) for p in (r(3, 64, 64) / 8, 0.1 * r(64))]
+    grads, launches = [], []
+    for impl in ("pallas", "xla"):
+        _build.reset_launches()
+        y = gcn.gcn_spatial_mix(x, gate, 0.125, "bfloat16", impl=impl).float()
+        y = attn.fused_temporal_attention(y, y, x, *weights, False, False, False, 4, "bfloat16",
+                                          impl=impl).float()
+        grads.append(torch.autograd.grad((y * y).sum(), [x, gate, *weights]))
+        launches.append(dict(_build.LAUNCHES))
+    assert launches[0]["gcn_bwd_bf16"] == 1 and launches[0]["attn_bwd_bf16"] == 1
+    assert launches[1]["gcn_bwd_bf16"] == 0 and launches[1]["attn_bwd_bf16"] == 0
+    (dx, dgate, *dw), (dx_ref, dgate_ref, *dw_ref) = grads
+    assert _norm_err(dgate, dgate_ref) <= 1e-2
+    assert max(attn.bwd_errors([dx] * 3 + dw, [dx_ref] * 3 + dw_ref)) <= 1e-2
 
 
 def test_autograd_through_the_kernels(dev):
