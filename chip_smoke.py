@@ -5,11 +5,13 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds the eight hand-written Hopper kernels from ``paddlexde_tpu_torch/
-ops/csrc``, prints the compiler's registers, spills and shared memory of
-the GCN and attention kernels and the count of tensor-core instructions in
-their libraries (it fails if one has none, if a GCN kernel spills, or if a
-bfloat16 kernel spills or has no HGMMA), and runs four phases (PyTorch's
+It builds the eight hand-written Hopper kernel sources from
+``paddlexde_tpu_torch/ops/csrc``, prints the compiler's registers, spills
+and shared memory of the GCN and attention kernels and the count of
+tensor-core instructions in their libraries, with and without the
+attention kernels' dropout instantiations (it fails if one has none, if a
+GCN kernel spills, or if a bfloat16 kernel spills or has no HGMMA), and
+runs five phases (PyTorch's
 TF32 off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
 float32 GCN and attention kernels run their products in 3xTF32, the
 bfloat16 ones in bfloat16):
@@ -26,7 +28,11 @@ bfloat16 ones in bfloat16):
    attention backward K5 against the plain bfloat16 backward
    (``attn.bwd_errors`` within ATTN_BWD_BF16_TOL, the parent's route
    printed as a control) and K3 on a bfloat16 cotangent, bit for bit K3 on
-   ``g.float()``, both the same bits twice;
+   ``g.float()``, both the same bits twice; the dropout forms of K4 and K5
+   in float32 and bfloat16 with a dropout-0.1 keep mask against their plain
+   versions with the same mask (float32 within TOL, bfloat16 as above), each
+   the same bits twice, an all-keep mask giving the no-dropout kernel's
+   bits;
 2. serving: PEMS08-width ``Predictor`` requests (random weights from a
    seeded generator) through the kernels and against the same Predictor
    forced to the plain versions, in float32 and then in bfloat16
@@ -43,17 +49,23 @@ bfloat16 ones in bfloat16):
    attention sublayer's backward teacher-forced on the step's inputs and
    cotangent, with the parent's route as a control that must fail; the
    launches of a step by counter and profiler, the step time, then
-   BF16_STEPS more steps with a finite loss.
+   BF16_STEPS more steps with a finite loss;
+5. training with dropout 0.1 at PEMS08 width and depth, batch 32, in
+   float32 and then in bfloat16: one step on the kernels against one on
+   the plain versions with the same masks, under the rules of phases 3 and
+   4; the launches of a step by counter and profiler (the dropout forms of
+   K4 and K5, no GCN kernel: with dropout the GCN runs the JAX model's XLA
+   form), the step time, then DROPOUT_STEPS more steps with a finite loss.
 
 Launch counts are checked by the wrappers' counters and by ``torch.profiler``
 traces. It prints:
 
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-  main paths (serving in float32 and in bfloat16, the two-epoch train and
-  the bfloat16 train steps), error, time, bound (the 3xTF32 bound of
-  ``ops/timing.py``, the bfloat16 bound for the bfloat16 kernels),
-  plain-version time and library time;
+  main paths (serving in float32 and in bfloat16, the two-epoch train, the
+  bfloat16 train steps and the dropout train steps), error, time, bound
+  (the 3xTF32 bound of ``ops/timing.py``, the bfloat16 bound for the
+  bfloat16 kernels), plain-version time and library time;
 - as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result lines. With no CUDA card, or
@@ -62,6 +74,7 @@ without the ``paddlexde_tpu_torch`` package beside this file, it fails too.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -95,14 +108,25 @@ BF16_STEPS = 8
 # the gradients that the model's backward rounds to bfloat16: the bfloat16
 # dense layers' weights and biases (flax's transposed products and sums)
 BF16_ROUNDED_GRADS = ("encoder_dense.", "decoder_dense.", ".gcn.proj.")
+# the dropout rate of phase 1's masks and phase 5's training (the JAX
+# package's own bench setting, tools/bench_d3stn.py)
+DROPOUT = 0.1
+# further dropout train steps after the checked one (finite loss)
+DROPOUT_STEPS = 4
 _ZERO = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
-         "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0, "gcn_bwd_bf16": 0, "attn_bwd_bf16": 0}
+         "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0, "gcn_bwd_bf16": 0, "attn_bwd_bf16": 0,
+         "attn_fwd_dropout": 0, "attn_bwd_dropout": 0, "attn_fwd_bf16_dropout": 0,
+         "attn_bwd_bf16_dropout": 0}
 LAUNCHES_PER_BATCH = {**_ZERO, "spline": 2, "gcn_fwd": 4, "attn_fwd": 6}
 LAUNCHES_PER_BATCH_BF16 = {**_ZERO, "spline": 2, "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6}
 LAUNCHES_PER_STEP = {**_ZERO, "spline": 4, "gcn_fwd": 4, "gcn_bwd": 4, "attn_fwd": 6,
                      "attn_bwd": 6}
 LAUNCHES_PER_STEP_BF16 = {**_ZERO, "spline": 4, "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6,
                           "gcn_bwd_bf16": 4, "attn_bwd_bf16": 6}
+# with dropout the GCN runs the JAX model's XLA form: no K2, no K3
+LAUNCHES_PER_STEP_DROPOUT = {**_ZERO, "spline": 4, "attn_fwd_dropout": 6, "attn_bwd_dropout": 6}
+LAUNCHES_PER_STEP_DROPOUT_BF16 = {**_ZERO, "spline": 4, "attn_fwd_bf16_dropout": 6,
+                                  "attn_bwd_bf16_dropout": 6}
 # CUDA symbol substrings in a profiler trace; one wrapper call launches one
 # kernel of each symbol. K3 on a bfloat16 cotangent (counter gcn_bwd_bf16)
 # launches the gcn_bwd kernels: a trace counts it under gcn_bwd
@@ -119,7 +143,11 @@ KERNEL_NAMES = {
                       "attn_bwd_bf16_core_kernel", "attn_bwd_bf16_dx_conv_kernel",
                       "attn_bwd_bf16_dw_kernel", "attn_bwd_bf16_sum_kernel"),
 }
-TRACED_AS = {"gcn_bwd_bf16": "gcn_bwd"}
+# the dropout forms are instantiations of the same kernels (their last
+# template argument, DROP, true): a trace counts them under those kernels
+TRACED_AS = {"gcn_bwd_bf16": "gcn_bwd", "attn_fwd_dropout": "attn_fwd",
+             "attn_bwd_dropout": "attn_bwd", "attn_fwd_bf16_dropout": "attn_fwd_bf16",
+             "attn_bwd_bf16_dropout": "attn_bwd_bf16"}
 SOURCES = {
     "spline": ("paddlexde_tpu_torch/ops/csrc/spline.cu", "paddlexde_tpu/ops/spline_pallas.py:84"),
     "gcn_fwd": ("paddlexde_tpu_torch/ops/csrc/gcn.cu", "paddlexde_tpu/ops/gcn_pallas.py:54"),
@@ -132,6 +160,14 @@ SOURCES = {
     "gcn_bwd_bf16": ("paddlexde_tpu_torch/ops/csrc/gcn_bwd.cu", "paddlexde_tpu/ops/gcn_pallas.py:70"),
     "attn_bwd_bf16": ("paddlexde_tpu_torch/ops/csrc/attn_bwd_bf16.cu",
                       "paddlexde_tpu/ops/attn_pallas.py:494"),
+    "attn_fwd_dropout": ("paddlexde_tpu_torch/ops/csrc/attn.cu",
+                         "paddlexde_tpu/ops/attn_pallas.py:248"),
+    "attn_bwd_dropout": ("paddlexde_tpu_torch/ops/csrc/attn_bwd.cu",
+                         "paddlexde_tpu/ops/attn_pallas.py:494"),
+    "attn_fwd_bf16_dropout": ("paddlexde_tpu_torch/ops/csrc/attn_bf16.cu",
+                              "paddlexde_tpu/ops/attn_pallas.py:248"),
+    "attn_bwd_bf16_dropout": ("paddlexde_tpu_torch/ops/csrc/attn_bwd_bf16.cu",
+                              "paddlexde_tpu/ops/attn_pallas.py:494"),
 }
 BF16_KERNELS = ("gcn_fwd_bf16", "attn_fwd_bf16")
 
@@ -184,6 +220,21 @@ def ptxas_report(log):
     return rows
 
 
+def dropout_tensor_core_counts(sass):
+    """``(HMMA + HGMMA, HGMMA)`` in the SASS functions of the attention
+    kernels' dropout instantiations: those whose last template argument,
+    DROP, is true (mangled ``Lb1EEEv``)."""
+    n_tc = n_hgmma = 0
+    drop = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            drop = "Lb1EEEv" in line
+        elif drop and ("HMMA" in line or "HGMMA" in line):
+            n_tc += 1
+            n_hgmma += "HGMMA" in line
+    return n_tc, n_hgmma
+
+
 def build_report():
     """Registers and spills of every kernel of the seven tensor-core
     libraries (GCN forward and backward, attention forward and backward,
@@ -208,8 +259,10 @@ def build_report():
                               capture_output=True, text=True, timeout=600, check=True).stdout
         n_tc = sum(1 for line in sass.splitlines() if "HMMA" in line or "HGMMA" in line)
         n_hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+        drop_tc, drop_hgmma = dropout_tensor_core_counts(sass)
         print(f"  {lib}: {n_tc} tensor-core instructions (HMMA/HGMMA) in the SASS, "
-              f"{n_hgmma} HGMMA", flush=True)
+              f"{n_hgmma} HGMMA; without the dropout instantiations {n_tc - drop_tc} and "
+              f"{n_hgmma - drop_hgmma}", flush=True)
         require(n_tc > 0, f"the {lib} library has no tensor-core instruction")
         require(not lib.endswith("bf16") or n_hgmma > 0, f"the {lib} library has no HGMMA")
 
@@ -623,6 +676,103 @@ def check_gcn_bwd_bf16(torch, dev, gen):
                       f"[{n},{n}]; bitwise equal to K3 on g.float() and twice")
 
 
+def keep_mask(torch, dev, gen, shape, rate=DROPOUT):
+    """A pre-scaled keep mask {0, 1/keep} of ``shape``, as the model draws it."""
+    keep = 1.0 - rate
+    return (torch.rand(shape, generator=gen, device=dev) < keep).float() / keep
+
+
+def check_attn_dropout(torch, dev, gen, bf16):
+    """The dropout forms of K4 and K5 (float32 or bfloat16) at the PEMS08
+    shapes with a dropout-0.1 keep mask, against their plain versions on the
+    same inputs and mask (float32: TOL; bfloat16: one ulp on at most
+    BF16_SHARE of elements forward, ATTN_BWD_BF16_TOL backward), each run
+    twice for the same bits, and an all-keep mask giving the no-dropout
+    kernel's bits. Returns the forward's and the backward's results."""
+    from paddlexde_tpu_torch.ops import attn
+    from paddlexde_tpu_torch.ops.timing import (
+        attn_bwd_work,
+        attn_work,
+        bound_3xtf32_ms,
+        bound_bf16_ms,
+        device_ms,
+        time_ms,
+    )
+
+    b, n, t_len, d, heads, ks = 32, 170, 12, 128, 8, 3
+    acts, weights = attn_inputs(torch, dev, gen)
+    g = torch.randn(b, n, t_len, d, generator=gen, device=dev)
+    mask = keep_mask(torch, dev, gen, (b, n, t_len, heads * t_len))
+    ones = torch.ones_like(mask)
+    dtype_name = "bfloat16" if bf16 else "float32"
+    if bf16:
+        g = g.to(torch.bfloat16)
+        fwd, bwd = attn.fused_temporal_attention_bf16_kernel, attn.fused_temporal_attention_bwd_bf16_kernel
+        bound, fsym, bsym = bound_bf16_ms, "attn_bf16_", "attn_bwd_bf16_"
+    else:
+        fwd, bwd = attn.fused_temporal_attention_kernel, attn.fused_temporal_attention_bwd_kernel
+        bound, fsym, bsym = bound_3xtf32_ms, "attn_fwd_", "attn_bwd_"
+    fres = {"err": [], "ms": [], "plain_ms": []}
+    bres = {"err": [], "ms": [], "plain_ms": []}
+    for flags in ((False, False, False), (True, True, True), (True, False, False)):
+        args = (*acts, *weights, *flags, heads)
+        run = lambda: fwd(*args, dropout_mask=mask)  # noqa: E731
+        plain = lambda: attn.fused_temporal_attention_plain(*args, dtype_name, mask)  # noqa: E731
+        if bf16:
+            err = check_bf16(torch, f"attention bf16 dropout kernel, flags {flags}", run, plain)[0]
+        else:
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            require(torch.isfinite(got).all().item(), f"attention dropout kernel {flags}: non-finite")
+            require(torch.equal(got, again), f"attention dropout kernel {flags}: two runs differ")
+            err = norm_err(got, plain())
+            require(err <= TOL["attn_fwd"], f"attention dropout kernel {flags}: {err:.3e} from "
+                    f"its plain version (tol {TOL['attn_fwd']:g})")
+        require(torch.equal(fwd(*args, dropout_mask=ones), fwd(*args)),
+                f"{dtype_name} attention dropout kernel {flags}: an all-keep mask does not give "
+                "the no-dropout kernel's bits")
+        fres["err"].append(err)
+        fres["ms"].append(device_ms(run, fsym))
+        fres["plain_ms"].append(time_ms(plain))
+
+        bargs = (*acts, *weights, g, *flags, heads)
+        brun = lambda: bwd(*bargs, dropout_mask=mask)  # noqa: E731
+        bplain = lambda: attn.fused_temporal_attention_bwd_plain(*bargs, dtype_name, mask)  # noqa: E731
+        got, again = brun(), brun()
+        torch.cuda.synchronize()
+        require(all(torch.isfinite(a).all().item() for a in got),
+                f"{dtype_name} attention dropout backward {flags}: non-finite output")
+        require(same_bits(torch, got, again),
+                f"{dtype_name} attention dropout backward {flags}: two runs differ")
+        require(same_bits(torch, bwd(*bargs, dropout_mask=ones), bwd(*bargs)),
+                f"{dtype_name} attention dropout backward {flags}: an all-keep mask does not "
+                "give the no-dropout kernels' bits")
+        err = max(attn.bwd_errors(got, bplain()))
+        tol = ATTN_BWD_BF16_TOL if bf16 else TOL["attn_bwd"]
+        require(err <= tol, f"{dtype_name} attention dropout backward {flags}: {err:.3e} from "
+                f"its plain version (tol {tol:g})")
+        del got, again
+        bres["err"].append(err)
+        bres["ms"].append(device_ms(brun, bsym))
+        bres["plain_ms"].append(time_ms(bplain))
+        print(f"  {dtype_name} dropout, flags {flags}: K4 err {fres['err'][-1]:.3e} kernel "
+              f"{fres['ms'][-1]:.4f} ms plain {fres['plain_ms'][-1]:.4f} ms; K5 err "
+              f"{bres['err'][-1]:.3e} kernel {bres['ms'][-1]:.4f} ms plain "
+              f"{bres['plain_ms'][-1]:.4f} ms; the same bits twice, all-keep = no-dropout bits",
+              flush=True)
+    in_b, out_b = (4, 2) if bf16 else (4, 4)
+    fwork = attn_work(b, n, t_len, d, heads, ks, in_b, out_b, dropout=True)
+    bwork = attn_bwd_work(b, n, t_len, d, heads, ks, 4, 2 if bf16 else 4, dropout=True)
+    shape = (f"[{b},{n},{t_len},{d}], H={heads}, K={ks}, mask [{b},{n},{t_len},{heads * t_len}] "
+             f"at dropout {DROPOUT}, 3 flag sets; bitwise equal twice")
+    out = []
+    for res, work in ((fres, fwork), (bres, bwork)):
+        out.append(dict(err=max(res["err"]), ms=statistics.mean(res["ms"]),
+                        plain_ms=statistics.mean(res["plain_ms"]), bound_main=bound(work),
+                        shape=shape))
+    return out
+
+
 def kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -677,6 +827,19 @@ def kernel_phase(torch, dev):
                   f"plain {flags_res[2]:.4f} ms", flush=True)
         res["bound_main"] = res["bound16"]
         results[name] = res
+    for bf16 in (False, True):
+        suffix = "_bf16" if bf16 else ""
+        fres, bres = check_attn_dropout(torch, dev, gen, bf16)
+        for name, res in ((f"attn_fwd{suffix}_dropout", fres), (f"attn_bwd{suffix}_dropout", bres)):
+            base = results[name[: -len("_dropout")]]
+            print(f"kernel {name} ({res['shape']}): max_abs_err(normalised)={res['err']:.3e} "
+                  f"against its plain version; kernel {res['ms']:.4f} ms (device, profiler; the "
+                  f"no-dropout kernel {base['ms']:.4f} ms), plain {res['plain_ms']:.4f} ms (CUDA "
+                  f"events), bound {res['bound_main'][0]:.4f} ms by {res['bound_main'][1]} "
+                  f"({'bfloat16' if bf16 else '3xTF32'} products, the mask read), launches per "
+                  f"dropout train step {LAUNCHES_PER_STEP_DROPOUT_BF16[name] if bf16 else LAUNCHES_PER_STEP_DROPOUT[name]}",
+                  flush=True)
+            results[name] = res
     return results
 
 
@@ -1209,6 +1372,90 @@ def train_phase(torch, dev):
     return launches
 
 
+def check_bf16_step(torch, np, label, names, kernels, plain, f32, pooled=False):
+    """A bfloat16 step on the kernels against the same step on the plain
+    bfloat16 versions, both against the float32 step (each ``(loss,
+    gradients)``): the loss no further from the plain step than the plain
+    step is from float32; each gradient within the plain step's distance
+    from float32 (:func:`within_bf16_spread`), a gradient that the model's
+    backward rounds to bfloat16 within one ulp at the top binade on the max,
+    the key-conv bias gradients (zero in exact arithmetic) within
+    TRAIN_TOL. With ``pooled`` the per-gradient rule is printed and the
+    rule of :func:`within_bf16_spread` is required of all gradients as one
+    vector, each normalised as above (phase 5: with dropout the lags' and
+    the last gates' distances are rounding noise of the plain step's own
+    size, PERF.md)."""
+    (k_loss, k_grads), (p_loss, p_grads), (f_loss, f_grads) = kernels, plain, f32
+    require(np.isfinite(k_loss) and all(torch.isfinite(g).all().item() for g in k_grads),
+            f"{label} on the kernels: non-finite loss or gradient")
+    f_by = dict(zip(names, f_grads))
+    rows, k_all, q_all = [], [], []
+    for name, gk, gp, gf in zip(names, k_grads, p_grads, f_grads):
+        scale = gf.abs().max().item()
+        if name.endswith("key_conv.bias"):
+            prefix = name[: -len("key_conv.bias")]
+            scale = max(f_by[prefix + c + "_conv.bias"].abs().max().item()
+                        for c in ("query", "value", "out"))
+        scale = scale if scale > 0 else 1.0  # a parameter the model does not use (a gate)
+        k, q = (gk - gp).abs().double() / scale, (gp - gf).abs().double() / scale
+        k_all.append(k.reshape(-1))
+        q_all.append(q.reshape(-1))
+        k, q = (k.max().item(), k.mean().item()), (q.max().item(), q.mean().item())
+        if name.endswith("key_conv.bias"):
+            # zero in exact arithmetic: both distances are float32 rounding
+            # noise, held to the float32 step's limit
+            ok = k[0] <= TRAIN_TOL
+        elif any(part in name for part in BF16_ROUNDED_GRADS):
+            # rounded to bfloat16 by the layer's backward: one ulp at the top
+            # binade is the gradient's resolution
+            ulp = 2.0 ** (math.floor(math.log2(scale)) - 7) / scale
+            ok = k[0] <= max(q[0], ulp) and k[1] <= 0.5 * q[1]
+        else:
+            ok = within_bf16_spread(k, q)
+        rows.append((name, k, q, ok))
+    loss_k, loss_q = abs(k_loss - p_loss), abs(p_loss - f_loss)
+    worst = sorted(rows, key=lambda r: -max(r[1][0] / max(r[2][0], 1e-30),
+                                            r[1][1] / max(0.5 * r[2][1], 1e-30)))
+    print(f"  {label} at batch 32: loss kernels {k_loss:.6f}, plain bfloat16 "
+          f"{p_loss:.6f}, float32 {f_loss:.6f} (kernels vs plain {loss_k:.3e}, plain vs float32 "
+          f"{loss_q:.3e}); {len(rows)} gradient tensors, kernels vs plain bfloat16 over max "
+          f"|float32 gradient| within the plain's distance from float32 (max, and half of it "
+          f"on the mean; key-conv biases, zero in exact arithmetic, within {TRAIN_TOL:g}; "
+          f"gradients rounded to bfloat16 within one ulp on the max) for "
+          f"{sum(r[3] for r in rows)}; closest to the plain's distance: "
+          + "; ".join(f"{n} max {k[0]:.2e} / {q[0]:.2e}, mean {k[1]:.2e} / {q[1]:.2e}"
+                      f"{'' if ok else ' FAILS'}" for n, k, q, ok in worst[:12]), flush=True)
+    require(loss_k <= loss_q, f"{label} loss: kernels {loss_k:.3e} from the plain "
+            f"versions, which are {loss_q:.3e} from float32")
+    if pooled:
+        k_all, q_all = torch.cat(k_all), torch.cat(q_all)
+        k = (k_all.max().item(), k_all.mean().item())
+        q = (q_all.max().item(), q_all.mean().item())
+        print(f"  {label}, the {k_all.numel()} gradient elements as one vector: kernels vs "
+              f"plain bfloat16 max {k[0]:.3e} mean {k[1]:.3e}; plain bfloat16 vs float32 max "
+              f"{q[0]:.3e} mean {q[1]:.3e}", flush=True)
+        require(within_bf16_spread(k, q), f"{label} gradients: kernels {k[0]:.3e} (mean "
+                f"{k[1]:.3e}) from the plain versions, which are {q[0]:.3e} (mean {q[1]:.3e}) "
+                "from float32")
+        return
+    for name, k, q, ok in rows:
+        require(ok, f"{label} gradient {name}: kernels {k[0]:.3e} (mean {k[1]:.3e}) "
+                f"from the plain versions, which are {q[0]:.3e} (mean {q[1]:.3e}) from float32")
+
+
+@contextlib.contextmanager
+def recording(module, name, calls, on=True):
+    """While active (and ``on``), ``module.name`` appends its arguments to
+    ``calls`` before it runs."""
+    fn = getattr(module, name)
+    if on:
+        setattr(module, name, lambda *args: calls.append(args) or fn(*args))
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
 def train_bf16_phase(torch, dev):
     """The bfloat16 train step at PEMS08 width and depth, batch 32: one step
     on the kernels against the same step on the plain bfloat16 versions,
@@ -1255,69 +1502,16 @@ def train_bf16_phase(torch, dev):
     starts = next(tr.train_dataset.batch_starts(cfg.batch_size, shuffle=True, seed=cfg.seed))
     src, tgt = tr.windows(starts)
     kl = 1.0
-    calls = []
-    kernel = attn.fused_temporal_attention_bwd_bf16_kernel
-
-    def record(*args):
-        calls.append(args)
-        return kernel(*args)
-
-    outs = []
+    calls, outs = [], []
     for trainer in (tr, plain, f32):
-        attn.fused_temporal_attention_bwd_bf16_kernel = record
-        try:
+        with recording(attn, "fused_temporal_attention_bwd_bf16_kernel", calls):
             total, _, _ = trainer.loss_fn(src, tgt, kl)
             grads = torch.autograd.grad(total, trainer.state_tensors(), materialize_grads=True)
-        finally:
-            attn.fused_temporal_attention_bwd_bf16_kernel = kernel
         outs.append((total.item(), grads))
     require(len(calls) == LAUNCHES_PER_STEP_BF16["attn_bwd_bf16"],
             f"{len(calls)} bfloat16 attention backward calls in one step")
-    (k_loss, k_grads), (p_loss, p_grads), (f_loss, f_grads) = outs
-    require(np.isfinite(k_loss) and all(torch.isfinite(g).all().item() for g in k_grads),
-            "bfloat16 train step on the kernels: non-finite loss or gradient")
-    names = tr.state_names
-    f_by = dict(zip(names, f_grads))
-    rows = []
-    for name, gk, gp, gf in zip(names, k_grads, p_grads, f_grads):
-        scale = gf.abs().max().item()
-        if name.endswith("key_conv.bias"):
-            prefix = name[: -len("key_conv.bias")]
-            scale = max(f_by[prefix + c + "_conv.bias"].abs().max().item()
-                        for c in ("query", "value", "out"))
-        scale = scale if scale > 0 else 1.0  # a parameter the model does not use (a gate)
-        k, q = (gk - gp).abs().double() / scale, (gp - gf).abs().double() / scale
-        k, q = (k.max().item(), k.mean().item()), (q.max().item(), q.mean().item())
-        if name.endswith("key_conv.bias"):
-            # zero in exact arithmetic: both distances are float32 rounding
-            # noise, held to the float32 step's limit
-            ok = k[0] <= TRAIN_TOL
-        elif any(part in name for part in BF16_ROUNDED_GRADS):
-            # rounded to bfloat16 by the layer's backward: one ulp at the top
-            # binade is the gradient's resolution
-            ulp = 2.0 ** (math.floor(math.log2(scale)) - 7) / scale
-            ok = k[0] <= max(q[0], ulp) and k[1] <= 0.5 * q[1]
-        else:
-            ok = within_bf16_spread(k, q)
-        rows.append((name, k, q, ok))
-    loss_k, loss_q = abs(k_loss - p_loss), abs(p_loss - f_loss)
-    worst = sorted(rows, key=lambda r: -max(r[1][0] / max(r[2][0], 1e-30),
-                                            r[1][1] / max(0.5 * r[2][1], 1e-30)))
-    print(f"  bfloat16 train step at batch 32: loss kernels {k_loss:.6f}, plain bfloat16 "
-          f"{p_loss:.6f}, float32 {f_loss:.6f} (kernels vs plain {loss_k:.3e}, plain vs float32 "
-          f"{loss_q:.3e}); {len(rows)} gradient tensors, kernels vs plain bfloat16 over max "
-          f"|float32 gradient| within the plain's distance from float32 (max, and half of it "
-          f"on the mean; key-conv biases, zero in exact arithmetic, within {TRAIN_TOL:g}; "
-          f"gradients rounded to bfloat16 within one ulp on the max) for "
-          f"{sum(r[3] for r in rows)}; closest to the plain's distance: "
-          + "; ".join(f"{n} max {k[0]:.2e} / {q[0]:.2e}, mean {k[1]:.2e} / {q[1]:.2e}"
-                      f"{'' if ok else ' FAILS'}" for n, k, q, ok in worst[:12]), flush=True)
-    require(loss_k <= loss_q, f"bfloat16 train-step loss: kernels {loss_k:.3e} from the plain "
-            f"versions, which are {loss_q:.3e} from float32")
-    for name, k, q, ok in rows:
-        require(ok, f"bfloat16 train-step gradient {name}: kernels {k[0]:.3e} (mean {k[1]:.3e}) "
-                f"from the plain versions, which are {q[0]:.3e} (mean {q[1]:.3e}) from float32")
-    del outs, k_grads, p_grads, f_grads, f_by, plain, f32
+    check_bf16_step(torch, np, "bfloat16 train step", tr.state_names, *outs)
+    del outs, plain, f32
 
     # 2. teacher-forced: each attention sublayer's backward on the captured
     # inputs and cotangent, and the control
@@ -1375,6 +1569,197 @@ def train_bf16_phase(torch, dev):
     return launches, device_us / 1e3
 
 
+def bf16_p_then_mask(torch, orig):
+    """``_attention_core_bf16`` whose value product takes bf16(p) m (the mask
+    after the rounding) instead of bf16(p m): the dropout control."""
+    from paddlexde_tpu_torch.ops import attn
+
+    def core(q, k, v, is_mask, heads, dropout_mask=None):
+        _, p = orig(q, k, v, is_mask, heads)
+        b, n, t_q, d = q.shape
+        vh = v.float().reshape(b, n, -1, heads, d // heads)
+        p_eff = p.to(torch.bfloat16).float() * attn._head_major(dropout_mask, heads)
+        x = torch.einsum("bnqhk,bnkhd->bnqhd", p_eff, vh)
+        return x.to(torch.bfloat16).reshape(b, n, t_q, d), p
+
+    return core
+
+
+def teacher_forced_dropout(torch, fwd_calls, bwd_calls):
+    """Each bfloat16 dropout attention sublayer of a step teacher-forced: K4
+    bf16 dropout on the captured inputs and mask against the plain bfloat16
+    forward (one ulp on at most BF16_SHARE of elements), with the mask
+    applied after the rounding as a control that must fail; K5 bf16 dropout
+    on the captured inputs, cotangent and mask against the plain bfloat16
+    backward (ATTN_BWD_BF16_TOL)."""
+    from paddlexde_tpu_torch.ops import attn
+    from paddlexde_tpu_torch.ops.compare import bf16_errors
+
+    require(len(fwd_calls) == len(bwd_calls) == 6,
+            f"{len(fwd_calls)} / {len(bwd_calls)} bfloat16 dropout attention calls in one step")
+    fwd, ctl = [], []
+    orig = attn._attention_core_bf16
+    with torch.no_grad():
+        for args in fwd_calls:
+            *inputs, mask = args
+            got = attn.fused_temporal_attention_bf16_kernel(*args)
+            err, ulp, share = bf16_errors(got, attn.fused_temporal_attention_plain(
+                *inputs, "bfloat16", mask))
+            fwd.append((err / ulp, share))
+            attn._attention_core_bf16 = bf16_p_then_mask(torch, orig)
+            try:
+                err, ulp, share = bf16_errors(got, attn.fused_temporal_attention_plain(
+                    *inputs, "bfloat16", mask))
+            finally:
+                attn._attention_core_bf16 = orig
+            ctl.append((err / ulp, share))
+    bwd = [max(attn.bwd_errors(attn.fused_temporal_attention_bwd_bf16_kernel(*args),
+                               attn.fused_temporal_attention_bwd_plain(*args[:16], "bfloat16",
+                                                                       args[16])))
+           for args in bwd_calls]
+    print("  teacher-forced, the step's 6 bfloat16 dropout attention sublayers: K4 vs plain "
+          + ", ".join(f"{r:.2f} ulp on {s:.3%}" for r, s in fwd) + "; the control (the mask "
+          "after the rounding) " + ", ".join(f"{r:.2f} ulp on {s:.3%}" for r, s in ctl)
+          + "; K5 vs plain " + ", ".join(f"{e:.3e}" for e in bwd)
+          + f" (limit {ATTN_BWD_BF16_TOL:g})", flush=True)
+    require(all(r <= 1 and s <= BF16_SHARE for r, s in fwd),
+            "a bfloat16 dropout attention sublayer disagrees with its plain forward")
+    require(not all(r <= 1 and s <= BF16_SHARE for r, s in ctl),
+            "the teacher-forced dropout check does not reject the mask after the rounding")
+    require(max(bwd) <= ATTN_BWD_BF16_TOL,
+            "a bfloat16 dropout attention sublayer's backward disagrees with its plain version")
+
+
+def train_dropout_phase(torch, dev):
+    """Training at dropout DROPOUT, PEMS08 width and depth, batch 32, in
+    float32 and then in bfloat16. Per dtype: one step on the kernels against
+    the same step on the plain versions with the same masks (both trainers'
+    mask sources seeded for the same step), under phase 3's rule in float32
+    and phase 4's in bfloat16 (against the float32 step with the same
+    masks); the launches of a step by counter and profiler (the dropout
+    forms of K4 and K5, no K2 and no K3); the step time; DROPOUT_STEPS more
+    steps with their own masks and a finite loss. Returns, per dtype, the
+    launches of those steps and the traced step's device time (ms)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from paddlexde_tpu_torch.models.d3stn import Trainer, load_config
+    from paddlexde_tpu_torch.ops import _build, attn
+    from paddlexde_tpu_torch.ops.timing import time_ms
+
+    PlainTrainer = with_plain_history(Trainer)
+    save_dir = HERE / "experiments" / "chip_smoke_dropout"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"), batch_size=32,
+                      dropout=DROPOUT, train_epochs=1, finetune_epochs=0)
+    adj, sc, data = train_inputs(np, cfg.num_nodes)
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        dcfg = dataclasses.replace(cfg, compute_dtype=dtype, save_dir=str(save_dir / dtype))
+        t0 = time.perf_counter()
+        tr = Trainer(dcfg, data=data, adj_matrix=adj, sc_matrix=sc, device=dev)
+        others = [PlainTrainer(dataclasses.replace(dcfg, attn_impl="xla", gcn_impl="xla",
+                                                   save_dir=str(save_dir / f"{dtype}_plain")),
+                               data=data, adj_matrix=adj, sc_matrix=sc, device=dev)]
+        if bf16:
+            others.append(Trainer(dataclasses.replace(dcfg, compute_dtype="float32",
+                                                      save_dir=str(save_dir / f"{dtype}_f32")),
+                                  data=data, adj_matrix=adj, sc_matrix=sc, device=dev))
+        for other in others:
+            other.model.load_state_dict(tr.model.state_dict())
+        print(f"{dtype} Trainer at dropout {cfg.dropout}: PEMS08 config at batch 32 "
+              f"({cfg.encoder_num_layers}+{cfg.decoder_num_layers} layers, d_model "
+              f"{cfg.d_model}), random parameters (seed {cfg.seed}); built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # 1. one step's loss and gradients with the same masks
+        starts = next(tr.train_dataset.batch_starts(cfg.batch_size, shuffle=True, seed=cfg.seed))
+        src, tgt = tr.windows(starts)
+        kl = 1.0
+        outs, fwd_calls, bwd_calls = [], [], []
+        for trainer in (tr, *others):
+            trainer.set_dropout_step(0, 0)
+            with recording(attn, "fused_temporal_attention_bf16_kernel", fwd_calls,
+                           trainer is tr and bf16), \
+                    recording(attn, "fused_temporal_attention_bwd_bf16_kernel", bwd_calls,
+                              trainer is tr and bf16):
+                total, _, _ = trainer.loss_fn(src, tgt, kl)
+                grads = torch.autograd.grad(total, trainer.state_tensors(),
+                                            materialize_grads=True)
+            outs.append((total.item(), grads))
+        if bf16:
+            check_bf16_step(torch, np, "bfloat16 dropout train step", tr.state_names, *outs,
+                            pooled=True)
+            teacher_forced_dropout(torch, fwd_calls, bwd_calls)
+        else:
+            (k_loss, k_grads), (p_loss, p_grads) = outs
+            loss_err = abs(k_loss - p_loss) / abs(p_loss)
+            errs = grad_errors(tr.state_names, k_grads, p_grads)
+            worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+            print(f"  float32 dropout train step at batch 32, kernels vs plain versions on the "
+                  f"card with the same masks: loss {k_loss:.6f} vs {p_loss:.6f}, relative err "
+                  f"{loss_err:.3e}; {len(errs)} gradient tensors, max normalised err "
+                  f"{worst[0][1]:.3e} (tol {TRAIN_TOL:g}); largest: "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in worst), flush=True)
+            require(np.isfinite(k_loss) and all(torch.isfinite(g).all().item() for g in k_grads),
+                    "dropout train step on the kernels: non-finite loss or gradient")
+            require(loss_err <= TRAIN_TOL, f"dropout train-step loss differs: {loss_err:.3e}")
+            require(worst[0][1] <= TRAIN_TOL,
+                    f"dropout train-step gradient {worst[0][0]} differs: {worst[0][1]:.3e}")
+        del outs, others
+
+        # 2. launches of one step, by counter and by profiler
+        per_step = LAUNCHES_PER_STEP_DROPOUT_BF16 if bf16 else LAUNCHES_PER_STEP_DROPOUT
+        lr = (1e-4, 1e-5)
+        _build.reset_launches()
+        tr.set_dropout_step(0, 0)
+        tr.train_step(src, tgt, kl, *lr)
+        torch.cuda.synchronize()
+        step_launches = dict(_build.LAUNCHES)
+        print(f"  launches of one {dtype} dropout train step (counters): {step_launches}",
+              flush=True)
+        require(step_launches == per_step,
+                f"one {dtype} dropout train step launched {step_launches}, expected {per_step}")
+        device_us, by_name = traced_launches(torch, lambda: tr.train_step(src, tgt, kl, *lr),
+                                             per_step, f"one {dtype} dropout train step")
+
+        # 3. step time
+        step_ms = time_ms(lambda: tr.train_step(src, tgt, kl, *lr), reps=10)
+        by_kernel = {k: sum(us for name, us in by_name.items()
+                            if any(sym in name for sym in KERNEL_NAMES[k])) / 1e3
+                     for k in KERNEL_NAMES}
+        print(f"  {dtype} dropout train step at batch 32 (CUDA events, median of 10): "
+              f"{step_ms:.3f} ms ({32e3 / step_ms:.1f} samples/s); device time in the trace "
+              f"{device_us / 1e3:.3f} ms (idle share {1 - device_us / 1e3 / step_ms:.1%} of the "
+              f"event-timed step); by kernel "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kernel.items() if v)
+              + f", other {device_us / 1e3 - sum(by_kernel.values()):.3f} ms", flush=True)
+
+        # 4. more steps on other windows, each with its own masks
+        batches = list(tr.train_dataset.batch_starts(cfg.batch_size, shuffle=True, seed=1,
+                                                     drop_last=True))[:DROPOUT_STEPS]
+        _build.reset_launches()
+        losses = []
+        for i, s_b in enumerate(batches):
+            tr.set_dropout_step(1, i)
+            losses.append(tr.train_step_idx(s_b, kl, *lr)[0])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        losses = torch.stack(losses).cpu().numpy()
+        print(f"  {len(batches)} more {dtype} dropout train steps: losses {losses.tolist()}; "
+              f"launches {launches}", flush=True)
+        require(np.isfinite(losses).all(), f"a {dtype} dropout train step gave a non-finite loss")
+        require(launches == {k: len(batches) * v for k, v in per_step.items()},
+                f"{len(batches)} {dtype} dropout train steps launched {launches}")
+        results[dtype] = (launches, device_us / 1e3)
+        del tr
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return results
+
+
 def main():
     if not (HERE / "paddlexde_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"paddlexde_tpu_torch/ not found beside {Path(__file__).name}")
@@ -1402,8 +1787,12 @@ def main():
     train_launches = train_phase(torch, dev)
     bf16_train_launches, bf16_step_ms = train_bf16_phase(torch, dev)
     print(f"bfloat16 train step device time at batch 32: {bf16_step_ms:.3f} ms", flush=True)
+    dropout = train_dropout_phase(torch, dev)
+    print("dropout train step device time at batch 32: "
+          + ", ".join(f"{dtype} {ms:.3f} ms" for dtype, (_, ms) in dropout.items()), flush=True)
     launches = {k: serve_launches[k] + bf16_launches[k] + train_launches[k]
-                + bf16_train_launches[k] for k in kernels}
+                + bf16_train_launches[k] + sum(d[0][k] for d in dropout.values())
+                for k in kernels}
     for name in kernels:
         require(launches[name] > 0, f"{name} was never launched on the main paths")
     print(card)

@@ -16,10 +16,23 @@ Kept from the JAX model:
   lets it run as one fused kernel (``ops/attn.py``);
 - LayerNorm epsilon 1e-5.
 
-Trains and serves with ``dropout == 0`` (every shipped config): on the card
-the GCN and attention blocks run their forward and backward kernels. Dropout
-in training mode is not ported (the kernels have no dropout input yet,
-ROADMAP.md).
+On the card the GCN and attention blocks run their forward and backward
+kernels. ``dropout > 0`` in training mode (``model.train()``) applies the
+JAX model's dropout sites with keep masks from :class:`DropoutMasks`, in
+call order:
+
+- in each attention sublayer, one mask ``[B, N, Tq, H*Tk]`` on the softmax
+  weights (head-major, pre-scaled {0, 1/keep}: the TPU kernels' dropout
+  form, ``fused_temporal_attention_dropout``; on the card the dropout forms
+  of K4 and K5);
+- in each GCN sublayer, one mask ``[B, T, N, N]`` on the softmax scores; with
+  dropout active the GCN runs the JAX model's XLA form, which has no kernel
+  in either package (``ops/gcn.py::gcn_spatial_mix_dropout``), and an
+  explicit ``gcn_impl="pallas"`` warns;
+- after each sublayer, one mask on its output h (flax ``nn.Dropout``: h
+  divided by keep in h's dtype).
+
+In eval mode (and at ``dropout == 0``) the model is deterministic.
 
 ``compute_dtype="bfloat16"`` trains and serves with the JAX model's cast
 points: the input dense layers and the GCN projection compute in bfloat16
@@ -36,18 +49,66 @@ blocks those of the TPU backward kernels (``ops/attn.py``, ``ops/gcn.py``).
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..._device import resolve_device
-from ...ops.attn import fused_temporal_attention
-from ...ops.gcn import gcn_spatial_mix
+from ...ops.attn import fused_temporal_attention, fused_temporal_attention_dropout
+from ...ops.gcn import gcn_spatial_mix, gcn_spatial_mix_dropout
 from .config import D3STNConfig
 
-__all__ = ["D3STN", "topk_mix_matrix"]
+__all__ = ["D3STN", "DropoutMasks", "topk_mix_matrix"]
+
+
+class DropoutMasks:
+    """The keep masks of the model's dropout sites in training mode.
+
+    Site i of a model call draws ``uniform < keep`` (the law of
+    ``jax.random.bernoulli``) from a ``torch.Generator`` on the requested
+    device, seeded from ``(step seed, i)``. Every model call within one
+    step therefore sees the same masks, as JAX's ``apply`` with one rng
+    does; the ``midpoint`` and ``rk4`` solvers call the model more than
+    once per step. :meth:`set_step` gives the step seed, :meth:`start`
+    begins a model call."""
+
+    def __init__(self, seed: int = 0):
+        self._generator = None
+        self.set_step(seed)
+
+    def set_step(self, seed: int) -> None:
+        self._seed = int(seed)
+        self._site = 0
+
+    def start(self) -> None:
+        self._site = 0
+
+    def keep(self, shape, keep: float, device) -> torch.Tensor:
+        """The next site's boolean keep mask of ``shape`` on ``device``."""
+        device = torch.device(device)
+        if self._generator is None or self._generator.device != device:
+            self._generator = torch.Generator(device=device)
+        site_seed = np.random.SeedSequence((self._seed, self._site)).generate_state(1, np.uint64)
+        self._site += 1
+        self._generator.manual_seed(int(site_seed[0]))
+        return torch.rand(shape, generator=self._generator, device=device) < keep
+
+
+def _residual_dropout(h, keep_mask, keep: float):
+    """flax ``nn.Dropout`` on h: ``select(mask, h / keep, 0)`` with the
+    division in h's dtype (in bfloat16 by bf16(keep), the quotient rounded
+    to bfloat16). The divisor is a device tensor: PyTorch's CUDA division by
+    a Python number multiplies by its reciprocal."""
+    if h.dtype == torch.bfloat16:
+        divisor = torch.full((), keep, device=h.device).to(torch.bfloat16).float()
+        scaled = (h.float() / divisor).to(torch.bfloat16)
+    else:
+        scaled = h / torch.full((), keep, dtype=h.dtype, device=h.device)
+    return torch.where(keep_mask, scaled, torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 def topk_mix_matrix(matrix: torch.Tensor, k: int) -> torch.Tensor:
@@ -181,16 +242,22 @@ class MultiHeadAttentionAwareTemporalContext(nn.Module):
             mix = mix.to(torch.bfloat16)
         return torch.einsum("nm,bmtd->bntd", mix.to(x.dtype), x)
 
-    def forward(self, query, key, value, is_mask: bool = False):
+    def forward(self, query, key, value, is_mask: bool = False, masks=None):
         cfg = self.cfg
         mq = self._mix(query)
         mk = mq if (key is query and self.mix_matrix is not None) else self._mix(key)
         convs = (self.query_conv, self.key_conv, self.value_conv, self.out_conv)
         weights = [p for c in convs for p in (c.kernel, c.bias)]
-        return fused_temporal_attention(
-            mq, mk, value, *weights, self.query_causal, self.key_causal,
-            bool(is_mask), cfg.head, cfg.compute_dtype, impl=cfg.attn_impl,
-        )
+        flags = (self.query_causal, self.key_causal, bool(is_mask), cfg.head)
+        if masks is None:
+            return fused_temporal_attention(mq, mk, value, *weights, *flags, cfg.compute_dtype,
+                                            impl=cfg.attn_impl)
+        # the JAX model's m.astype(float32) / keep: {0, 1 / f32(keep)}
+        keep = 1.0 - cfg.dropout
+        m = masks.keep((*mq.shape[:3], cfg.head * mk.shape[2]), keep, mq.device)
+        dm = m.to(torch.float32) * float(np.float32(1.0) / np.float32(keep))
+        return fused_temporal_attention_dropout(mq, mk, value, *weights, dm, *flags,
+                                                cfg.compute_dtype, impl=cfg.attn_impl)
 
 
 class SpatialAttentionGCN(nn.Module):
@@ -214,12 +281,21 @@ class SpatialAttentionGCN(nn.Module):
             return self.alpha * self.adj_matrix + self.beta * self.sc_matrix
         return self.alpha * self.adj_matrix
 
-    def forward(self, x):
+    def forward(self, x, masks=None):
         cfg = self.cfg
-        x_gcn = gcn_spatial_mix(
-            x, self.gate(), 1.0 / math.sqrt(cfg.d_model), cfg.compute_dtype,
-            impl=cfg.gcn_impl,
-        )
+        scale2 = 1.0 / math.sqrt(cfg.d_model)
+        if masks is None:
+            x_gcn = gcn_spatial_mix(x, self.gate(), scale2, cfg.compute_dtype, impl=cfg.gcn_impl)
+        else:
+            if cfg.gcn_impl == "pallas":  # the JAX model's warning
+                warnings.warn("gcn_impl='pallas' requested but dropout is active: the fused "
+                              "kernel has no dropout support, falling back to the XLA path "
+                              "for this (training) call.", stacklevel=2)
+            b, n, t, _ = x.shape
+            keep = 1.0 - cfg.dropout
+            x_gcn = gcn_spatial_mix_dropout(x, self.gate(), scale2,
+                                            masks.keep((b, t, n, n), keep, x.device), keep,
+                                            cfg.compute_dtype)
         if cfg.compute_dtype == "bfloat16":
             return _silu_bf16(_dense(x_gcn, self.proj, True))
         return F.silu(self.proj(x_gcn))
@@ -252,14 +328,20 @@ class AdaptiveEmbedding(nn.Module):
 
 
 class SublayerConnection(nn.Module):
-    """Pre-norm residual wrapper (reference ``endecoder.py:5-29``)."""
+    """Pre-norm residual wrapper (reference ``endecoder.py:5-29``); with
+    ``masks`` the sublayer's output goes through dropout."""
 
     def __init__(self, cfg: D3STNConfig):
         super().__init__()
+        self.cfg = cfg
         self.norm = nn.LayerNorm(cfg.d_model, eps=1e-5)
 
-    def forward(self, x, sublayer):
-        return x + sublayer(self.norm(x))
+    def forward(self, x, sublayer, masks=None):
+        h = sublayer(self.norm(x))
+        if masks is not None:
+            keep = 1.0 - self.cfg.dropout
+            h = _residual_dropout(h, masks.keep(h.shape, keep, h.device), keep)
+        return x + h
 
 
 class EncoderLayer(nn.Module):
@@ -270,9 +352,9 @@ class EncoderLayer(nn.Module):
         self.sub0 = SublayerConnection(cfg)
         self.sub1 = SublayerConnection(cfg)
 
-    def forward(self, x):
-        x = self.sub0(x, lambda h: self.self_attn(h, h, h))
-        return self.sub1(x, self.gcn)
+    def forward(self, x, masks=None):
+        x = self.sub0(x, lambda h: self.self_attn(h, h, h, masks=masks), masks)
+        return self.sub1(x, lambda h: self.gcn(h, masks), masks)
 
 
 class DecoderLayer(nn.Module):
@@ -285,10 +367,10 @@ class DecoderLayer(nn.Module):
         self.sub1 = SublayerConnection(cfg)
         self.sub2 = SublayerConnection(cfg)
 
-    def forward(self, x, memory):
-        x = self.sub0(x, lambda h: self.self_attn(h, h, h, is_mask=True))
-        x = self.sub1(x, lambda h: self.src_attn(h, memory, memory))
-        return self.sub2(x, self.gcn)
+    def forward(self, x, memory, masks=None):
+        x = self.sub0(x, lambda h: self.self_attn(h, h, h, is_mask=True, masks=masks), masks)
+        x = self.sub1(x, lambda h: self.src_attn(h, memory, memory, masks=masks), masks)
+        return self.sub2(x, lambda h: self.gcn(h, masks), masks)
 
 
 class D3STN(nn.Module):
@@ -300,6 +382,8 @@ class D3STN(nn.Module):
     adjacencies ``[N, N]``. Parameters are drawn from ``generator`` (a CPU
     ``torch.Generator``; a fresh default one when None) with the JAX model's
     initialisers, then the module moves to ``device`` (CUDA by default).
+    ``dropout_masks`` (a :class:`DropoutMasks`, seeded from ``cfg.seed``)
+    serves the dropout sites in training mode.
     """
 
     def __init__(self, cfg: D3STNConfig, adj_matrix, sc_matrix, *, device=None,
@@ -333,6 +417,7 @@ class D3STN(nn.Module):
         self.generator = nn.Linear(cfg.d_model, cfg.decoder_output_size)
         self.init_weights(generator if generator is not None else torch.Generator())
         self.to(device)
+        self.dropout_masks = DropoutMasks(cfg.seed)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX model's initialisers: xavier-uniform kernels, zero biases,
@@ -359,23 +444,21 @@ class D3STN(nn.Module):
             parts.append(self.adaptive_embedding_encoder(parts[0]))
         return torch.cat(parts, dim=-1)
 
-    def encode(self, src):
+    def encode(self, src, masks=None):
         x = self._embed(src, self.encoder_dense)
         for layer in self.encoder_layers:
-            x = layer(x)
+            x = layer(x, masks)
         return self.encoder_norm(x)
 
-    def decode(self, memory, tgt):
+    def decode(self, memory, tgt, masks=None):
         x = self._embed(tgt, self.decoder_dense)
         for layer in self.decoder_layers:
-            x = layer(x, memory)
+            x = layer(x, memory, masks)
         return self.generator(self.decoder_norm(x))
 
     def forward(self, src, tgt):
+        masks = None
         if self.training and self.cfg.dropout > 0:
-            raise NotImplementedError(
-                "dropout in training mode is not ported (the kernels have no "
-                "dropout input yet, ROADMAP.md); train with dropout=0 or call "
-                ".eval() to serve"
-            )
-        return self.decode(self.encode(src), tgt)
+            masks = self.dropout_masks
+            masks.start()
+        return self.decode(self.encode(src, masks), tgt, masks)

@@ -32,6 +32,13 @@ files follow the JAX Trainer. Checkpoints use its layout
 so either package loads what the other wrote; the port's full-state sidecar
 is ``epoch_*.params.torch_opt.npz`` (the JAX sidecar pickles optax objects
 and is not read here).
+
+With ``dropout > 0`` each train step draws the model's keep masks
+(``model.DropoutMasks``) from the step seed ``numpy.random.SeedSequence(
+(cfg.seed, epoch, step index))``; on the card the attention blocks run the
+dropout forms of K4 and K5 and the GCN blocks the JAX model's XLA form (no
+K2 or K3). Eval, test and ``predict_idx`` run the model in eval mode,
+without dropout, as the JAX Trainer passes no rng there.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+from contextlib import contextmanager
 from time import time
 from typing import Optional
 
@@ -97,8 +105,8 @@ class Trainer:
     ``compute_dtype="bfloat16"`` the model computes in bfloat16 (forward and
     backward, on the card through the bfloat16 kernels) while the
     parameters, the Adam moments, the loss, the lags and the non-finite
-    guard stay float32, as in the JAX Trainer. ``dropout > 0`` is refused
-    in training (the model raises).
+    guard stay float32, as in the JAX Trainer. ``dropout > 0`` trains with
+    dropout in either dtype (module docstring).
     """
 
     def __init__(self, cfg: D3STNConfig, data: Optional[np.ndarray] = None,
@@ -259,6 +267,13 @@ class Trainer:
         w = self._series[:, s[:, None] + self._offsets].permute(1, 0, 2, 3)
         return w[:, :, :his].contiguous(), w[:, :, his:].contiguous()
 
+    def set_dropout_step(self, epoch: int, step: int) -> None:
+        """Seed the model's dropout masks for the train step ``step`` of
+        ``epoch`` (the JAX Trainer folds the same two numbers into its key);
+        until the next call every step draws the same masks."""
+        seed = np.random.SeedSequence((self.cfg.seed, epoch, step)).generate_state(1, np.uint64)
+        self.model.dropout_masks.set_step(int(seed[0]))
+
     def train_step(self, src, tgt, kl_weight, lr_net, lr_lags):
         """One guarded Adam step on a batch; returns ``(loss, align)`` as
         device scalars (loss NaN when the step was skipped)."""
@@ -302,12 +317,23 @@ class Trainer:
         torch._foreach_copy_(state, [v.view_as(t) for v, t in zip(new.split(self._sizes), state)])
         return torch.where(ok, loss.detach(), torch.full_like(loss, float("nan")))
 
-    @torch.no_grad()
+    @contextmanager
+    def _eval_mode(self):
+        """The model in eval mode (no dropout) and no autograd, then back in
+        training mode."""
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                yield
+        finally:
+            self.model.train()
+
     def predict_idx(self, starts):
         """Forecasts ``[B, N, tgt_len, 1]`` (model space) for the windows at
         ``starts``."""
-        src, _ = self.windows(starts)
-        return self._forward(src)[0]
+        with self._eval_mode():
+            src, _ = self.windows(starts)
+            return self._forward(src)[0]
 
     def _device_starts(self, batches):
         """Window-start batches as device tensors, in one upload."""
@@ -347,8 +373,10 @@ class Trainer:
                 cfg.batch_size, shuffle=True, seed=cfg.seed + epoch, drop_last=True))
             # the per-batch losses stay on the device until the epoch ends: a
             # host read per step would hold the next step's launches behind it
-            losses = [self.train_step_idx(s_b, self.kl_loss_weight, lr_net, lr_lags)[0]
-                      for s_b in self._device_starts(batches)]
+            losses = []
+            for i, s_b in enumerate(self._device_starts(batches)):
+                self.set_dropout_step(epoch, i)
+                losses.append(self.train_step_idx(s_b, self.kl_loss_weight, lr_net, lr_lags)[0])
             n_batches = len(losses)
             if losses:
                 arr = torch.stack(losses).cpu().numpy()
@@ -412,7 +440,7 @@ class Trainer:
     def compute_eval_loss(self, epoch=-1) -> float:
         """Mean eval loss over the validation windows."""
         batches = list(self.val_dataset.batch_starts(self.cfg.batch_size))
-        with torch.no_grad():
+        with self._eval_mode():
             dev_losses = [self.criterion(*self._eval_pair(s_b))
                           for s_b in self._device_starts(batches)]
         losses = torch.stack(dev_losses).cpu().numpy().astype(np.float64) if dev_losses else []

@@ -20,7 +20,9 @@ main path went through the kernels. The backward wrappers (``gcn_bwd``,
 ``attn_bwd``) and the attention forwards launch several CUDA kernels per
 call and count the call once. The bfloat16 forms count under keys of
 their own (``gcn_fwd_bf16``, ``attn_fwd_bf16``, ``attn_bwd_bf16``, and
-``gcn_bwd_bf16`` for the GCN backward kernels on a bfloat16 cotangent).
+``gcn_bwd_bf16`` for the GCN backward kernels on a bfloat16 cotangent), and
+so do the dropout forms of the attention kernels (``attn_fwd_dropout``,
+``attn_bwd_dropout``, ``attn_fwd_bf16_dropout``, ``attn_bwd_bf16_dropout``).
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
                             "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0, "gcn_bwd_bf16": 0,
-                            "attn_bwd_bf16": 0}
+                            "attn_bwd_bf16": 0, "attn_fwd_dropout": 0, "attn_bwd_dropout": 0,
+                            "attn_fwd_bf16_dropout": 0, "attn_bwd_bf16_dropout": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -15,7 +15,10 @@ any device and ``impl="pallas"`` demands the kernels. ``dtype_name=
 "bfloat16"`` runs the block in bfloat16 (on the card forward
 ``csrc/attn_bf16.cu``, backward ``csrc/attn_bwd_bf16.cu``); with gradients
 both routes take the rounding points of the TPU ``_bwd_kernel``
-(:func:`_bwd_plain_bf16`). No dropout input; dropout is still to port.
+(:func:`_bwd_plain_bf16`). :func:`fused_temporal_attention_dropout` is the
+block with the softmax weights multiplied by a pre-scaled keep mask (the
+dropout form of both TPU kernels); on the card the dropout forms of the same
+four kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from . import _build
 
 __all__ = [
     "fused_temporal_attention",
+    "fused_temporal_attention_dropout",
     "fused_temporal_attention_plain",
     "fused_temporal_attention_kernel",
     "fused_temporal_attention_bf16_kernel",
@@ -73,18 +77,28 @@ def temporal_conv_plain(x, w, b, causal: bool, dt=torch.float32):
     return out + b.to(dt)
 
 
+def _head_major(dropout_mask, heads: int):
+    """The keep mask ``[B, N, Tq, H*Tk]`` (head h in columns [h*Tk, (h+1)*Tk))
+    as ``[B, N, Tq, H, Tk]``."""
+    b, n, t_q, cols = dropout_mask.shape
+    return dropout_mask.reshape(b, n, t_q, heads, cols // heads)
+
+
 def fused_temporal_attention_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                                    causal_q: bool, causal_kv: bool, is_mask: bool,
-                                   heads: int, dtype_name: str = "float32"):
+                                   heads: int, dtype_name: str = "float32", dropout_mask=None):
     """Plain PyTorch version (the JAX ``_ref_impl``; in bfloat16 the
-    rounding points of the TPU ``_fwd_kernel``, :func:`_attention_core_bf16`)."""
+    rounding points of the TPU ``_fwd_kernel``, :func:`_attention_core_bf16`).
+    ``dropout_mask`` ``[B, N, Tq, H*Tk]`` float32, pre-scaled {0, 1/keep} and
+    head-major, multiplies the float32 softmax weights before the value
+    product (``_ref_impl(..., dropout_mask=)``)."""
     dt = _dt(dtype_name)
     if dt == torch.bfloat16:
         q = temporal_conv_plain(mq, wq, bq, causal_q, dt)
         k = temporal_conv_plain(mk, wk, bk, causal_kv, dt)
         v = temporal_conv_plain(vsrc, wv, bv, causal_kv, dt)
-        return temporal_conv_plain(_attention_core_bf16(q, k, v, is_mask, heads)[0], wo, bo,
-                                   False, dt)
+        x = _attention_core_bf16(q, k, v, is_mask, heads, dropout_mask)[0]
+        return temporal_conv_plain(x, wo, bo, False, dt)
     q = temporal_conv_plain(mq, wq, bq, causal_q, dt)
     k = temporal_conv_plain(mk, wk, bk, causal_kv, dt)
     v = temporal_conv_plain(vsrc, wv, bv, causal_kv, dt)
@@ -102,18 +116,23 @@ def fused_temporal_attention_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                        device=scores.device),
             diagonal=1,
         )
-    attn = torch.softmax(scores, dim=-1).to(dt)
-    x = torch.einsum("bnhqk,bnkhd->bnqhd", attn, v).reshape(b, n, t_q, d)
+    attn = torch.softmax(scores, dim=-1)
+    if dropout_mask is not None:
+        attn = attn * _head_major(dropout_mask, heads).transpose(2, 3)
+    x = torch.einsum("bnhqk,bnkhd->bnqhd", attn.to(dt), v).reshape(b, n, t_q, d)
     return temporal_conv_plain(x, wo, bo, False, dt)
 
 
-def _attention_core_bf16(q, k, v, is_mask: bool, heads: int):
+def _attention_core_bf16(q, k, v, is_mask: bool, heads: int, dropout_mask=None):
     """softmax(q_h k_h^T / sqrt(dh)) v_h on bfloat16 q, k, v, as the TPU
     ``_blockdiag_state`` computes it: the scores in float32 times 1/sqrt(dh),
     the mask added, the row maximum taken over every head's scores of a
     query step, the exponentials summed per head and divided in float32;
-    bf16(p) @ v accumulated in float32 and rounded to bfloat16. Returns
-    ``(x [b, n, Tq, D] bfloat16, p [b, n, Tq, H, Tk] float32)``."""
+    bf16(p) @ v accumulated in float32 and rounded to bfloat16. With a keep
+    mask m the value product takes bf16(p m), the float32 product rounded
+    once (not bf16(p) m: 1/keep is not a power of two). Returns
+    ``(x [b, n, Tq, D] bfloat16, p [b, n, Tq, H, Tk] float32)``, p before
+    dropout."""
     b, n, t_q, d = q.shape
     t_k = k.shape[-2]
     head_dim = d // heads
@@ -124,7 +143,8 @@ def _attention_core_bf16(q, k, v, is_mask: bool, heads: int):
         s = s + torch.where(above, torch.finfo(torch.float32).min, 0.0)[:, None, :]
     e = torch.exp(s - s.amax(dim=(-2, -1), keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
-    x = torch.einsum("bnqhk,bnkhd->bnqhd", p.to(torch.bfloat16).float(),
+    p_eff = p if dropout_mask is None else p * _head_major(dropout_mask, heads)
+    x = torch.einsum("bnqhk,bnkhd->bnqhd", p_eff.to(torch.bfloat16).float(),
                      v.float().reshape(b, n, t_k, heads, head_dim))
     return x.to(torch.bfloat16).reshape(b, n, t_q, d), p
 
@@ -152,15 +172,18 @@ def _conv_weight_grads_plain(x, g, k: int, causal: bool):
 
 def fused_temporal_attention_bwd_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g,
                                        causal_q: bool, causal_kv: bool, is_mask: bool,
-                                       heads: int, dtype_name: str = "float32"):
+                                       heads: int, dtype_name: str = "float32",
+                                       dropout_mask=None):
     """Plain PyTorch backward of :func:`fused_temporal_attention_plain` for
     the output cotangent ``g``: ``(dmq, dmk, dvsrc, dwq, dbq, dwk, dbk, dwv,
     dbv, dwo, dbo)``, written out as the TPU ``_bwd_kernel`` computes it
     (q, k, v and the softmax recomputed; float64 inputs stay float64). In
-    bfloat16 see :func:`_bwd_plain_bf16`."""
+    bfloat16 see :func:`_bwd_plain_bf16`. With ``dropout_mask`` m (the
+    ``_blockdiag_bwd`` of the dropout form): x_attn and dv from p m, dp
+    multiplied by m, ds from the pre-dropout p."""
     if _dt(dtype_name) == torch.bfloat16:
         return _bwd_plain_bf16(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g, causal_q,
-                               causal_kv, is_mask, heads)
+                               causal_kv, is_mask, heads, dropout_mask)
     dt = torch.promote_types(mq.dtype, torch.float32)
     mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g = (
         a.to(dt) for a in (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g))
@@ -182,11 +205,15 @@ def fused_temporal_attention_bwd_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo,
             diagonal=1,
         )
     p = torch.softmax(scores, dim=-1)
-    x_attn = torch.einsum("bnhqk,bnkhd->bnqhd", p, vh).reshape(b, n, t_q, d)
+    m = None if dropout_mask is None else _head_major(dropout_mask, heads).transpose(2, 3)
+    p_eff = p if m is None else p * m
+    x_attn = torch.einsum("bnhqk,bnkhd->bnqhd", p_eff, vh).reshape(b, n, t_q, d)
     dwo, dbo = _conv_weight_grads_plain(x_attn, g, ks, False)
     dx_attn = _tconv_bwd_input_plain(g, wo, False).reshape(b, n, t_q, heads, head_dim)
     dp = torch.einsum("bnqhd,bnkhd->bnhqk", dx_attn, vh)
-    dv = torch.einsum("bnhqk,bnqhd->bnkhd", p, dx_attn).reshape(b, n, t_k, d)
+    if m is not None:
+        dp = dp * m
+    dv = torch.einsum("bnhqk,bnqhd->bnkhd", p_eff, dx_attn).reshape(b, n, t_k, d)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dq = (torch.einsum("bnhqk,bnkhd->bnqhd", ds, kh) * inv).reshape(b, n, t_q, d)
     dk = (torch.einsum("bnhqk,bnqhd->bnkhd", ds, qh) * inv).reshape(b, n, t_k, d)
@@ -198,7 +225,7 @@ def fused_temporal_attention_bwd_plain(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo,
 
 
 def _bwd_plain_bf16(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g, causal_q: bool,
-                    causal_kv: bool, is_mask: bool, heads: int):
+                    causal_kv: bool, is_mask: bool, heads: int, dropout_mask=None):
     """The bfloat16 backward at the rounding points of the TPU
     ``_bwd_kernel`` (``dtype_name="bfloat16"``, its block-diagonal middle):
 
@@ -206,7 +233,9 @@ def _bwd_plain_bf16(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g, causal_q: b
       bf16(bf16(p) v) with the float32 p of the row maximum over every head;
     - dWo, dbo from bf16(x_attn) and bf16(g), float32 sums; dx_attn =
       bf16(g) bf16(Wo)^T summed in float32 and kept float32;
-    - dv, dp, ds, dq and dk in float32 on the float32 p;
+    - dv, dp, ds, dq and dk in float32 on the float32 p (with a keep mask
+      m: x_attn = bf16(bf16(p m) v), dv from the float32 p m, dp times m,
+      ds from the pre-dropout p);
     - dq, dk and dv rounded to bfloat16 where they enter products: the
       weight gradients (bf16(input) times the rounded gradient, the bias
       gradients summing the rounded values in float32) and the input
@@ -223,13 +252,16 @@ def _bwd_plain_bf16(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g, causal_q: b
     b, n, t_q, d = q.shape
     t_k = k.shape[-2]
     head_dim = d // heads
-    x_attn, p = _attention_core_bf16(q, k, v, is_mask, heads)
+    x_attn, p = _attention_core_bf16(q, k, v, is_mask, heads, dropout_mask)
     g = r(g)
     dwo, dbo = _conv_weight_grads_plain(x_attn.float(), g, ks, False)
     dx_attn = _tconv_bwd_input_plain(g, r(wo), False).reshape(b, n, t_q, heads, head_dim)
     qh, kh, vh = (a.float().reshape(b, n, -1, heads, head_dim) for a in (q, k, v))
-    dv = torch.einsum("bnqhk,bnqhd->bnkhd", p, dx_attn)
+    m = None if dropout_mask is None else _head_major(dropout_mask, heads)
+    dv = torch.einsum("bnqhk,bnqhd->bnkhd", p if m is None else p * m, dx_attn)
     dp = torch.einsum("bnqhd,bnkhd->bnqhk", dx_attn, vh)
+    if m is not None:
+        dp = dp * m
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * (1.0 / math.sqrt(head_dim))
     dq = torch.einsum("bnqhk,bnkhd->bnqhd", ds, kh)
     dk = torch.einsum("bnqhk,bnqhd->bnkhd", ds, qh)
@@ -245,10 +277,12 @@ def _bwd_plain_bf16(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g, causal_q: b
 
 def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                                     causal_q: bool, causal_kv: bool, is_mask: bool,
-                                    heads: int):
+                                    heads: int, dropout_mask=None):
     """The CUDA forward kernel (float32, no autograd). At D3STN's shape one
     call launches the weight-bank split and the fused kernel and counts
-    once."""
+    once. With ``dropout_mask`` (:func:`fused_temporal_attention_plain`) it
+    launches the dropout form of the D3STN kernel, which takes D3STN's
+    shape at D = 128 only, and counts under ``attn_fwd_dropout``."""
     arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo)
     if not mq.is_cuda:
         raise ValueError("fused_temporal_attention_kernel needs CUDA tensors")
@@ -273,6 +307,13 @@ def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo
             f"evenly over heads and T <= 16; got D={d}, heads={heads}, "
             f"Tq={t_q}, Tk={t_k}"
         )
+    if dropout_mask is not None:
+        _check_d3stn_shape("float32 attention dropout", mq, mk, wq, causal_q, causal_kv,
+                           is_mask, heads, "runs it at other widths")
+        if d != 128:
+            raise ValueError(f"the float32 attention dropout kernel takes D = 128 (8 heads), "
+                             f"got D={d}; attn_impl=\"xla\" runs other widths")
+        dropout_mask = _check_mask(dropout_mask, mq, mk, heads)
     lib = _build.library("attn")
     smem = lib.pxt_attn_fwd_smem_bytes(t_q, t_k, d, heads)
     if smem > 232448:
@@ -286,16 +327,18 @@ def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo
     # the D3STN kernel's split weight banks
     scratch = torch.empty(lib.pxt_attn_fwd_scratch_floats(t_q, t_k, d, heads, ks, *flags),
                           dtype=torch.float32, device=mq.device)
-    fn = lib.pxt_attn_fwd_f32
+    drop = dropout_mask is not None
+    fn = lib.pxt_attn_fwd_f32_dropout if drop else lib.pxt_attn_fwd_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
+    fn.argtypes = ([ctypes.c_void_p] * (4 if drop else 3) + [ctypes.c_int64]
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    mask_ptr = (dropout_mask.data_ptr(),) if drop else ()
     with torch.cuda.device(mq.device):
         stream = torch.cuda.current_stream(mq.device).cuda_stream
-        code = fn(ptrs, out.data_ptr(), scratch.data_ptr(), b * n, t_q, t_k, d, heads, ks,
-                  *flags, stream)
+        code = fn(ptrs, *mask_ptr, out.data_ptr(), scratch.data_ptr(), b * n, t_q, t_k, d,
+                  heads, ks, *flags, stream)
     _build.check(lib, code, "attn_fwd_kernel")
-    _build.LAUNCHES["attn_fwd"] += 1
+    _build.LAUNCHES["attn_fwd_dropout" if drop else "attn_fwd"] += 1
     return out
 
 
@@ -332,6 +375,18 @@ def _check_like(mq, acts, weights):
             raise ValueError(f"conv biases must be [{d}], got {tuple(bias.shape)}")
 
 
+def _check_mask(dropout_mask, mq, mk, heads):
+    """The keep mask ``[B, N, Tq, H*Tk]`` float32 on mq's device, contiguous."""
+    want = (*mq.shape[:3], heads * mk.shape[2])
+    if tuple(dropout_mask.shape) != want:
+        raise ValueError(f"dropout_mask must be {list(want)} (head-major), got "
+                         f"{tuple(dropout_mask.shape)}")
+    if dropout_mask.dtype != torch.float32 or dropout_mask.device != mq.device:
+        raise TypeError(f"dropout_mask must be float32 on {mq.device}, got "
+                        f"{dropout_mask.dtype} on {dropout_mask.device}")
+    return dropout_mask.contiguous()
+
+
 def _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads):
     _check_d3stn_shape("attention backward", mq, mk, wq, causal_q, causal_kv, is_mask, heads,
                        "trains it")
@@ -339,11 +394,12 @@ def _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads):
 
 def fused_temporal_attention_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                                          causal_q: bool, causal_kv: bool, is_mask: bool,
-                                         heads: int):
+                                         heads: int, dropout_mask=None):
     """The CUDA forward kernel in bfloat16 (no autograd): activations
     float32 or bfloat16, weights float32; returns bfloat16. One call
     launches the weight cast and the fused kernel (``csrc/attn_bf16.cu``)
-    and counts once."""
+    and counts once; with ``dropout_mask`` its dropout form, counted under
+    ``attn_fwd_bf16_dropout``."""
     arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo)
     if not mq.is_cuda:
         raise ValueError("fused_temporal_attention_bf16_kernel needs CUDA tensors")
@@ -356,6 +412,9 @@ def fused_temporal_attention_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, w
     b, n, t_len, d = mq.shape
     ks = wq.shape[0]
     _check_like(mq, (mk, vsrc), arrays[3:])
+    drop = dropout_mask is not None
+    if drop:
+        dropout_mask = _check_mask(dropout_mask, mq, mk, heads)
     # a bfloat16 activation converts exactly; the kernel rounds float32 ones
     arrays = [a.float().contiguous() for a in arrays]
     out = torch.empty(mq.shape, dtype=torch.bfloat16, device=mq.device)
@@ -366,28 +425,30 @@ def fused_temporal_attention_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, w
     scratch = torch.empty(4 * ks * d * d, dtype=torch.bfloat16, device=mq.device)
     lib = _build.library("attn_bf16")
     ptrs = (ctypes.c_void_p * 11)(*[a.data_ptr() for a in arrays])
-    fn = lib.pxt_attn_fwd_bf16
+    fn = lib.pxt_attn_fwd_bf16_dropout if drop else lib.pxt_attn_fwd_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * (4 if drop else 3) + [ctypes.c_int64]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    mask_ptr = (dropout_mask.data_ptr(),) if drop else ()
     with torch.cuda.device(mq.device):
         stream = torch.cuda.current_stream(mq.device).cuda_stream
-        code = fn(ptrs, out.data_ptr(), scratch.data_ptr(), rows, d, int(causal_q),
+        code = fn(ptrs, *mask_ptr, out.data_ptr(), scratch.data_ptr(), rows, d, int(causal_q),
                   int(causal_kv), int(is_mask), stream)
     _build.check(lib, code, "attn_bf16_fwd_kernel")
-    _build.LAUNCHES["attn_fwd_bf16"] += 1
+    _build.LAUNCHES["attn_fwd_bf16_dropout" if drop else "attn_fwd_bf16"] += 1
     return out
 
 
 def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g,
                                         causal_q: bool, causal_kv: bool, is_mask: bool,
-                                        heads: int):
+                                        heads: int, dropout_mask=None):
     """The CUDA backward kernels: the 11 gradients of
     :func:`fused_temporal_attention_plain` for the output cotangent ``g``, in
     float32. One call launches the weight-bank split, the q/k/v/dx_attn
     convs, the attention core, the input-gradient convs, the split
     weight-gradient products and their fixed-order sum (``csrc/attn_bwd.cu``)
-    and counts once."""
+    and counts once; with ``dropout_mask`` the core's dropout form, counted
+    under ``attn_bwd_dropout``."""
     arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g)
     if not mq.is_cuda:
         raise ValueError("fused_temporal_attention_bwd_kernel needs CUDA tensors")
@@ -397,6 +458,9 @@ def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo
     b, n, t_len, d = mq.shape
     ks = wq.shape[0]
     _check_like(mq, (mk, vsrc, g), (wq, bq, wk, bk, wv, bv, wo, bo))
+    drop = dropout_mask is not None
+    if drop:
+        dropout_mask = _check_mask(dropout_mask, mq, mk, heads)
     arrays = [a.contiguous() for a in arrays]
     bank = ks * d * d
     dw = torch.empty(4 * bank + 4 * d, dtype=torch.float32, device=mq.device)
@@ -413,16 +477,17 @@ def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo
                               dtype=torch.float32, device=mq.device)
         ptrs = (ctypes.c_void_p * 12)(*[a.data_ptr() for a in arrays])
         outs = (ctypes.c_void_p * 4)(*[a.data_ptr() for a in dacts], dw.data_ptr())
-        fn = lib.pxt_attn_bwd_f32
+        fn = lib.pxt_attn_bwd_f32_dropout if drop else lib.pxt_attn_bwd_f32
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * (4 if drop else 3) + [ctypes.c_int64]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        mask_ptr = (dropout_mask.data_ptr(),) if drop else ()
         with torch.cuda.device(mq.device):
             stream = torch.cuda.current_stream(mq.device).cuda_stream
-            code = fn(ptrs, outs, scratch.data_ptr(), rows, splits, d, int(causal_q),
+            code = fn(ptrs, *mask_ptr, outs, scratch.data_ptr(), rows, splits, d, int(causal_q),
                       int(causal_kv), int(is_mask), stream)
         _build.check(lib, code, "attn_bwd kernels")
-        _build.LAUNCHES["attn_bwd"] += 1
+        _build.LAUNCHES["attn_bwd_dropout" if drop else "attn_bwd"] += 1
     dws = [dw[i * bank : (i + 1) * bank].view(ks, d, d) for i in range(4)]
     dbs = [dw[4 * bank + i * d : 4 * bank + (i + 1) * d] for i in range(4)]
     return (*dacts, dws[0], dbs[0], dws[1], dbs[1], dws[2], dbs[2], dws[3], dbs[3])
@@ -430,7 +495,7 @@ def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo
 
 def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g,
                                              causal_q: bool, causal_kv: bool, is_mask: bool,
-                                             heads: int):
+                                             heads: int, dropout_mask=None):
     """The CUDA backward kernels in bfloat16: the 11 gradients of
     :func:`fused_temporal_attention_plain` in bfloat16 for the cotangent
     ``g``, at the rounding points of :func:`_bwd_plain_bf16`. Activations
@@ -440,7 +505,8 @@ def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, b
     product). One call launches the weight cast, the q/k/v/dx_attn convs,
     the attention core, the input-gradient convs, the split weight-gradient
     products and their fixed-order sum (``csrc/attn_bwd_bf16.cu``) and counts
-    once."""
+    once; with ``dropout_mask`` the core's dropout form, counted under
+    ``attn_bwd_bf16_dropout``."""
     if not mq.is_cuda:
         raise ValueError("fused_temporal_attention_bwd_bf16_kernel needs CUDA tensors")
     acts = (mq, mk, vsrc)
@@ -454,6 +520,9 @@ def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, b
     b, n, t_len, d = mq.shape
     ks = wq.shape[0]
     _check_like(mq, (mk, vsrc, g), weights)
+    drop = dropout_mask is not None
+    if drop:
+        dropout_mask = _check_mask(dropout_mask, mq, mk, heads)
     # a bfloat16 activation converts exactly; the kernels round float32 ones
     arrays = ([a.float().contiguous() for a in acts] + [w.contiguous() for w in weights]
               + [g.to(torch.bfloat16).contiguous()])
@@ -473,16 +542,17 @@ def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, b
                               dtype=torch.uint8, device=mq.device)
         ptrs = (ctypes.c_void_p * 12)(*[a.data_ptr() for a in arrays])
         outs = (ctypes.c_void_p * 4)(*[a.data_ptr() for a in dacts], dw.data_ptr())
-        fn = lib.pxt_attn_bwd_bf16
+        fn = lib.pxt_attn_bwd_bf16_dropout if drop else lib.pxt_attn_bwd_bf16
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * (4 if drop else 3) + [ctypes.c_int64]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        mask_ptr = (dropout_mask.data_ptr(),) if drop else ()
         with torch.cuda.device(mq.device):
             stream = torch.cuda.current_stream(mq.device).cuda_stream
-            code = fn(ptrs, outs, scratch.data_ptr(), rows, splits, d, int(causal_q),
+            code = fn(ptrs, *mask_ptr, outs, scratch.data_ptr(), rows, splits, d, int(causal_q),
                       int(causal_kv), int(is_mask), stream)
         _build.check(lib, code, "attn_bwd_bf16 kernels")
-        _build.LAUNCHES["attn_bwd_bf16"] += 1
+        _build.LAUNCHES["attn_bwd_bf16_dropout" if drop else "attn_bwd_bf16"] += 1
     dacts = [a.to(x.dtype) for a, x in zip(dacts, acts)]
     dws = [dw[i * bank : (i + 1) * bank].view(ks, d, d) for i in range(4)]
     dbs = [dw[4 * bank + i * d : 4 * bank + (i + 1) * d] for i in range(4)]
@@ -556,6 +626,19 @@ class _FusedTemporalAttentionBf16(torch.autograd.Function):
         return (*grads, None, None, None, None, None)
 
 
+def _use_kernel(mq, impl: str, dtype_name: str) -> bool:
+    """Whether ``impl`` ("auto", "xla", "pallas") takes the kernels for mq."""
+    if impl not in _IMPLS:
+        raise ValueError(f"impl={impl!r} not in {_IMPLS}")
+    kernel = impl == "pallas" or (impl == "auto" and mq.is_cuda)
+    if kernel and not mq.is_cuda:
+        raise ValueError("attn_impl='pallas' needs CUDA tensors (the kernel runs on the card)")
+    if kernel and dtype_name not in ("float32", "bfloat16"):
+        raise NotImplementedError(
+            f"the attention kernels take float32 or bfloat16, not {dtype_name!r}")
+    return kernel
+
+
 def fused_temporal_attention(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                              causal_q: bool, causal_kv: bool, is_mask: bool,
                              heads: int, dtype_name: str = "float32",
@@ -565,15 +648,8 @@ def fused_temporal_attention(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
     ("auto", "xla", "pallas"). In bfloat16 with gradients both routes go
     through :class:`_FusedTemporalAttentionBf16`, whose backward follows the
     TPU kernel's rounding points."""
-    if impl not in _IMPLS:
-        raise ValueError(f"impl={impl!r} not in {_IMPLS}")
     args = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, causal_q, causal_kv, is_mask, heads)
-    kernel = impl == "pallas" or (impl == "auto" and mq.is_cuda)
-    if kernel and not mq.is_cuda:
-        raise ValueError("attn_impl='pallas' needs CUDA tensors (the kernel runs on the card)")
-    if kernel and dtype_name not in ("float32", "bfloat16"):
-        raise NotImplementedError(
-            f"the attention kernels take float32 or bfloat16, not {dtype_name!r}")
+    kernel = _use_kernel(mq, impl, dtype_name)
     training = torch.is_grad_enabled() and any(a.requires_grad for a in args[:11])
     if dtype_name == "bfloat16" and training:
         if kernel:
@@ -588,3 +664,58 @@ def fused_temporal_attention(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
         return fused_temporal_attention_kernel(*args)  # no autograd node
     _check_bwd_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads)
     return _FusedTemporalAttention.apply(*args)
+
+
+class _FusedTemporalAttentionDropout(torch.autograd.Function):
+    """The block with a keep mask (``_vjp_fwd_dropout``/``_vjp_bwd_dropout``
+    of the JAX file): the mask is saved and replayed in the backward and
+    gets no gradient. On the card the dropout forms of K4 and K5
+    (``kernel``), elsewhere their plain versions; in float32 or bfloat16.
+    Gradients go out in their inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, dropout_mask, causal_q,
+                causal_kv, is_mask, heads, dtype_name, kernel):
+        ctx.save_for_backward(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, dropout_mask)
+        ctx.statics = (causal_q, causal_kv, is_mask, heads)
+        ctx.dtype_name, ctx.kernel = dtype_name, kernel
+        args = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, causal_q, causal_kv, is_mask, heads)
+        if not kernel:
+            return fused_temporal_attention_plain(*args, dtype_name, dropout_mask)
+        if dtype_name == "bfloat16":
+            return fused_temporal_attention_bf16_kernel(*args, dropout_mask)
+        return fused_temporal_attention_kernel(*args, dropout_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        *saved, dropout_mask = ctx.saved_tensors
+        if not ctx.kernel:
+            grads = fused_temporal_attention_bwd_plain(*saved, g, *ctx.statics, ctx.dtype_name,
+                                                       dropout_mask)
+        elif ctx.dtype_name == "bfloat16":
+            grads = fused_temporal_attention_bwd_bf16_kernel(*saved, g, *ctx.statics,
+                                                             dropout_mask)
+        else:
+            grads = fused_temporal_attention_bwd_kernel(*saved, g, *ctx.statics, dropout_mask)
+        grads = [a.to(x.dtype) for a, x in zip(grads, saved)]
+        return (*grads, None, None, None, None, None, None, None)
+
+
+def fused_temporal_attention_dropout(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
+                                     dropout_mask, causal_q: bool, causal_kv: bool,
+                                     is_mask: bool, heads: int, dtype_name: str = "float32",
+                                     impl: str = "auto"):
+    """:func:`fused_temporal_attention` with attention-weight dropout (the
+    JAX ``fused_temporal_attention_dropout``). ``dropout_mask`` ``[B, N, Tq,
+    H*Tk]`` float32 holds the pre-scaled keep weights {0, 1/keep}, head h in
+    columns [h*Tk, (h+1)*Tk); the caller draws it, the forward multiplies
+    the softmax weights by it and the backward replays it. On the card the
+    kernels take D3STN's shapes (float32 at D = 128 only); other shapes
+    raise a ``ValueError`` naming ``attn_impl="xla"``."""
+    kernel = _use_kernel(mq, impl, dtype_name)
+    arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo)
+    if kernel and torch.is_grad_enabled() and any(a.requires_grad for a in arrays):
+        _check_d3stn_shape("attention dropout backward", mq, mk, wq, causal_q, causal_kv,
+                           is_mask, heads, "trains other shapes")
+    return _FusedTemporalAttentionDropout.apply(*arrays, dropout_mask, causal_q, causal_kv,
+                                                is_mask, heads, dtype_name, kernel)

@@ -14,7 +14,14 @@
 // (K-1)/2 (same), and heads split the D features into H groups of dh.
 //
 // The TPU kernel's blockdiag/selector middle, [T, C] layout and VMEM tile
-// caps are Mosaic workarounds and are not carried over. No dropout input.
+// caps are Mosaic workarounds and are not carried over.
+//
+// Dropout form (the TPU _fwd_kernel with has_dropout=True, reached through
+// fused_temporal_attention_dropout): a float32 keep mask m [rows, T, H*T],
+// pre-scaled {0, 1/keep} and head-major, multiplies the row softmax, p m
+// (the float32 product), before the value product. It is the DROP
+// instantiation of attn_fwd_d3stn_kernel (entry pxt_attn_fwd_f32_dropout);
+// the generic kernel has no dropout form.
 //
 // D3STN's shape (T = 12, D = 128, H = 8, K = 3; every configuration the
 // repo ships at D = 128) and its three flag sets take attn_fwd_d3stn_kernel.
@@ -264,9 +271,11 @@ __global__ void attn_fwd_wsplit_kernel(const float* __restrict__ wq, const float
 }
 
 // scores of the tile's q (s.a) and k (s.b) per (row, head, query step),
-// scaled and masked, and their row softmax -> s.p
-template <bool MASK>
-__device__ __forceinline__ void softmax_rows(Smem& s) {
+// scaled and masked, and their row softmax -> s.p; with DROP times the keep
+// mask's row of (row, query step, head), dm[row][i][h T + j]
+template <bool MASK, bool DROP>
+__device__ __forceinline__ void softmax_rows(Smem& s, const float* __restrict__ dm,
+                                             int64_t row0, int n_rows) {
   const float scale = 1.f / sqrtf((float)DH);
   for (int item = threadIdx.x; item < ROWS * H * T; item += G::THREADS) {
     const int i = item % T;
@@ -307,9 +316,16 @@ __device__ __forceinline__ void softmax_rows(Smem& s) {
     }
     float* prow = &s.p[r][h][i][0];
 #pragma unroll
-    for (int j = 0; j < T; j += 4)
-      *reinterpret_cast<float4*>(prow + j) =
-          make_float4(row[j] / sum, row[j + 1] / sum, row[j + 2] / sum, row[j + 3] / sum);
+    for (int j = 0; j < T; j += 4) {
+      float4 p = make_float4(row[j] / sum, row[j + 1] / sum, row[j + 2] / sum, row[j + 3] / sum);
+      if (DROP) {
+        float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < n_rows)
+          m = __ldg(reinterpret_cast<const float4*>(dm + ((row0 + r) * T + i) * (H * T) + h * T + j));
+        p = make_float4(p.x * m.x, p.y * m.y, p.z * m.z, p.w * m.w);
+      }
+      *reinterpret_cast<float4*>(prow + j) = p;
+    }
   }
 }
 
@@ -333,13 +349,13 @@ __device__ __forceinline__ void apply_p(Smem& s) {
   }
 }
 
-template <bool CQ, bool CKV, bool MASK>
+template <bool CQ, bool CKV, bool MASK, bool DROP>
 __global__ void __launch_bounds__(G::THREADS, 1)
 attn_fwd_d3stn_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
                       const float* __restrict__ vs, const float* __restrict__ ws,
                       const float* __restrict__ bq, const float* __restrict__ bk,
                       const float* __restrict__ bv, const float* __restrict__ bo,
-                      float* __restrict__ out, int64_t rows) {
+                      const float* __restrict__ dm, float* __restrict__ out, int64_t rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   constexpr int PAD_SAME = (K - 1) / 2;
@@ -357,7 +373,7 @@ attn_fwd_d3stn_kernel(const float* __restrict__ mq, const float* __restrict__ mk
   tc::conv<D, ROWS>(s.b, ws + BANK, s.w, PKV, acc);
   tc::store_tile<D, ROWS>(s.b, acc, bk);
   __syncthreads();
-  softmax_rows<MASK>(s);
+  softmax_rows<MASK, DROP>(s, dm, row0, n_rows);
   __syncthreads();
   tc::stage<D, ROWS>(s.a, vs, row0, n_rows);
   __syncthreads();
@@ -370,21 +386,22 @@ attn_fwd_d3stn_kernel(const float* __restrict__ mq, const float* __restrict__ mk
   tc::store_global<D, ROWS>(out, row0, n_rows, acc, bo);
 }
 
-template <bool CQ, bool CKV, bool MASK>
-int launch(const void* const* p, void* out, float* ws, int64_t rows, cudaStream_t stream) {
+template <bool CQ, bool CKV, bool MASK, bool DROP>
+int launch(const void* const* p, const float* dm, void* out, float* ws, int64_t rows,
+           cudaStream_t stream) {
   constexpr int64_t W = (int64_t)K * D * D;
   attn_fwd_wsplit_kernel<<<(unsigned)((4 * W + 255) / 256), 256, 0, stream>>>(
       (const float*)p[3], (const float*)p[5], (const float*)p[7], (const float*)p[9], ws);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int smem = (int)sizeof(Smem);
-  err = cudaFuncSetAttribute(attn_fwd_d3stn_kernel<CQ, CKV, MASK>,
+  err = cudaFuncSetAttribute(attn_fwd_d3stn_kernel<CQ, CKV, MASK, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (rows + ROWS - 1) / ROWS;
-  attn_fwd_d3stn_kernel<CQ, CKV, MASK><<<(unsigned)blocks, G::THREADS, smem, stream>>>(
+  attn_fwd_d3stn_kernel<CQ, CKV, MASK, DROP><<<(unsigned)blocks, G::THREADS, smem, stream>>>(
       (const float*)p[0], (const float*)p[1], (const float*)p[2], ws, (const float*)p[4],
-      (const float*)p[6], (const float*)p[8], (const float*)p[10], (float*)out, rows);
+      (const float*)p[6], (const float*)p[8], (const float*)p[10], dm, (float*)out, rows);
   return (int)cudaGetLastError();
 }
 
@@ -397,11 +414,12 @@ bool covers(int tq, int tk, int d, int heads, int ks, int causal_q, int causal_k
          (causal_q && !causal_kv && !is_mask);
 }
 
-int dispatch(const void* const* p, void* out, float* ws, int64_t rows, int causal_q,
-             int causal_kv, cudaStream_t stream) {
-  if (!causal_q) return launch<false, false, false>(p, out, ws, rows, stream);
-  if (causal_kv) return launch<true, true, true>(p, out, ws, rows, stream);
-  return launch<true, false, false>(p, out, ws, rows, stream);
+template <bool DROP>
+int dispatch(const void* const* p, const float* dm, void* out, float* ws, int64_t rows,
+             int causal_q, int causal_kv, cudaStream_t stream) {
+  if (!causal_q) return launch<false, false, false, DROP>(p, dm, out, ws, rows, stream);
+  if (causal_kv) return launch<true, true, true, DROP>(p, dm, out, ws, rows, stream);
+  return launch<true, false, false, DROP>(p, dm, out, ws, rows, stream);
 }
 
 }  // namespace fast
@@ -431,13 +449,25 @@ extern "C" int pxt_attn_fwd_f32(const void* const* p, void* out, void* scratch, 
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (fast::covers(tq, tk, d, heads, ks, causal_q, causal_kv, is_mask))
-    return fast::dispatch(p, out, (float*)scratch, rows, causal_q, causal_kv, s);
+    return fast::dispatch<false>(p, nullptr, out, (float*)scratch, rows, causal_q, causal_kv, s);
   const int smem = pxt_attn_fwd_smem_bytes(tq, tk, d, heads);
   if (tq <= 12 && tk <= 12)
     return launch<12>(p, out, rows, tq, tk, d, heads, ks, causal_q, causal_kv,
                       is_mask, smem, s);
   return launch<16>(p, out, rows, tq, tk, d, heads, ks, causal_q, causal_kv,
                     is_mask, smem, s);
+}
+
+// the dropout form at D3STN's shape only; dmask: float32 [rows, 12, 8 * 12]
+extern "C" int pxt_attn_fwd_f32_dropout(const void* const* p, const void* dmask, void* out,
+                                        void* scratch, int64_t rows, int tq, int tk, int d,
+                                        int heads, int ks, int causal_q, int causal_kv,
+                                        int is_mask, void* stream) {
+  if (!fast::covers(tq, tk, d, heads, ks, causal_q, causal_kv, is_mask))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  return fast::dispatch<true>(p, (const float*)dmask, out, (float*)scratch, rows, causal_q,
+                              causal_kv, (cudaStream_t)stream);
 }
 
 extern "C" const char* pxt_error_string(int code) {

@@ -13,6 +13,11 @@
 //   p = exp(s - max over every head of the query step) / sum over the head
 //   y = conv(bf16(bf16(p) v_h); Wo, bo, same padding)   (_blockdiag_state)
 //
+// Dropout form (has_dropout=True, entry pxt_attn_fwd_bf16_dropout, the DROP
+// instantiation): a float32 keep mask m [rows, T, H*T], pre-scaled {0,
+// 1/keep} and head-major, enters at the softmax: the value product takes
+// bf16(p m), the float32 product rounded once (not bf16(p) m).
+//
 // Activations float32 (what D3STN passes) or bfloat16 converted by the
 // caller; y bfloat16. Shapes: T = 12, K = 3, head dim 16, D = 128 (8 heads)
 // or 64 (4 heads), D3STN's three flag sets.
@@ -164,9 +169,11 @@ __device__ __forceinline__ void scores(Smem<D>& s) {
   }
 }
 
-// p = bf16(exp(s - max over the query step's heads) / sum over the head)
-template <int D>
-__device__ __forceinline__ void softmax(Smem<D>& s) {
+// p = bf16(exp(s - max over the query step's heads) / sum over the head);
+// with DROP bf16(p m), m the keep mask's row dm[row][i][h T .. h T + T)
+template <int D, bool DROP>
+__device__ __forceinline__ void softmax(Smem<D>& s, const float* __restrict__ dm, int64_t row0,
+                                        int n_rows) {
   constexpr int H = Geo<D>::H;
   for (int item = threadIdx.x; item < ROWS * H * T; item += THREADS) {
     const int i = item % T;
@@ -184,8 +191,24 @@ __device__ __forceinline__ void softmax(Smem<D>& s) {
       sum += e[j];
     }
     const float rsum = __frcp_rn(sum);
+    if (DROP) {
+      float m[T];
 #pragma unroll
-    for (int j = 0; j < T; ++j) row[j] = tc16::round_bf16(tc16::div_rn(e[j], sum, rsum));
+      for (int j = 0; j < T; ++j) m[j] = 0.f;
+      if (r < n_rows) {
+        const float* mrow = dm + ((row0 + r) * T + i) * (H * T) + h * T;
+#pragma unroll
+        for (int j = 0; j < T; j += 4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(mrow + j));
+          m[j] = v.x; m[j + 1] = v.y; m[j + 2] = v.z; m[j + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < T; ++j) row[j] = tc16::round_bf16(tc16::div_rn(e[j], sum, rsum) * m[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < T; ++j) row[j] = tc16::round_bf16(tc16::div_rn(e[j], sum, rsum));
+    }
   }
 }
 
@@ -210,13 +233,13 @@ __device__ __forceinline__ void apply_p(Smem<D>& s) {
   }
 }
 
-template <int D, bool CQ, bool CKV, bool MASK>
+template <int D, bool CQ, bool CKV, bool MASK, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bf16_fwd_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
                      const float* __restrict__ vs, const uint16_t* __restrict__ ws,
                      const float* __restrict__ bq, const float* __restrict__ bk,
                      const float* __restrict__ bv, const float* __restrict__ bo,
-                     uint16_t* __restrict__ out, int64_t rows) {
+                     const float* __restrict__ dm, uint16_t* __restrict__ out, int64_t rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<D>& s = *reinterpret_cast<Smem<D>*>(smem_raw);
   constexpr int BANK = Geo<D>::BANK;
@@ -237,7 +260,7 @@ attn_bf16_fwd_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
   __syncthreads();
   scores<D, MASK>(s);
   __syncthreads();
-  softmax<D>(s);
+  softmax<D, DROP>(s, dm, row0, n_rows);
   stage<D>(s.a, vs, row0, n_rows);  // q is done with
   __syncthreads();
   conv<D>(s.a, ws + 2 * BANK, s.w, PKV, acc);
@@ -252,32 +275,36 @@ attn_bf16_fwd_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
   });
 }
 
-template <int D, bool CQ, bool CKV, bool MASK>
-int launch(const void* const* p, void* out, uint16_t* ws, int64_t rows, cudaStream_t stream) {
+template <int D, bool CQ, bool CKV, bool MASK, bool DROP>
+int launch(const void* const* p, const float* dm, void* out, uint16_t* ws, int64_t rows,
+           cudaStream_t stream) {
   constexpr int W = Geo<D>::BANK;
   attn_bf16_wcast_kernel<D><<<(4 * W + 255) / 256, 256, 0, stream>>>(
       (const float*)p[3], (const float*)p[5], (const float*)p[7], (const float*)p[9], ws);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int smem = (int)sizeof(Smem<D>);
-  err = cudaFuncSetAttribute(attn_bf16_fwd_kernel<D, CQ, CKV, MASK>,
+  err = cudaFuncSetAttribute(attn_bf16_fwd_kernel<D, CQ, CKV, MASK, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (rows + ROWS - 1) / ROWS;
-  attn_bf16_fwd_kernel<D, CQ, CKV, MASK><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  attn_bf16_fwd_kernel<D, CQ, CKV, MASK, DROP><<<(unsigned)blocks, THREADS, smem, stream>>>(
       (const float*)p[0], (const float*)p[1], (const float*)p[2], ws, (const float*)p[4],
-      (const float*)p[6], (const float*)p[8], (const float*)p[10], (uint16_t*)out, rows);
+      (const float*)p[6], (const float*)p[8], (const float*)p[10], dm, (uint16_t*)out, rows);
   return (int)cudaGetLastError();
 }
 
 // D3STN's three flag sets: encoder self-attention, decoder masked
 // self-attention, decoder source attention
-template <int D>
-int dispatch(const void* const* p, void* out, uint16_t* ws, int64_t rows, int causal_q,
-             int causal_kv, int is_mask, cudaStream_t stream) {
-  if (!causal_q && !causal_kv && !is_mask) return launch<D, false, false, false>(p, out, ws, rows, stream);
-  if (causal_q && causal_kv && is_mask) return launch<D, true, true, true>(p, out, ws, rows, stream);
-  if (causal_q && !causal_kv && !is_mask) return launch<D, true, false, false>(p, out, ws, rows, stream);
+template <int D, bool DROP>
+int dispatch(const void* const* p, const float* dm, void* out, uint16_t* ws, int64_t rows,
+             int causal_q, int causal_kv, int is_mask, cudaStream_t stream) {
+  if (!causal_q && !causal_kv && !is_mask)
+    return launch<D, false, false, false, DROP>(p, dm, out, ws, rows, stream);
+  if (causal_q && causal_kv && is_mask)
+    return launch<D, true, true, true, DROP>(p, dm, out, ws, rows, stream);
+  if (causal_q && !causal_kv && !is_mask)
+    return launch<D, true, false, false, DROP>(p, dm, out, ws, rows, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -291,8 +318,21 @@ extern "C" int pxt_attn_fwd_bf16(const void* const* p, void* out, void* scratch,
   if (rows == 0) return 0;
   uint16_t* ws = (uint16_t*)scratch;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128) return dispatch<128>(p, out, ws, rows, causal_q, causal_kv, is_mask, s);
-  if (d == 64) return dispatch<64>(p, out, ws, rows, causal_q, causal_kv, is_mask, s);
+  if (d == 128) return dispatch<128, false>(p, nullptr, out, ws, rows, causal_q, causal_kv, is_mask, s);
+  if (d == 64) return dispatch<64, false>(p, nullptr, out, ws, rows, causal_q, causal_kv, is_mask, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the dropout form; dmask: float32 [rows, 12, (d / 16) * 12]
+extern "C" int pxt_attn_fwd_bf16_dropout(const void* const* p, const void* dmask, void* out,
+                                         void* scratch, int64_t rows, int d, int causal_q,
+                                         int causal_kv, int is_mask, void* stream) {
+  if (rows == 0) return 0;
+  uint16_t* ws = (uint16_t*)scratch;
+  const float* dm = (const float*)dmask;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 128) return dispatch<128, true>(p, dm, out, ws, rows, causal_q, causal_kv, is_mask, s);
+  if (d == 64) return dispatch<64, true>(p, dm, out, ws, rows, causal_q, causal_kv, is_mask, s);
   return (int)cudaErrorInvalidValue;
 }
 

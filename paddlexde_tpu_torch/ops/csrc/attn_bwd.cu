@@ -56,6 +56,14 @@
 // q, k, v and dx_attn go through device memory instead (4 x 2 x 33 MB at
 // PEMS08, batch 32), as do x_attn, dq, dk and dv for the weight gradients.
 //
+// Dropout form (the TPU _bwd_kernel with has_dropout=True, the backward of
+// fused_temporal_attention_dropout; entry pxt_attn_bwd_f32_dropout): the
+// keep mask m [rows, T, H*T] (float32, pre-scaled {0, 1/keep}, head-major)
+// enters only the core, the DROP instantiation of attn_bwd_core_kernel,
+// which stages each row's m in shared memory: x_attn = (p m) v, dv_h =
+// (p m)^T dx_attn_h, dp = (dx_attn_h v_h^T) m, and ds from the pre-dropout
+// p. The convs and the weight gradients are the same kernels.
+//
 // The TPU kernel zeroes the weight gradients at program (0, 0) and adds to
 // them with += across its sequential grid. Here each partial is written
 // once and summed in a fixed order: no atomics, the same bits from run to
@@ -174,11 +182,18 @@ __device__ __forceinline__ float head_sum(float v) {
   return v;
 }
 
-template <int D, bool MASK>
+// the keep masks of the core's rows with DROP, after CoreSmem: [CW][H][T][T]
+template <int D, bool DROP>
+constexpr int core_smem_bytes() {
+  return (int)sizeof(CoreSmem<D>) + (DROP ? CW * (D / DH) * T * T * (int)sizeof(float) : 0);
+}
+
+template <int D, bool MASK, bool DROP>
 __global__ void __launch_bounds__(CW * 32)
-attn_bwd_core_kernel(CoreArgs io, int64_t rows) {
+attn_bwd_core_kernel(CoreArgs io, const float* __restrict__ dm, int64_t rows) {
   constexpr int FPL = D / 32;
   constexpr int LPH = DH / FPL;  // lanes per head
+  constexpr int H = D / DH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   CoreSmem<D>& s = *reinterpret_cast<CoreSmem<D>*>(smem_raw);
   const int warp = threadIdx.x >> 5;
@@ -191,6 +206,13 @@ attn_bwd_core_kernel(CoreArgs io, int64_t rows) {
   float (*st)[D] = s.v[warp];
   float (*sp)[T][T] = s.p[warp];
   float (*sdp)[T][T] = s.dp[warp];
+  // the row's keep mask as [head][query step][key step]
+  float (*smk)[T][T] =
+      reinterpret_cast<float (*)[T][T]>(smem_raw + sizeof(CoreSmem<D>)) + warp * H;
+  if (DROP) {
+    for (int u = lane; u < T * H * T; u += 32)
+      smk[(u / T) % H][u / (H * T)][u % T] = live ? __ldg(dm + row * (T * H * T) + u) : 0.f;
+  }
 
   float q[T][FPL], k[T][FPL], a[T][FPL];
 #pragma unroll
@@ -236,7 +258,8 @@ attn_bwd_core_kernel(CoreArgs io, int64_t rows) {
   }
   __syncwarp();
 
-  // x_attn = P V (the out conv's input, for its weight gradient)
+  // x_attn = P V (the out conv's input, for its weight gradient); with
+  // DROP (P m) V
   if (live) {
 #pragma unroll
     for (int tq = 0; tq < T; ++tq) {
@@ -247,7 +270,7 @@ attn_bwd_core_kernel(CoreArgs io, int64_t rows) {
       for (int tk = 0; tk < T; ++tk) {
         float vv[FPL];
         ldv(&st[tk][lane * FPL], vv);
-        const float pw = sp[head][tq][tk];
+        const float pw = DROP ? sp[head][tq][tk] * smk[head][tq][tk] : sp[head][tq][tk];
 #pragma unroll
         for (int e = 0; e < FPL; ++e) o[e] = fmaf(pw, vv[e], o[e]);
       }
@@ -255,7 +278,7 @@ attn_bwd_core_kernel(CoreArgs io, int64_t rows) {
     }
   }
 
-  // dP = dx_attn V^T per head
+  // dP = dx_attn V^T per head; with DROP dP m
 #pragma unroll
   for (int tk = 0; tk < T; ++tk) {
     float vv[FPL];
@@ -266,10 +289,10 @@ attn_bwd_core_kernel(CoreArgs io, int64_t rows) {
 #pragma unroll
       for (int e = 0; e < FPL; ++e) d = fmaf(a[tq][e], vv[e], d);
       d = head_sum<LPH>(d);
-      if (qd == 0) sdp[head][tq][tk] = d;
+      if (qd == 0) sdp[head][tq][tk] = DROP ? d * smk[head][tq][tk] : d;
     }
   }
-  // dV = P^T dx_attn
+  // dV = P^T dx_attn; with DROP (P m)^T dx_attn
   if (live) {
 #pragma unroll
     for (int tk = 0; tk < T; ++tk) {
@@ -278,7 +301,7 @@ attn_bwd_core_kernel(CoreArgs io, int64_t rows) {
       for (int e = 0; e < FPL; ++e) o[e] = 0.f;
 #pragma unroll
       for (int tq = 0; tq < T; ++tq) {
-        const float pw = sp[head][tq][tk];
+        const float pw = DROP ? sp[head][tq][tk] * smk[head][tq][tk] : sp[head][tq][tk];
 #pragma unroll
         for (int e = 0; e < FPL; ++e) o[e] = fmaf(pw, a[tq][e], o[e]);
       }
@@ -508,9 +531,20 @@ int64_t scratch_floats(int64_t rows, int splits) {
   return 14 * (int64_t)K * D * D + 8 * rows * T * D + splits * (4 * (int64_t)K * D * D + 4 * D);
 }
 
-template <int D>
-int launch(const void* const* p, void* const* out, float* scratch, int64_t rows, int splits,
-           int causal_q, int causal_kv, cudaStream_t stream) {
+template <int D, bool MASK, bool DROP>
+int launch_core(const CoreArgs& io, const float* dm, int64_t rows, cudaStream_t stream) {
+  constexpr int smem = core_smem_bytes<D, DROP>();
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_core_kernel<D, MASK, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_core_kernel<D, MASK, DROP><<<(unsigned)((rows + CW - 1) / CW), CW * 32, smem,
+                                        stream>>>(io, dm, rows);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool DROP>
+int launch(const void* const* p, const float* dm, void* const* out, float* scratch,
+           int64_t rows, int splits, int causal_q, int causal_kv, cudaStream_t stream) {
   constexpr int64_t BANK = tc::Bank<D>::SIZE;  // 2 K D^2 floats
   constexpr int64_t W = (int64_t)K * D * D;
   const int64_t act = rows * T * D;
@@ -551,22 +585,10 @@ int launch(const void* const* p, void* const* out, float* scratch, int64_t rows,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int core_smem = (int)sizeof(CoreSmem<D>);
-  const unsigned core_blocks = (unsigned)((rows + CW - 1) / CW);
   CoreArgs io = {q, k, v, dxa, xatt, dq, dk, dv};
-  if (causal_q && causal_kv) {
-    err = cudaFuncSetAttribute(attn_bwd_core_kernel<D, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem);
-    if (err != cudaSuccess) return (int)err;
-    attn_bwd_core_kernel<D, true><<<core_blocks, CW * 32, core_smem, stream>>>(io, rows);
-  } else {
-    err = cudaFuncSetAttribute(attn_bwd_core_kernel<D, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem);
-    if (err != cudaSuccess) return (int)err;
-    attn_bwd_core_kernel<D, false><<<core_blocks, CW * 32, core_smem, stream>>>(io, rows);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int core_err = causal_q && causal_kv ? launch_core<D, true, DROP>(io, dm, rows, stream)
+                                             : launch_core<D, false, DROP>(io, dm, rows, stream);
+  if (core_err != 0) return core_err;
 
   ConvJobs bwd = {{dq, dk, dv, nullptr},
                   {wt + 4 * BANK, wt + 5 * BANK, wt + 6 * BANK, nullptr},
@@ -618,8 +640,24 @@ extern "C" int pxt_attn_bwd_f32(const void* const* p, void* const* out, void* sc
   if (rows <= 0 || splits <= 0 || !flags_ok(causal_q, causal_kv, is_mask))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128) return launch<128>(p, out, (float*)scratch, rows, splits, causal_q, causal_kv, s);
-  if (d == 64) return launch<64>(p, out, (float*)scratch, rows, splits, causal_q, causal_kv, s);
+  float* sc = (float*)scratch;
+  if (d == 128) return launch<128, false>(p, nullptr, out, sc, rows, splits, causal_q, causal_kv, s);
+  if (d == 64) return launch<64, false>(p, nullptr, out, sc, rows, splits, causal_q, causal_kv, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the dropout form; dmask: float32 [rows, 12, (d / 16) * 12]
+extern "C" int pxt_attn_bwd_f32_dropout(const void* const* p, const void* dmask,
+                                        void* const* out, void* scratch, int64_t rows,
+                                        int splits, int d, int causal_q, int causal_kv,
+                                        int is_mask, void* stream) {
+  if (rows <= 0 || splits <= 0 || !flags_ok(causal_q, causal_kv, is_mask))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* sc = (float*)scratch;
+  const float* dm = (const float*)dmask;
+  if (d == 128) return launch<128, true>(p, dm, out, sc, rows, splits, causal_q, causal_kv, s);
+  if (d == 64) return launch<64, true>(p, dm, out, sc, rows, splits, causal_q, causal_kv, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,6 +14,8 @@ autograd; ``impl="xla"`` picks the plain version on any device and
 forward in bfloat16 (``csrc/gcn_bf16.cu`` on the card) and the backward as
 the TPU kernel does in bfloat16: the float32 backward on the float32 values
 of x and of the bfloat16 cotangent (``csrc/gcn_bwd.cu`` on the card).
+:func:`gcn_spatial_mix_dropout` is the mix with dropout on the scores, which
+the JAX model runs as XLA ops and never as a kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from . import _build
 
 __all__ = [
     "gcn_spatial_mix",
+    "gcn_spatial_mix_dropout",
     "gcn_spatial_mix_plain",
     "gcn_spatial_mix_kernel",
     "gcn_spatial_mix_bf16_kernel",
@@ -60,6 +63,28 @@ def gcn_spatial_mix_plain(x, gate, scale2: float = 1.0, dtype_name: str = "float
     score = torch.softmax(score.to(torch.promote_types(dt, torch.float32)), dim=-1) * scale2
     adj = score.to(dt) * gate.to(dt)
     return torch.einsum("btnm,bmtd->bntd", adj, x.to(dt))
+
+
+def gcn_spatial_mix_dropout(x, gate, scale2: float, keep_mask, keep: float,
+                            dtype_name: str = "float32"):
+    """The mix with dropout on the softmax scores, as the JAX model's XLA
+    form computes it (``SpatialAttentionGCN`` with dropout active; its
+    kernel has no dropout form in either package): the float32 scores of x
+    over sqrt(D) and their softmax; ``select(keep_mask [B, T, N, N],
+    p / keep, 0)`` in float32; times ``scale2``; a = score * gate in the
+    compute dtype (in bfloat16 both rounded and their product rounded); then
+    a @ x, in bfloat16 on the rounded values with a float32 sum rounded
+    once (the TPU's sum; as plain PyTorch on the card as elsewhere).
+    Differentiable by autograd."""
+    xf = x.float()
+    score = torch.softmax(torch.einsum("bntd,bmtd->btnm", xf, xf) / math.sqrt(x.shape[-1]),
+                          dim=-1)
+    score = torch.where(keep_mask, score / torch.full((), keep, device=x.device), 0.0) * scale2
+    if _dt(dtype_name) == torch.bfloat16:
+        bf = torch.bfloat16
+        a = score.to(bf) * gate.to(bf)
+        return torch.einsum("btnm,bmtd->bntd", a.float(), x.to(bf).float()).to(bf)
+    return torch.einsum("btnm,bmtd->bntd", score * gate, xf)
 
 
 def gcn_spatial_mix_bwd_plain(x, gate, g, scale2: float = 1.0):

@@ -157,18 +157,24 @@ def gcn_work(b: int, n: int, t_len: int, d: int, x_bytes: int = 4, y_bytes: int 
                 scores if x_bytes == 4 else 0.0)
 
 
+def _mask_bytes(b: int, n: int, t_len: int, heads: int, dropout: bool) -> int:
+    """The float32 keep mask ``[B, N, T, H*T]`` of a dropout form, read once."""
+    return 4 * b * n * t_len * heads * t_len if dropout else 0
+
+
 def attn_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int, in_bytes: int = 4,
-              out_bytes: int = 4) -> Work:
+              out_bytes: int = 4, dropout: bool = False) -> Work:
     """One attention forward: three inputs (``in_bytes`` per element) and
     four float32 conv weights read, the output (``out_bytes``) written; per
     (b, n) row four K-tap convs (the products), the scores, softmax and P.V
-    of the attention core."""
+    of the attention core. ``dropout``: the keep mask read and its H T^2
+    multiplies per row."""
     dh = d // heads
     conv = 4 * 2 * ks * d * d * t_len
-    core = 4 * heads * t_len * t_len * dh + 3 * heads * t_len * t_len
+    core = 4 * heads * t_len * t_len * dh + (4 if dropout else 3) * heads * t_len * t_len
     act = b * n * t_len * d
-    return Work((3 * in_bytes + out_bytes) * act + 4 * 4 * (ks * d * d + d), b * n * conv,
-                b * n * core)
+    return Work((3 * in_bytes + out_bytes) * act + 4 * 4 * (ks * d * d + d)
+                + _mask_bytes(b, n, t_len, heads, dropout), b * n * conv, b * n * core)
 
 
 def gcn_bwd_work(b: int, n: int, t_len: int, d: int, g_bytes: int = 4) -> Work:
@@ -184,7 +190,7 @@ def gcn_bwd_work(b: int, n: int, t_len: int, d: int, g_bytes: int = 4) -> Work:
 
 
 def attn_bwd_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int, in_bytes: int = 4,
-                  g_bytes: int = 4) -> Work:
+                  g_bytes: int = 4, dropout: bool = False) -> Work:
     """One attention backward: mq, mk, vsrc (``in_bytes`` per element), g
     (``g_bytes``) and the four convs' float32 weights read; dmq, dmk, dvsrc
     (in their inputs' dtypes) and the float32 weight gradients written. Per
@@ -193,10 +199,11 @@ def attn_bwd_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int, in_by
     weight gradients) and the attention core (scores and P.V recomputed, dP,
     dV, dQ, dK) with its softmax backward. In bfloat16 the products have
     bfloat16 operands (bfloat16 rate) and the core stays float32 (CUDA
-    cores)."""
+    cores). ``dropout``: the keep mask read and its three H T^2 multiplies
+    per row (p m for x_attn and for dV, dP m)."""
     dh = d // heads
     conv = 11 * 2 * ks * d * d * t_len
-    core = 12 * heads * t_len * t_len * dh + 8 * heads * t_len * t_len
+    core = 12 * heads * t_len * t_len * dh + (11 if dropout else 8) * heads * t_len * t_len
     act = b * n * t_len * d
-    return Work((6 * in_bytes + g_bytes) * act + 4 * 8 * (ks * d * d + d), b * n * conv,
-                b * n * core)
+    return Work((6 * in_bytes + g_bytes) * act + 4 * 8 * (ks * d * d + d)
+                + _mask_bytes(b, n, t_len, heads, dropout), b * n * conv, b * n * core)

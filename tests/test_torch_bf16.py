@@ -331,8 +331,8 @@ def test_predictor_matches_the_pallas_route():
 
 def test_trainer_takes_a_bf16_step(tmp_path):
     """A bfloat16 Trainer on the CPU takes a step: finite loss, parameters,
-    moments and lags still float32 and moved; dropout > 0 still raises in
-    training."""
+    moments and lags still float32 and moved; with dropout > 0 too (its
+    parity with the JAX Trainer: tests/test_torch_dropout.py)."""
     rng = np.random.RandomState(0)
     data = rng.rand(300, N, 3).astype(np.float32)
     data[..., 1] = np.arange(300)[:, None] // 288 % 7
@@ -351,8 +351,12 @@ def test_trainer_takes_a_bf16_step(tmp_path):
     dropout = Trainer(D3STNConfig(**KW, save_dir=str(tmp_path / "d"), dataset_name="SYNTH",
                                   dropout=0.1), data=data, adj_matrix=adj, sc_matrix=sc,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        dropout.train_step_idx(starts, 0.5, 1e-3, 1e-2)
+    before = [t.detach().clone() for t in dropout.state_tensors()]
+    dropout.set_dropout_step(0, 0)
+    loss, align = dropout.train_step_idx(starts, 0.5, 1e-3, 1e-2)
+    assert np.isfinite(loss.item()) and np.isfinite(align.item())
+    assert all(t.dtype == torch.float32 for t in dropout.state_tensors())
+    assert any(not torch.equal(a, b.detach()) for a, b in zip(before, dropout.state_tensors()))
 
 
 def test_config_takes_bf16_and_refuses_other_dtypes():

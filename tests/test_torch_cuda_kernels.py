@@ -363,3 +363,93 @@ def test_autograd_through_the_kernels(dev):
     # the conv gradients as attn.bwd_errors groups them (x stands in for the
     # three input gradients)
     assert max(attn.bwd_errors([dx] * 3 + dw, [dx_ref] * 3 + dw_ref)) <= 1e-4
+
+
+def _keep_mask(g, dev, b, n, heads, rate=0.1):
+    """A pre-scaled keep mask [b, n, 12, heads * 12]: {0, 1/keep}."""
+    keep = 1.0 - rate
+    return (torch.rand(b, n, 12, heads * 12, generator=g, device=dev) < keep).float() / keep
+
+
+# the dropout forms of K4 and K5 (csrc/attn.cu, attn_bwd.cu, attn_bf16.cu,
+# attn_bwd_bf16.cu): ragged tiles (B*N = 37), 4 weight-gradient splits (340
+# rows), D = 128 and 64 (the float32 forward at 128 only); against the plain
+# versions with the same mask on the card, the same bits twice, and an
+# all-keep mask giving the no-dropout kernel's bits
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
+@pytest.mark.parametrize("b,n,d,heads", [(1, 37, 128, 8), (2, 170, 128, 8), (1, 37, 64, 4)])
+def test_attention_dropout_kernels(dev, dtype_name, flags, b, n, d, heads):
+    g = torch.Generator(device=dev).manual_seed(12)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    arrays = [r(b, n, 12, d), r(b, n, 12, d), r(b, n, 12, d)]
+    for _ in range(4):
+        arrays += [r(3, d, d) / d ** 0.5, 0.1 * r(d)]
+    cot = r(b, n, 12, d)
+    mask = _keep_mask(g, dev, b, n, heads)
+    ones = torch.ones_like(mask)
+    bf16 = dtype_name == "bfloat16"
+    fwd = attn.fused_temporal_attention_bf16_kernel if bf16 else attn.fused_temporal_attention_kernel
+    bwd = (attn.fused_temporal_attention_bwd_bf16_kernel if bf16
+           else attn.fused_temporal_attention_bwd_kernel)
+    if bf16:
+        cot = cot.to(torch.bfloat16)
+    suffix = "_bf16" if bf16 else ""
+    before = dict(_build.LAUNCHES)
+    if bf16 or d == 128:
+        (y,) = _bitwise_twice(lambda: (fwd(*arrays, *flags, heads, dropout_mask=mask),))
+        assert _build.LAUNCHES[f"attn_fwd{suffix}_dropout"] == before[f"attn_fwd{suffix}_dropout"] + 2
+        want = attn.fused_temporal_attention_plain(*arrays, *flags, heads, dtype_name, mask)
+        if bf16:
+            _bf16_close(y, want)
+        else:
+            assert _norm_err(y, want) <= 1e-4
+            want64 = attn.fused_temporal_attention_plain(*[a.double() for a in arrays], *flags,
+                                                         heads, "float64", mask)
+            assert _norm_err(y.double(), want64) <= 1e-5
+        assert torch.equal(fwd(*arrays, *flags, heads, dropout_mask=ones),
+                           fwd(*arrays, *flags, heads))
+    else:
+        with pytest.raises(ValueError, match="attn_impl"):
+            fwd(*arrays, *flags, heads, dropout_mask=mask)
+    got = _bitwise_twice(lambda: bwd(*arrays, cot, *flags, heads, dropout_mask=mask))
+    assert _build.LAUNCHES[f"attn_bwd{suffix}_dropout"] == before[f"attn_bwd{suffix}_dropout"] + 2
+    if bf16:
+        want = attn.fused_temporal_attention_bwd_plain(*arrays, cot, *flags, heads, "bfloat16",
+                                                       mask)
+        assert max(attn.bwd_errors(got, want)) <= 2e-3
+    else:
+        want = attn.fused_temporal_attention_bwd_plain(*[a.double() for a in arrays],
+                                                       cot.double(), *flags, heads, "float64",
+                                                       mask)
+        assert max(attn.bwd_errors(got, want)) <= 1e-5
+    no_drop = bwd(*arrays, cot, *flags, heads)
+    assert all(torch.equal(a, w) for a, w in
+               zip(bwd(*arrays, cot, *flags, heads, dropout_mask=ones), no_drop))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_autograd_through_the_dropout_kernels(dev, dtype_name):
+    """Gradients of the dropout kernels against the plain dropout path
+    (impl="xla") on the card, with ``mk is mq``; the mask gets None."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    x = r(2, 9, 12, 128).requires_grad_()
+    weights = [p.requires_grad_() for _ in range(4) for p in (r(3, 128, 128) / 11.3, 0.1 * r(128))]
+    mask = _keep_mask(g, dev, 2, 9, 8, rate=0.3).requires_grad_()
+    grads, launches = [], []
+    for impl in ("pallas", "xla"):
+        _build.reset_launches()
+        y = attn.fused_temporal_attention_dropout(x, x, x, *weights, mask, False, False, False,
+                                                  8, dtype_name, impl=impl).float()
+        *got, dmask = torch.autograd.grad((y * y).sum(), [x, *weights, mask], allow_unused=True)
+        assert dmask is None
+        grads.append(got)
+        launches.append(dict(_build.LAUNCHES))
+    suffix = "_bf16" if dtype_name == "bfloat16" else ""
+    assert launches[0][f"attn_fwd{suffix}_dropout"] == 1
+    assert launches[0][f"attn_bwd{suffix}_dropout"] == 1
+    assert sum(launches[1].values()) == 0
+    (dx, *dw), (dx_ref, *dw_ref) = grads
+    tol = 1e-2 if dtype_name == "bfloat16" else 1e-4
+    assert max(attn.bwd_errors([dx] * 3 + dw, [dx_ref] * 3 + dw_ref)) <= tol
