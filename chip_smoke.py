@@ -235,6 +235,20 @@ def dropout_tensor_core_counts(sass):
     return n_tc, n_hgmma
 
 
+def hgmma_by_function(sass, symbol):
+    """``{SASS function: HGMMA count}`` of the functions whose mangled name
+    contains ``symbol``."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if symbol in name:
+                counts[name] = 0
+        elif name in counts and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def build_report():
     """Registers and spills of every kernel of the seven tensor-core
     libraries (GCN forward and backward, attention forward and backward,
@@ -265,6 +279,11 @@ def build_report():
               f"{n_hgmma - drop_hgmma}", flush=True)
         require(n_tc > 0, f"the {lib} library has no tensor-core instruction")
         require(not lib.endswith("bf16") or n_hgmma > 0, f"the {lib} library has no HGMMA")
+        if lib == "attn_bwd_bf16":
+            dw = hgmma_by_function(sass, "attn_bwd_bf16_dw_kernel")
+            print(f"  {lib}: HGMMA of the weight-gradient kernels {sorted(dw.values())}",
+                  flush=True)
+            require(len(dw) == 2 and all(dw.values()), f"{lib}: a dw kernel has no HGMMA: {dw}")
 
 
 # --------------------------------------------------------------------------
@@ -598,12 +617,30 @@ def attn_bwd_bf16_errors(torch, args, control=False):
     return max(attn.bwd_errors(got, want))
 
 
+def dw_stage_work(rows, t_len, d, ks, splits):
+    """K5 bf16's weight-gradient stage (its dw and sum kernels): mq, mk, vs
+    (float32), x_attn and the four output gradients (bfloat16) read once,
+    the float32 partials of ``splits`` splits written and read once, the
+    weight and bias gradients written; 4 K products of 2 D^2 flops per
+    (row, t) pair, the bias sums and the split sums."""
+    from paddlexde_tpu_torch.ops.timing import Work
+
+    act = rows * t_len * d
+    out = 4 * ks * d * d + 4 * d
+    return Work((3 * 4 + 2 + 4 * 2) * act + 2 * 4 * splits * out + 4 * out,
+                4 * ks * 2 * d * d * rows * t_len, 4 * rows * t_len * d + splits * out)
+
+
+def dw_stage_ms(by_kernel):
+    """Device ms of the weight-gradient stage in one K5 bf16 call."""
+    return sum(ms for name, ms in by_kernel.items() if "_dw_kernel" in name or "_sum_kernel" in name)
+
+
 def check_attn_bwd_bf16(torch, dev, gen):
     from paddlexde_tpu_torch.ops import attn
     from paddlexde_tpu_torch.ops.timing import (
         attn_bwd_work,
         bound_bf16_ms,
-        device_ms,
         device_ms_by_kernel,
         time_ms,
     )
@@ -611,7 +648,10 @@ def check_attn_bwd_bf16(torch, dev, gen):
     b, n, t_len, d, heads, ks = 32, 170, 12, 128, 8, 3
     acts, weights = attn_inputs(torch, dev, gen)
     g = torch.randn(b, n, t_len, d, generator=gen, device=dev).to(torch.bfloat16)
-    errs, controls, times, wrapper_times, plain_times = [], [], [], [], []
+    splits = attn.bf16_dw_splits(b * n, d, torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count)
+    stage_bound = bound_bf16_ms(dw_stage_work(b * n, t_len, d, ks, splits))
+    errs, controls, times, wrapper_times, plain_times, stage_times = [], [], [], [], [], []
     for flags in ((False, False, False), (True, True, True), (True, False, False)):
         args = (*acts, *weights, g, *flags, heads)
         run = lambda: attn.fused_temporal_attention_bwd_bf16_kernel(*args)  # noqa: E731
@@ -629,8 +669,14 @@ def check_attn_bwd_bf16(torch, dev, gen):
               f"parent's route) {controls[-1]:.3e}", flush=True)
         require(errs[-1] <= ATTN_BWD_BF16_TOL,
                 f"attn_bwd_bf16 kernel {flags}: {errs[-1]:.3e} > {ATTN_BWD_BF16_TOL:g}")
-        times.append(device_ms(run, "attn_bwd_bf16_"))
-        print_by_kernel(device_ms_by_kernel(run, "attn_bwd_bf16_"), flags)
+        by_kernel = device_ms_by_kernel(run, "attn_bwd_bf16_")
+        times.append(sum(by_kernel.values()))
+        stage_times.append(dw_stage_ms(by_kernel))
+        print_by_kernel(by_kernel, flags)
+        print(f"  flags {flags}: weight-gradient stage (dw + sum kernels) {stage_times[-1]:.4f} "
+              f"ms, its bound {stage_bound[0]:.4f} ms by {stage_bound[1]} (inputs read once, "
+              f"{splits} splits' partials written and read; bfloat16 products), "
+              f"{stage_bound[0] / stage_times[-1]:.1%} of it", flush=True)
         wrapper_times.append(time_ms(run))
         plain_times.append(time_ms(
             lambda: attn.fused_temporal_attention_bwd_plain(*args, "bfloat16")))
@@ -638,6 +684,7 @@ def check_attn_bwd_bf16(torch, dev, gen):
     return dict(err=max(errs), control=min(controls), ms=statistics.mean(times),
                 wrapper_ms=statistics.mean(wrapper_times), plain_ms=statistics.mean(plain_times),
                 bound16=bound_bf16_ms(work), per_flags=list(zip(errs, times, plain_times)),
+                stage_ms=statistics.mean(stage_times), stage_bound=stage_bound, splits=splits,
                 shape=f"[{b},{n},{t_len},{d}] float32, g bfloat16, H={heads}, K={ks}, 3 flag "
                       "sets, 11 gradients; bitwise equal twice")
 
@@ -822,6 +869,11 @@ def kernel_phase(torch, dev):
               f"{LAUNCHES_PER_STEP_BF16[name]}", flush=True)
         if "cast_ms" in res:
             print(f"  of which the cast of g to float32 {res['cast_ms']:.4f} ms", flush=True)
+        if "stage_ms" in res:
+            print(f"  of which the weight-gradient stage {res['stage_ms']:.4f} ms against its "
+                  f"bound {res['stage_bound'][0]:.4f} ms by {res['stage_bound'][1]} "
+                  f"({res['splits']} splits), {res['stage_bound'][0] / res['stage_ms']:.1%} of "
+                  "it", flush=True)
         for flags_res in res.get("per_flags", ()):
             print(f"  flag set: err {flags_res[0]:.3e}, kernel {flags_res[1]:.4f} ms (device), "
                   f"plain {flags_res[2]:.4f} ms", flush=True)

@@ -41,6 +41,7 @@ __all__ = [
     "fused_temporal_attention_bwd_kernel",
     "fused_temporal_attention_bwd_bf16_kernel",
     "bwd_errors",
+    "bf16_dw_splits",
 ]
 
 _IMPLS = ("auto", "xla", "pallas")
@@ -493,6 +494,23 @@ def fused_temporal_attention_bwd_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo
     return (*dacts, dws[0], dbs[0], dws[1], dbs[1], dws[2], dbs[2], dws[3], dbs[3])
 
 
+# K5 bf16's weight-gradient kernel (csrc/attn_bwd_bf16.cu): tiles of 8 rows,
+# one CTA of 64 input channels per (split, weight), one CTA per SM
+_DW_TILE_ROWS = 8
+_DW_CHANNELS = 64
+
+
+def bf16_dw_splits(rows: int, d: int, sms: int) -> int:
+    """The number of row splits of K5 bf16's weight-gradient kernel: one
+    wave of its ``4 * d / 64`` CTAs per split on ``sms`` SMs, at most one
+    split per tile of 8 rows, and none empty. The kernel gives split ``s``
+    the tiles ``s * per .. (s + 1) * per - 1``, ``per = ceil(tiles /
+    splits)``."""
+    tiles = -(-rows // _DW_TILE_ROWS)
+    splits = max(1, min(sms // (4 * (d // _DW_CHANNELS)), tiles))
+    return -(-tiles // -(-tiles // splits))
+
+
 def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g,
                                              causal_q: bool, causal_kv: bool, is_mask: bool,
                                              heads: int, dropout_mask=None):
@@ -533,7 +551,8 @@ def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, b
     if not rows:
         dw.zero_()
     else:
-        splits = max(1, min(128, -(-rows * t_len // 1024)))
+        splits = bf16_dw_splits(rows, d, torch.cuda.get_device_properties(mq.device)
+                                .multi_processor_count)
         lib = _build.library("attn_bwd_bf16")
         lib.pxt_attn_bwd_bf16_scratch_bytes.restype = ctypes.c_int64
         lib.pxt_attn_bwd_bf16_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int,

@@ -25,8 +25,9 @@
 //
 // Bound: operations. Eleven conv-sized products per row (2 K D^2 T flops
 // each) are 98% of the work; they run on the tensor cores in bfloat16
-// (wgmma m64nDk16, RS form, tc_bf16.cuh), the attention core on the CUDA
-// cores. The structure is the float32 K5's (attn_bwd.cu), six kernels:
+// (the convs wgmma m64nDk16 in the RS form, tc_bf16.cuh; the weight
+// gradients m64n(D/2)k16 from shared memory, kernel 5), the attention core
+// on the CUDA cores. The structure is the float32 K5's (attn_bwd.cu), six kernels:
 //
 // 1. attn_bwd_bf16_wcast_kernel writes seven bfloat16 weight banks in the
 //    order the tensor cores read them (chunk of 16 input channels, tap,
@@ -44,14 +45,37 @@
 //    them). The core backward uses the float32 p; bf16(p) only feeds x_attn.
 // 4. attn_bwd_bf16_dx_conv_kernel: dmq, dmk, dvs (float32), one per
 //    blockIdx.y.
-// 5. attn_bwd_bf16_dw_kernel: each weight-gradient tap is a [D x R] x
-//    [R x D] product over R = rows * 12 (row, t) pairs. One CTA per (split
-//    of the rows, tap, weight) walks its rows 8 at a time (96 pairs, 6
-//    k-steps of 16): A = bf16(x)^T from registers, read with the tap's time
-//    shift from a shared copy of the rows; B = bf16(d(out)), laid out
-//    K-major per k-step in shared memory. Chains of 3 k-steps add to a
-//    float32 sum on the CUDA cores. It writes its D x D tile as a partial,
-//    and the tap-0 CTAs also the bias partial.
+// 5. attn_bwd_bf16_dw_kernel: the weight gradients dW_i[j][c][f] =
+//    sum over (row, t) of bf16(xpad_i)[t + j][c] bf16(d_i)[t][f] and db_i,
+//    four [D x R] x [R x D] products per tap over R = rows * 12 pairs. Bound:
+//    bytes (at PEMS08, batch 32: 184 MB read once and the partials against
+//    2.6e10 flops). The design reads each row once for all three taps and
+//    overlaps the copies with the products:
+//    - one CTA per (split, weight, 64 input channels): 256 threads, two
+//      warpgroups splitting the outputs, wgmma m64n(D/2)k16 with both
+//      operands in shared memory, MN-major (x^T and d(out) need no
+//      transpose);
+//    - a tile of 8 rows is 14 time slots a row: x with its zero halo (x[t]
+//      at slot t + pad_left) and d(out) zero at its last two slots, so tap j
+//      is a fixed offset of j slots (16 bytes) in A's descriptor. The 14/12
+//      extra products meet a zero d(out); a non-finite x stays non-finite
+//      in dW (it can reach one more tap's dW than in the plain sum);
+//    - a ring of 3 stages filled by cp.async (two tiles in flight while the
+//      tensor cores run one): x's 64 channels as they are (float32 mq, mk,
+//      vs or bfloat16 x_attn) into a staging buffer, rounded into one of two
+//      bfloat16 A tiles while the tile before runs its first two chains; d(out)
+//      straight into its operand layout;
+//    - nine chains a tile (k-steps {0, 1, 2}, {3, 4, 5}, {6} x 3 taps), two
+//      in flight, each added to its tap's float32 sum on the CUDA cores;
+//    - registers: 3 taps x D/4 accumulators + 2 chains x D/4 (160 at
+//      D = 128, 80 at 64); ptxas: 237 and 155 registers, no spills (a
+//      96-byte stack frame: the argument arrays indexed by blockIdx.y),
+//      HGMMA in both (chip_smoke.py's build report); one CTA per SM
+//      (190,976 bytes of shared memory at D = 128);
+//    - splits from the SM count (ops/attn.py::bf16_dw_splits): one wave of
+//      CTAs, whole tiles per split (16 splits at PEMS08, 43 tiles each).
+//    Each CTA writes its D/64 x D rows of the three taps' D x D tiles as a
+//    partial; the channel-block-0 CTAs also the bias partial.
 // 6. attn_bwd_bf16_sum_kernel sums the partials of the splits in split
 //    order.
 //
@@ -81,10 +105,6 @@ namespace {
 constexpr int T = tc::T, K = tc::K;
 constexpr int PAD_SAME = (K - 1) / 2;
 constexpr int CW = 4;          // rows (warps) per CTA of the core kernel
-constexpr int DR = 8;          // rows per step of the weight-gradient kernel
-constexpr int DP = DR * T;     // its 96 (row, t) pairs
-constexpr int DKB = DP / 16;   // its k-steps of 16 pairs
-constexpr int GK = 3;          // k-steps per tensor-core chain
 using tc16::bank_index;
 using tc16::conv;
 using tc16::DH;
@@ -452,142 +472,289 @@ struct DwArgs {
   int padl[4];
 };
 
+// A tile holds DR rows, each as TS = T + K - 1 time slots: x with its zero
+// halo (x[t] at slot t + pad_left) and d(out) with zeros at its last K - 1
+// slots. Pair k = row TS + t of the tile then meets x at slot k + j in tap
+// j, a fixed offset, and the pairs with t >= T meet a zero d(out).
+constexpr int DR = 8;             // rows per tile
+constexpr int TS = T + K - 1;     // slots per row
+constexpr int DSL = DR * TS;      // 112 slots: 7 k-steps of 16
+constexpr int DKS = DSL / 16;
+constexpr int DCB = 64;           // input channels per CTA (wgmma's M)
+constexpr int DST = 3;            // stages of the copy ring
+constexpr int DTHREADS = 256;     // two warpgroups
+// 16-byte rows per column of 8 channels (outputs): the slots, the taps'
+// overhang (K - 1 zero slots), and an odd count, so that eight consecutive
+// columns start on distinct 16-byte bank groups
+constexpr int XCOL = DSL + K;     // 115
+constexpr int GCOL = DSL + 1;     // 113
+static_assert(DSL % 16 == 0, "a tile is whole k-steps");
+static_assert(DKS == 7 && K == 3, "the chains below take k-steps {0, 1, 2}, {3, 4, 5}, {6} of three taps");
+
 template <int D>
 struct DwSmem {
-  uint16_t x[DP][D + 8];  // bf16(x) of the step's rows, as they are
-  uint16_t b[DKB][D * 16];  // bf16(d(out)) per k-step of 16 pairs, K-major (tc16::b_offset)
+  float xraw[DST][DR * T][DCB];  // the CTA's channels of x as they arrive (a bfloat16 x: the first half)
+  uint4 b[DST][D / 8][GCOL];     // bf16(d(out)) [8 outputs][slot]: MN-major core matrices
+  uint4 a[2][DCB / 8][XCOL];     // bf16(x) with its halo [8 channels][slot]: MN-major
+  float bias[DTHREADS];          // the bias sums' parts
 };
 
-// rows [r0, r0 + n) of x -> s.x and of g -> s.b (zeros past n)
+// descriptor of an MN-major bfloat16 operand without swizzle: core matrices
+// of 8 k (16-byte rows of 8 consecutive M or N elements) contiguous along k
+// (leading byte offset 128), the groups of 8 M or N `sbo` bytes apart
+__device__ __forceinline__ uint64_t desc_mn(const void* p, int sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (+)= a b on an m64nNk16 tile, A and B from shared memory, both
+// MN-major (imm-trans-a = imm-trans-b = 1); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, scale_d);
+  else
+    wgmma_ss_n32(d, da, db, scale_d);
+}
+
+// wait until at most one committed wgmma group is in flight
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(DST - 2));
+}
+
+// tile rows [r0, r0 + n) -> stage st (cp.async, zeros past n; not
+// committed): the CTA's DCB channels of x as they are, and bf16(d(out))
+// straight into its operand layout (slot row TS + t)
 template <int D>
-__device__ __forceinline__ void dw_load(DwSmem<D>& s, const void* X, bool x_bf16,
-                                        const uint16_t* __restrict__ Gr, int64_t r0, int n) {
-  for (int u = threadIdx.x; u < DP * (D / 4); u += blockDim.x) {
-    const int p = u / (D / 4);
-    const int c = 4 * (u % (D / 4));
-    uint2 v = make_uint2(0u, 0u);
-    if (p < n * T) {
-      const int64_t off = (r0 * T + p) * D + c;
-      if (x_bf16) {
-        v = __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(X) + off));
-      } else {
-        const float4 f = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(X) + off));
-        v = make_uint2(tc16::pack_bf16(f.x, f.y), tc16::pack_bf16(f.z, f.w));
-      }
+__device__ __forceinline__ void dw_load(DwSmem<D>& s, int st, const void* X, bool x_bf16,
+                                        const uint16_t* __restrict__ Gr, int cb, int64_t r0, int n) {
+  const int np = n * T;
+  unsigned char* xr = reinterpret_cast<unsigned char*>(&s.xraw[st][0][0]);
+  if (x_bf16) {
+    const uint16_t* src = static_cast<const uint16_t*>(X) + r0 * T * D + cb * DCB;
+    for (int u = threadIdx.x; u < DR * T * (DCB / 8); u += DTHREADS) {
+      const int p = u / (DCB / 8), q = u % (DCB / 8);
+      const bool full = p < np;
+      tc::cp_async16_zfill(xr + p * (2 * DCB) + 16 * q, src + (full ? p * D + 8 * q : 0), full);
     }
-    *reinterpret_cast<uint2*>(&s.x[p][c]) = v;
+  } else {
+    const float* src = static_cast<const float*>(X) + r0 * T * D + cb * DCB;
+    for (int u = threadIdx.x; u < DR * T * (DCB / 4); u += DTHREADS) {
+      const int p = u / (DCB / 4), q = u % (DCB / 4);
+      const bool full = p < np;
+      tc::cp_async16_zfill(xr + p * (4 * DCB) + 16 * q, src + (full ? p * D + 4 * q : 0), full);
+    }
   }
-  // 8 outputs of one pair a thread, consecutive threads on consecutive pairs
-  for (int u = threadIdx.x; u < DP * (D / 8); u += blockDim.x) {
-    const int p = u % DP;
-    const int f = 8 * (u / DP);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (p < n * T) v = __ldg(reinterpret_cast<const uint4*>(Gr + (r0 * T + p) * D + f));
-    uint16_t* dst = &s.b[p / 16][tc16::b_offset(f, p % 16)];
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      dst[16 * i] = (uint16_t)(w[i] & 0xFFFFu);   // output f + 2 i: 8 elements further per output
-      dst[16 * i + 8] = (uint16_t)(w[i] >> 16);
+  const uint16_t* gsrc = Gr + r0 * T * D;
+  for (int u = threadIdx.x; u < DR * T * (D / 8); u += DTHREADS) {
+    const int p = u / (D / 8), fb = u % (D / 8);
+    const bool full = p < np;
+    tc::cp_async16_zfill(&s.b[st][fb][(p / T) * TS + p % T], gsrc + (full ? p * D + 8 * fb : 0), full);
+  }
+}
+
+// stage st's x -> A buffer ab, rounded to bfloat16: x[t] of a row at slot
+// row TS + t + padl; the halo slots are never written (zero)
+template <int D>
+__device__ __forceinline__ void dw_convert(DwSmem<D>& s, int st, int ab, bool x_bf16, int padl) {
+  const unsigned char* xr = reinterpret_cast<const unsigned char*>(&s.xraw[st][0][0]);
+  for (int u = threadIdx.x; u < DR * T * (DCB / 8); u += DTHREADS) {
+    const int p = u / (DCB / 8), c8 = u % (DCB / 8);
+    uint4 v;
+    if (x_bf16) {
+      v = *reinterpret_cast<const uint4*>(xr + p * (2 * DCB) + 16 * c8);
+    } else {
+      const float4 f0 = *reinterpret_cast<const float4*>(xr + p * (4 * DCB) + 32 * c8);
+      const float4 f1 = *reinterpret_cast<const float4*>(xr + p * (4 * DCB) + 32 * c8 + 16);
+      v = make_uint4(tc16::pack_bf16(f0.x, f0.y), tc16::pack_bf16(f0.z, f0.w),
+                     tc16::pack_bf16(f1.x, f1.y), tc16::pack_bf16(f1.z, f1.w));
     }
+    s.a[ab][c8][(p / T) * TS + p % T + padl] = v;
   }
 }
 
 // part[split][(i K + j) D D + c D + f] = sum over the split's rows and steps
-// t of bf16(xpad_i)[t + j][c] bf16(g_i)[t][f]; the tap-0 CTAs also write
-// part[split][4 K D D + i D + f] = sum of bf16(g_i)[t][f]. blockIdx.x =
-// split K + tap, blockIdx.y = i. D / 64 warpgroups: warpgroup w owns the
-// channels 64 w .. 64 w + 63 (wgmma m64nDk16, M = channels, N = outputs,
-// K = pairs).
+// t of bf16(xpad_i)[t + j][c] bf16(g_i)[t][f] for the CTA's channels c; the
+// channel-block-0 CTAs also write part[split][4 K D D + i D + f] = sum of
+// bf16(g_i)[t][f]. blockIdx.x = split (D / 64) + channel block, blockIdx.y =
+// i. Warpgroup w takes the outputs w D/2 .. (w + 1) D/2 - 1 of all three
+// taps (wgmma m64n(D/2)k16, M = channels, N = outputs, K = pairs, both
+// operands MN-major in shared memory). A ring of DST stages keeps the next
+// two tiles' copies in flight while the tensor cores run this one; the next
+// tile's x is rounded into the other A buffer while this one's first two
+// chains run.
 template <int D>
-__global__ void __launch_bounds__(2 * D, 1)
+__global__ void __launch_bounds__(DTHREADS, 1)
 attn_bwd_bf16_dw_kernel(DwArgs args, int64_t rows, int64_t rows_per_split, float* __restrict__ part) {
+  constexpr int NW = D / 2;   // outputs per warpgroup
+  constexpr int NA = NW / 2;  // accumulator registers of one m64nNW tile
+  constexpr int BP = DTHREADS / D;  // parts of a bias sum
   constexpr int64_t L = 4 * (int64_t)K * D * D + 4 * D;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   DwSmem<D>& s = *reinterpret_cast<DwSmem<D>*>(smem_raw);
-  const int tap = blockIdx.x % K;
-  const int64_t split = blockIdx.x / K;
+  const int cb = blockIdx.x % (D / DCB);
+  const int64_t split = blockIdx.x / (D / DCB);
   const int wi = blockIdx.y;
   const void* X = args.x[wi];
   const bool x_bf16 = args.x_bf16[wi] != 0;
   const uint16_t* __restrict__ Gr = args.g[wi];
-  const int shift = tap - args.padl[wi];
+  const int padl = args.padl[wi];
   const int64_t r_begin = split * rows_per_split;
   const int64_t r_end = min(rows, r_begin + rows_per_split);
-  const int tq = threadIdx.x & 3;
-  const int c0 = tc::frag_row();  // the thread's channels: c0 and c0 + 8
-  const bool bias_thread = tap == 0 && threadIdx.x < D;
+  const int ntiles = r_end > r_begin ? (int)((r_end - r_begin + DR - 1) / DR) : 0;
+  const int wg = threadIdx.x >> 7;
+  const bool bias_cta = cb == 0;
+  const int bf = threadIdx.x % D;  // a bias thread's output and its part of the slots
+  const int bpart = threadIdx.x / D;
 
-  float acc[D / 2], chain[D / 2];
+  // the halo slots, the overhang and the rows past a ragged end stay zero
+  for (int u = threadIdx.x; u < (int)(sizeof(s.a) / 16); u += DTHREADS)
+    (&s.a[0][0][0])[u] = make_uint4(0u, 0u, 0u, 0u);
+  for (int u = threadIdx.x; u < (int)(sizeof(s.b) / 16); u += DTHREADS)
+    (&s.b[0][0][0])[u] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  auto load = [&](int tile) {
+    if (tile < ntiles) {
+      const int64_t r0 = r_begin + (int64_t)tile * DR;
+      dw_load<D>(s, tile % DST, X, x_bf16, Gr, cb, r0, (int)min((int64_t)DR, r_end - r0));
+    }
+    tc::cp_async_commit();
+  };
+  for (int t = 0; t < DST - 1; ++t) load(t);
+  cp_async_wait_ring();
+  __syncthreads();
+  if (ntiles > 0) dw_convert<D>(s, 0, 0, x_bf16, padl);
+  tc::fence_proxy_async();
+  __syncthreads();
+
+  float acc[K][NA], cx[NA], cy[NA];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = chain[i] = 0.f;
+  for (int i = 0; i < NA; ++i) {
+    acc[0][i] = acc[1][i] = acc[2][i] = 0.f;
+    cx[i] = cy[i] = 0.f;
+  }
   float bsum = 0.f;
 
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += DR) {
-    const int n = (int)min((int64_t)DR, r_end - r0);
-    const int np = n * T;
-    __syncthreads();  // the previous step's reads are done
-    dw_load<D>(s, X, x_bf16, Gr, r0, n);
-    tc::fence_proxy_async();
-    __syncthreads();
-    if (bias_thread) {
-      for (int p = 0; p < np; ++p) bsum += tc16::from_bf16(s.b[p / 16][tc16::b_offset(threadIdx.x, p % 16)]);
-    }
-    const int kbs = (np + 15) / 16;
-    for (int kb0 = 0; kb0 < kbs; kb0 += GK) {
-      // A = bf16(x)^T: register 0 (channel c0, pairs 2 tq, 2 tq + 1), 1 (c0 + 8,
-      // the same), 2 (c0, 8 + 2 tq ..), 3 (c0 + 8, 8 + ...) of each k-step,
-      // x read with the tap's shift
-      uint32_t af[GK][4];
+  for (int n = 0; n < ntiles; ++n) {
+    const int st = n % DST;
+    load(n + DST - 1);
+    const uint64_t da = desc_mn(&s.a[n & 1][0][0], XCOL * 16);
+    const uint64_t db = desc_mn(&s.b[st][wg * (NW / 8)][0], GCOL * 16);
+    // a chain: tap j over the k-steps of group grp ({0, 1, 2}, {3, 4, 5},
+    // {6}), started afresh; the descriptors advance 16 bytes a slot
+    auto issue = [&](float (&ch)[NA], int grp, int j) {
 #pragma unroll
-      for (int i = 0; i < GK; ++i)
-#pragma unroll
-        for (int hk = 0; hk < 2; ++hk) {
-          uint16_t v[2][2];  // [channel c0, c0 + 8][pair, pair + 1]
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int p = (kb0 + i) * 16 + 8 * hk + 2 * tq + e;
-            const int ts = p % T + shift;
-            const bool ok = p < np && ts >= 0 && ts < T;
-            const uint16_t* xr = &s.x[ok ? p + shift : 0][c0];
-            v[0][e] = ok ? xr[0] : (uint16_t)0;
-            v[1][e] = ok ? xr[8] : (uint16_t)0;
-          }
-          af[i][2 * hk] = (uint32_t)v[0][0] | ((uint32_t)v[0][1] << 16);
-          af[i][2 * hk + 1] = (uint32_t)v[1][0] | ((uint32_t)v[1][1] << 16);
-        }
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) tc::hold(chain[i]);
+      for (int i = 0; i < NA; ++i) tc::hold(ch[i]);
       tc::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < GK; ++i) {
-        if (kb0 + i < kbs)
-          tc16::wgmma<D>(chain, af[i], tc::desc_b(reinterpret_cast<const float*>(&s.b[kb0 + i][0])),
-                         i > 0);
+      for (int q = 0; q < 3; ++q) {
+        const int ks = 3 * grp + q;
+        if (ks < DKS) wgmma_ss<NW>(ch, da + (uint64_t)(j + 16 * ks), db + (uint64_t)(16 * ks), q > 0);
       }
       tc::wgmma_commit();
-      tc::wgmma_wait_all();
+    };
+    // a finished chain into its tap's float32 sum on the CUDA cores
+    auto flush = [&](float (&ch)[NA], float (&sum)[NA]) {
 #pragma unroll
-      for (int i = 0; i < GK; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tc::hold(af[i][e]);
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
-        tc::hold(chain[i]);
-        acc[i] += chain[i];
+      for (int i = 0; i < NA; ++i) {
+        tc::hold(ch[i]);
+        sum[i] += ch[i];
       }
+    };
+
+    // nine chains (k-step group, tap), two in flight: cx and cy in turn
+    issue(cx, 0, 0);
+    issue(cy, 0, 1);
+    // while the first two run: the bias sum of this tile, then the next
+    // tile's x rounded into the other A buffer
+    if (bias_cta) {
+      const uint16_t* col = reinterpret_cast<const uint16_t*>(&s.b[st][bf >> 3][0]) + (bf & 7);
+#pragma unroll 4
+      for (int k = bpart * (DSL / BP); k < (bpart + 1) * (DSL / BP); ++k) bsum += tc16::from_bf16(col[8 * k]);
     }
+    cp_async_wait_ring();
+    __syncthreads();
+    if (n + 1 < ntiles) dw_convert<D>(s, (n + 1) % DST, (n + 1) & 1, x_bf16, padl);
+    wgmma_wait_1();
+    flush(cx, acc[0]);
+    issue(cx, 0, 2);
+    wgmma_wait_1();
+    flush(cy, acc[1]);
+    issue(cy, 1, 0);
+    wgmma_wait_1();
+    flush(cx, acc[2]);
+    issue(cx, 1, 1);
+    wgmma_wait_1();
+    flush(cy, acc[0]);
+    issue(cy, 1, 2);
+    wgmma_wait_1();
+    flush(cx, acc[1]);
+    issue(cx, 2, 0);
+    wgmma_wait_1();
+    flush(cy, acc[2]);
+    issue(cy, 2, 1);
+    wgmma_wait_1();
+    flush(cx, acc[0]);
+    issue(cx, 2, 2);
+    wgmma_wait_1();
+    flush(cy, acc[1]);
+    tc::wgmma_wait_all();
+    flush(cx, acc[2]);
+    tc::fence_proxy_async();  // the converted tile, for the next iteration's wgmma
+    __syncthreads();
   }
 
-  float* out = part + split * L + (int64_t)(wi * K + tap) * D * D;
+  float* out = part + split * L + (int64_t)wi * K * D * D;
+  const int c0 = cb * DCB + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+  const int f0 = wg * NW + 2 * (threadIdx.x & 3);
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) {
-    const int f = nb * 8 + 2 * tq;
-    *reinterpret_cast<float2*>(out + (int64_t)c0 * D + f) = make_float2(acc[4 * nb], acc[4 * nb + 1]);
-    *reinterpret_cast<float2*>(out + (int64_t)(c0 + 8) * D + f) =
-        make_float2(acc[4 * nb + 2], acc[4 * nb + 3]);
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int nb = 0; nb < NW / 8; ++nb) {
+      float* o = out + (int64_t)j * D * D + (int64_t)c0 * D + f0 + 8 * nb;
+      *reinterpret_cast<float2*>(o) = make_float2(acc[j][4 * nb], acc[j][4 * nb + 1]);
+      *reinterpret_cast<float2*>(o + 8 * D) = make_float2(acc[j][4 * nb + 2], acc[j][4 * nb + 3]);
+    }
+  if (bias_cta) {
+    s.bias[threadIdx.x] = bsum;
+    __syncthreads();
+    if (threadIdx.x < D) {
+      float b = 0.f;
+#pragma unroll
+      for (int q = 0; q < BP; ++q) b += s.bias[q * D + threadIdx.x];
+      part[split * L + 4 * (int64_t)K * D * D + wi * D + threadIdx.x] = b;
+    }
   }
-  if (bias_thread) part[split * L + 4 * (int64_t)K * D * D + wi * D + threadIdx.x] = bsum;
 }
 
 // out[i] = sum over the splits, in split order, of part[split][i]
@@ -682,11 +849,12 @@ int launch(const void* const* p, const float* dm, void* const* out, unsigned cha
 
   DwArgs args = {{mq, mk, vs, xatt}, {0, 0, 0, 1}, {dq, dk, dv, g}, {pq, pkv, pkv, PAD_SAME}};
   const int dw_smem = (int)sizeof(DwSmem<D>);
-  const int64_t rows_per_split = (rows + splits - 1) / splits;
+  const int64_t dw_tiles = (rows + DR - 1) / DR;
+  const int64_t rows_per_split = DR * ((dw_tiles + splits - 1) / splits);
   err = cudaFuncSetAttribute(attn_bwd_bf16_dw_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_bf16_dw_kernel<D><<<dim3(K * splits, 4), 2 * D, dw_smem, stream>>>(
+  attn_bwd_bf16_dw_kernel<D><<<dim3((D / DCB) * splits, 4), DTHREADS, dw_smem, stream>>>(
       args, rows, rows_per_split, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -245,14 +245,21 @@ def test_bf16_dense_sums_in_float32_whatever_the_flag(dev, d_in, bias):
     assert err <= ulp and share <= 0.01, (err, ulp, share)
 
 
-# the bfloat16 K5 (csrc/attn_bwd_bf16.cu): B*N = 37 (a ragged last tile of
-# 16 rows and of the core's 4), 340 (4 weight-gradient splits) and 5 (one
-# split of 5 rows), D = 128 with 8 heads and 64 with 4, D3STN's three flag
-# sets; against the plain bfloat16 backward on the card by attn.bwd_errors
-# (limit as chip_smoke.py's), the same bits twice
+# the bfloat16 K5 (csrc/attn_bwd_bf16.cu), D = 128 with 8 heads and 64 with
+# 4, D3STN's three flag sets, at the edges of the convs' 16-row tiles, the
+# core's 4 rows and the weight-gradient kernel's 8-row tiles and splits
+# (attn.bf16_dw_splits, one wave of CTAs; on an H100 with 132 SMs):
+# B*N = 5 (fewer rows than one tile), 37 (5 splits of one tile, the last
+# ragged), 340 (43 tiles in 15 splits of 3 at D = 128: the last split one
+# tile of 4 rows), 921 (116 tiles in 29 splits of 4 at D = 64, the last
+# tile one row), 14128 (111 tiles a CTA at D = 128, 54 at D = 64) and 340 at
+# D = 64 (22 splits of 2, the last tile 4 rows); against the plain
+# bfloat16 backward on the card by attn.bwd_errors (limit as
+# chip_smoke.py's), the same bits twice
 @pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
-@pytest.mark.parametrize("b,n,d,heads", [(1, 5, 128, 8), (1, 37, 128, 8), (1, 37, 64, 4),
-                                         (2, 170, 128, 8), (2, 170, 64, 4)])
+@pytest.mark.parametrize("b,n,d,heads", [(1, 5, 128, 8), (1, 5, 64, 4), (1, 37, 128, 8),
+                                         (1, 37, 64, 4), (2, 170, 128, 8), (2, 170, 64, 4),
+                                         (3, 307, 64, 4), (16, 883, 128, 8), (16, 883, 64, 4)])
 def test_attention_bwd_bf16_kernel(dev, flags, b, n, d, heads):
     g = torch.Generator(device=dev).manual_seed(8)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -372,13 +379,16 @@ def _keep_mask(g, dev, b, n, heads, rate=0.1):
 
 
 # the dropout forms of K4 and K5 (csrc/attn.cu, attn_bwd.cu, attn_bf16.cu,
-# attn_bwd_bf16.cu): ragged tiles (B*N = 37), 4 weight-gradient splits (340
-# rows), D = 128 and 64 (the float32 forward at 128 only); against the plain
+# attn_bwd_bf16.cu): ragged tiles (B*N = 37), several weight-gradient
+# splits (340 rows; 921 rows: K5 bf16's 116 tiles in 15 splits of 8, the
+# last split 4 tiles, its last tile one row), D = 128 and 64 (the float32
+# forward at 128 only); against the plain
 # versions with the same mask on the card, the same bits twice, and an
 # all-keep mask giving the no-dropout kernel's bits
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
-@pytest.mark.parametrize("b,n,d,heads", [(1, 37, 128, 8), (2, 170, 128, 8), (1, 37, 64, 4)])
+@pytest.mark.parametrize("b,n,d,heads", [(1, 37, 128, 8), (2, 170, 128, 8), (1, 37, 64, 4),
+                                         (3, 307, 128, 8)])
 def test_attention_dropout_kernels(dev, dtype_name, flags, b, n, d, heads):
     g = torch.Generator(device=dev).manual_seed(12)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
