@@ -10,8 +10,9 @@ It builds the eight hand-written Hopper kernel sources from
 and shared memory of the GCN and attention kernels and the count of
 tensor-core instructions in their libraries, with and without the
 attention kernels' dropout instantiations (it fails if one has none, if a
-GCN kernel spills, or if a bfloat16 kernel spills or has no HGMMA), and
-runs five phases (PyTorch's
+GCN kernel spills, if a bfloat16 kernel spills or has no HGMMA, or if a
+D = 64 instantiation of the float32 attention forward, with or without
+dropout, spills or has no HGMMA), and runs six phases (PyTorch's
 TF32 off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
 float32 GCN and attention kernels run their products in 3xTF32, the
 bfloat16 ones in bfloat16):
@@ -32,7 +33,9 @@ bfloat16 ones in bfloat16):
    in float32 and bfloat16 with a dropout-0.1 keep mask against their plain
    versions with the same mask (float32 within TOL, bfloat16 as above), each
    the same bits twice, an all-keep mask giving the no-dropout kernel's
-   bits;
+   bits; the float32 attention forward and its dropout form at SYNTH's
+   shapes (B 32, N 16, D 64, 4 heads: the tensor-core kernel at D = 64)
+   against the float32 and float64 plain versions, the same checks;
 2. serving: PEMS08-width ``Predictor`` requests (random weights from a
    seeded generator) through the kernels and against the same Predictor
    forced to the plain versions, in float32 and then in bfloat16
@@ -55,7 +58,14 @@ bfloat16 ones in bfloat16):
    the plain versions with the same masks, under the rules of phases 3 and
    4; the launches of a step by counter and profiler (the dropout forms of
    K4 and K5, no GCN kernel: with dropout the GCN runs the JAX model's XLA
-   form), the step time, then DROPOUT_STEPS more steps with a finite loss.
+   form), the step time, then DROPOUT_STEPS more steps with a finite loss;
+6. SYNTH (d_model 64, 4 heads, N 16, 2+2 layers, with_adj) at full width
+   and depth, batch 32, random weights: float32 serving against the plain
+   Predictor (as phase 2), one float32 train step against the plain step
+   (as phase 3) and TRAIN_STEPS more, and the dropout-0.1 steps of phase 5
+   in float32 and bfloat16 (the bfloat16 gradients also beside a witness,
+   the plain step on the CPU with the same masks); the profiler must show
+   the float32 attention forward as ``attn_fwd_d3stn_kernel<64, ...>``.
 
 Launch counts are checked by the wrappers' counters and by ``torch.profiler``
 traces. It prints:
@@ -63,7 +73,9 @@ traces. It prints:
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
   main paths (serving in float32 and in bfloat16, the two-epoch train, the
-  bfloat16 train steps and the dropout train steps), error, time, bound
+  bfloat16 train steps and the dropout train steps, and phase 6's; the
+  float32 attention forward and its dropout form at D = 64 are rows of
+  their own, with phase 6's launches), error, time, bound
   (the 3xTF32 bound of ``ops/timing.py``, the bfloat16 bound for the
   bfloat16 kernels), plain-version time and library time;
 - as the last line, ``{"ok": true, "device": {...}}``.
@@ -113,6 +125,8 @@ BF16_ROUNDED_GRADS = ("encoder_dense.", "decoder_dense.", ".gcn.proj.")
 DROPOUT = 0.1
 # further dropout train steps after the checked one (finite loss)
 DROPOUT_STEPS = 4
+# further float32 train steps after the checked one at SYNTH (phase 6)
+TRAIN_STEPS = 4
 _ZERO = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
          "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0, "gcn_bwd_bf16": 0, "attn_bwd_bf16": 0,
          "attn_fwd_dropout": 0, "attn_bwd_dropout": 0, "attn_fwd_bf16_dropout": 0,
@@ -143,6 +157,12 @@ KERNEL_NAMES = {
                       "attn_bwd_bf16_core_kernel", "attn_bwd_bf16_dx_conv_kernel",
                       "attn_bwd_bf16_dw_kernel", "attn_bwd_bf16_sum_kernel"),
 }
+# which float32 attention forward ran: the tensor-core kernel at D = 64
+# (attn_fwd_d3stn_kernel<64, ...>, SYNTH) or the generic CUDA-core
+# attn_fwd_kernel, which no shipped configuration reaches (every trace
+# requires 0 of it). Counted in a trace beside KERNEL_NAMES, not in the
+# device time by kernel
+ROUTE_NAMES = {"attn_fwd_d64": "attn_fwd_d3stn_kernel<64", "attn_fwd_generic": "attn_fwd_kernel<"}
 # the dropout forms are instantiations of the same kernels (their last
 # template argument, DROP, true): a trace counts them under those kernels
 TRACED_AS = {"gcn_bwd_bf16": "gcn_bwd", "attn_fwd_dropout": "attn_fwd",
@@ -168,6 +188,10 @@ SOURCES = {
                               "paddlexde_tpu/ops/attn_pallas.py:248"),
     "attn_bwd_bf16_dropout": ("paddlexde_tpu_torch/ops/csrc/attn_bwd_bf16.cu",
                               "paddlexde_tpu/ops/attn_pallas.py:494"),
+    "attn_fwd_d64": ("paddlexde_tpu_torch/ops/csrc/attn.cu",
+                     "paddlexde_tpu/ops/attn_pallas.py:248"),
+    "attn_fwd_dropout_d64": ("paddlexde_tpu_torch/ops/csrc/attn.cu",
+                             "paddlexde_tpu/ops/attn_pallas.py:248"),
 }
 BF16_KERNELS = ("gcn_fwd_bf16", "attn_fwd_bf16")
 
@@ -249,14 +273,20 @@ def hgmma_by_function(sass, symbol):
     return counts
 
 
+# the mangled name of the float32 attention forward's D = 64 instantiations
+ATTN_FWD_D64 = "attn_fwd_d3stn_kernelILi64E"
+
+
 def build_report():
     """Registers and spills of every kernel of the seven tensor-core
     libraries (GCN forward and backward, attention forward and backward,
     the bfloat16 GCN and attention forwards, the bfloat16 attention
     backward), and the tensor-core
-    instructions (HMMA/HGMMA) in their SASS. The GCN kernels and the
-    bfloat16 kernels must not spill; the bfloat16 libraries must hold
-    HGMMA (wgmma)."""
+    instructions (HMMA/HGMMA) in their SASS. The GCN kernels, the bfloat16
+    kernels and the float32 attention forward at D = 64 must not spill;
+    the bfloat16 libraries, and each of the six D = 64 instantiations of
+    the float32 attention forward (three flag sets, with and without DROP),
+    must hold HGMMA (wgmma)."""
     from paddlexde_tpu_torch.ops import _build
 
     for lib in ("gcn", "gcn_bwd", "attn", "attn_bwd", "gcn_bf16", "attn_bf16", "attn_bwd_bf16"):
@@ -268,7 +298,8 @@ def build_report():
         for name, regs, stores, loads, stack in ptxas_report(log):
             print(f"  ptxas {lib}: {name}: {regs} registers, spill stores {stores} B, "
                   f"spill loads {loads} B, stack {stack} B", flush=True)
-            require(not no_spills or stores + loads == 0, f"{lib}: {name} spills")
+            require(not (no_spills or ATTN_FWD_D64 in name) or stores + loads == 0,
+                    f"{lib}: {name} spills")
         sass = subprocess.run([_build.tool("cuobjdump"), "-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, timeout=600, check=True).stdout
         n_tc = sum(1 for line in sass.splitlines() if "HMMA" in line or "HGMMA" in line)
@@ -279,6 +310,14 @@ def build_report():
               f"{n_hgmma - drop_hgmma}", flush=True)
         require(n_tc > 0, f"the {lib} library has no tensor-core instruction")
         require(not lib.endswith("bf16") or n_hgmma > 0, f"the {lib} library has no HGMMA")
+        if lib == "attn":
+            d64 = hgmma_by_function(sass, ATTN_FWD_D64)
+            drop = sorted(v for k, v in d64.items() if "Lb1EEEv" in k)
+            no_drop = sorted(v for k, v in d64.items() if "Lb1EEEv" not in k)
+            print(f"  {lib}: HGMMA of the D = 64 instantiations of attn_fwd_d3stn_kernel "
+                  f"{no_drop}, of their dropout forms {drop}", flush=True)
+            require(len(drop) == len(no_drop) == 3 and all(d64.values()),
+                    f"{lib}: a D = 64 attention forward is missing or has no HGMMA: {d64}")
         if lib == "attn_bwd_bf16":
             dw = hgmma_by_function(sass, "attn_bwd_bf16_dw_kernel")
             print(f"  {lib}: HGMMA of the weight-gradient kernels {sorted(dw.values())}",
@@ -820,6 +859,76 @@ def check_attn_dropout(torch, dev, gen, bf16):
     return out
 
 
+def check_attn_d64(torch, dev, gen):
+    """K4 and K4 dropout at SYNTH's shapes (B 32, N 16, T 12, D 64, 4 heads,
+    K 3; the tensor-core ``attn_fwd_d3stn_kernel<64, ...>``), each flag set:
+    against the float32 and float64 plain versions within TOL["attn_fwd"],
+    the same bits twice, an all-keep mask giving the no-dropout kernel's
+    bits. Returns the two forms' results."""
+    from paddlexde_tpu_torch.ops import attn
+    from paddlexde_tpu_torch.ops.timing import (
+        attn_work,
+        bound_3xtf32_ms,
+        device_ms_by_kernel,
+        time_ms,
+    )
+
+    b, n, t_len, d, heads, ks = 32, 16, 12, 64, 4, 3
+    acts, weights = attn_inputs(torch, dev, gen, b, n, t_len, d, ks)
+    mask = keep_mask(torch, dev, gen, (b, n, t_len, heads * t_len))
+    ones = torch.ones_like(mask)
+    res = {m: {"err": [], "err64": [], "ms": [], "plain_ms": []} for m in ("", "_dropout")}
+    for flags in ((False, False, False), (True, True, True), (True, False, False)):
+        args = (*acts, *weights, *flags, heads)
+        route = attn.f32_fwd_route(*acts[:2], weights[0], *flags, heads, dropout=True)
+        require(route == "d3stn", f"K4 at SYNTH's shape {flags} routes to {route}")
+        for form, m in (("", None), ("_dropout", mask)):
+            run = lambda: attn.fused_temporal_attention_kernel(*args, m)  # noqa: E731
+            plain = lambda: attn.fused_temporal_attention_plain(*args, "float32", m)  # noqa: E731
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            label = f"attention{form.replace('_', ' ')} kernel at D = 64, flags {flags}"
+            require(torch.isfinite(got).all().item(), f"{label}: non-finite output")
+            require(torch.equal(got, again), f"{label}: two runs on the same inputs differ")
+            err = norm_err(got, plain())
+            want64 = attn.fused_temporal_attention_plain(
+                *[a.double() for a in args[:11]], *flags, heads, "float64",
+                None if m is None else m.double())
+            err64 = norm_err(got.double(), want64)
+            require(max(err, err64) <= TOL["attn_fwd"], f"{label}: {err:.3e} from the float32 "
+                    f"and {err64:.3e} from the float64 plain version (tol {TOL['attn_fwd']:g})")
+            by_kernel = device_ms_by_kernel(run, "attn_fwd_")
+            require(all("attn_fwd_d3stn_kernel<64" in name or "attn_fwd_wsplit_kernel<64" in name
+                        for name in by_kernel) and len(by_kernel) == 2,
+                    f"{label}: the profiler shows {sorted(by_kernel)}")
+            r = res[form]
+            r["err"].append(err)
+            r["err64"].append(err64)
+            r["ms"].append(sum(by_kernel.values()))
+            r["plain_ms"].append(time_ms(plain))
+            print_by_kernel(by_kernel, flags)
+        require(torch.equal(attn.fused_temporal_attention_kernel(*args, ones),
+                            attn.fused_temporal_attention_kernel(*args)),
+                f"attention dropout kernel at D = 64, flags {flags}: an all-keep mask does not "
+                "give the no-dropout kernel's bits")
+        print(f"  D = 64, flags {flags}: K4 err {res['']['err'][-1]:.3e} (float64 "
+              f"{res['']['err64'][-1]:.3e}) kernel {res['']['ms'][-1]:.4f} ms plain "
+              f"{res['']['plain_ms'][-1]:.4f} ms; K4 dropout err {res['_dropout']['err'][-1]:.3e} "
+              f"(float64 {res['_dropout']['err64'][-1]:.3e}) kernel "
+              f"{res['_dropout']['ms'][-1]:.4f} ms plain {res['_dropout']['plain_ms'][-1]:.4f} "
+              "ms; the same bits twice, all-keep = no-dropout bits", flush=True)
+    out = {}
+    for form, r in res.items():
+        work = attn_work(b, n, t_len, d, heads, ks, dropout=bool(form))
+        out[f"attn_fwd{form}_d64"] = dict(
+            err=max(r["err"]), err64=max(r["err64"]), ms=statistics.mean(r["ms"]),
+            plain_ms=statistics.mean(r["plain_ms"]), bound_main=bound_3xtf32_ms(work),
+            per_flags=list(zip(r["err"], r["ms"], r["plain_ms"])),
+            shape=f"[{b},{n},{t_len},{d}], H={heads}, K={ks}, 3 flag sets"
+                  + (f", mask at dropout {DROPOUT}" if form else "") + "; bitwise equal twice")
+    return out
+
+
 def kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -892,6 +1001,16 @@ def kernel_phase(torch, dev):
                   f"dropout train step {LAUNCHES_PER_STEP_DROPOUT_BF16[name] if bf16 else LAUNCHES_PER_STEP_DROPOUT[name]}",
                   flush=True)
             results[name] = res
+    for name, res in check_attn_d64(torch, dev, gen).items():
+        base = name[: -len("_d64")]
+        per_step = (LAUNCHES_PER_STEP_DROPOUT if "dropout" in name else LAUNCHES_PER_STEP)[base]
+        print(f"kernel {name} ({res['shape']}): max_abs_err(normalised)={res['err']:.3e} against "
+              f"its float32 plain version, {res['err64']:.3e} against float64 (tol "
+              f"{TOL['attn_fwd']:g}); kernel {res['ms']:.4f} ms (device, profiler; at PEMS08 "
+              f"{results[base]['ms']:.4f} ms), plain {res['plain_ms']:.4f} ms (CUDA events), "
+              f"bound {res['bound_main'][0]:.4f} ms by {res['bound_main'][1]} (3xTF32 "
+              f"products), launches per SYNTH train step {per_step}", flush=True)
+        results[name] = res
     return results
 
 
@@ -1061,8 +1180,8 @@ def with_plain_history(cls):
     return Plain
 
 
-def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
-    """Serve PEMS08-width requests with ``compute_dtype=dtype`` through the
+def predictor_phase(torch, dev, dtype="float32", f32_outs=None, config="PEMS08"):
+    """Serve ``config``-width requests with ``compute_dtype=dtype`` through the
     kernels and through the plain versions; returns the main path's
     launches, the forward's device time per batch of 32 and the outputs.
 
@@ -1087,7 +1206,7 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
 
     bf16 = dtype == "bfloat16"
     per_batch = LAUNCHES_PER_BATCH_BF16 if bf16 else LAUNCHES_PER_BATCH
-    cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"), compute_dtype=dtype)
+    cfg = load_config(str(HERE / "examples" / "configs" / f"{config}.json"), compute_dtype=dtype)
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla")
     n, his = cfg.num_nodes, cfg.his_len
     rng = np.random.default_rng(0)
@@ -1095,7 +1214,7 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
     sc = ((a + a.T) / 2).astype(np.float32)
     adj = (rng.random((n, n)) < 0.03).astype(np.float32)
     adj = np.maximum(adj, adj.T)
-    enc = (np.arange(his - 2016, his - 2016 + 12) + rng.random(12)).astype(np.float32)
+    enc = (np.arange(12) + rng.random(12)).astype(np.float32)
     dec = (his - 1 - 1.5 * rng.random(cfg.tgt_len)).astype(np.float32)
 
     pred = Predictor(cfg, None, enc, dec, adj, sc, batch_size=32, device=dev,
@@ -1104,7 +1223,7 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
                       generator=torch.Generator().manual_seed(0))
     plain.model.load_state_dict(pred.model.state_dict())
     n_params = sum(p.numel() for p in pred.model.parameters())
-    print(f"Predictor ({dtype}): PEMS08 config (N={n}, his_len={his}, d_model={cfg.d_model}, "
+    print(f"Predictor ({dtype}): {config} config (N={n}, his_len={his}, d_model={cfg.d_model}, "
           f"heads={cfg.head}, {cfg.encoder_num_layers}+{cfg.decoder_num_layers} layers, "
           f"top_k={cfg.top_k}), {n_params} random parameters (seed 0)", flush=True)
 
@@ -1120,7 +1239,8 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
     launches = dict(_build.LAUNCHES)
     n_batches = 3 + -(-len(starts) // pred.batch_size)
     plain_outs, plain_secs = serve(plain, series, windows, starts)
-    print(f"main path ({dtype}): {n_batches} Predictor batches, launches {launches}", flush=True)
+    print(f"main path ({config}, {dtype}): {n_batches} Predictor batches, launches {launches}",
+          flush=True)
     for name, count in per_batch.items():
         require(launches[name] == count * n_batches,
                 f"{name}: {launches[name]} launches on the {dtype} main path, expected "
@@ -1185,7 +1305,8 @@ def predictor_phase(torch, dev, dtype="float32", f32_outs=None):
           f"plain {plain_fwd_ms:.3f} ms ({32e3 / plain_fwd_ms:.1f} samples/s)", flush=True)
 
     device_us, by_name = traced_launches(torch, lambda: pred.forward(src), per_batch,
-                                         f"one {dtype} batch of 32")
+                                         f"one {config} {dtype} batch of 32",
+                                         d64=cfg.d_model == 64)
     print(f"  Predictor.forward ({dtype}): device time per batch of 32 {device_us / 1e3:.3f} ms "
           f"({32e6 / device_us:.1f} samples/s on the card's clock; idle share "
           f"{1 - device_us / 1e3 / fwd_ms:.1%} of the event-timed forward)", flush=True)
@@ -1219,6 +1340,7 @@ def trace(torch, fn):
             torch.cuda.synchronize()
             prof.step()
     counts = {k: [0] * len(symbols) for k, symbols in KERNEL_NAMES.items()}
+    counts.update({k: [0] for k in ROUTE_NAMES})
     device_us, by_name = 0.0, {}
     for evt in prof.events():
         # the schedule's step annotation spans the step on the device
@@ -1231,18 +1353,24 @@ def trace(torch, fn):
             for i, symbol in enumerate(symbols):
                 if symbol in evt.name:
                     counts[key][i] += 1
+        for key, symbol in ROUTE_NAMES.items():
+            counts[key][0] += symbol in evt.name
     return counts, device_us, by_name
 
 
-def traced_launches(torch, fn, expected, label):
+def traced_launches(torch, fn, expected, label, d64=False):
     """Every kernel symbol launched exactly ``expected[key]`` times in a
-    profiler trace of ``fn``. A trace can drop a launch record (seen once in a
-    10-launch trace), never add one: up to 3 traces, the first with every
-    count exact passes. Returns the device time (us) and the time by kernel
-    name of that trace."""
-    by_symbols = {k: 0 for k in KERNEL_NAMES}
+    profiler trace of ``fn``, the generic attention forward never, and the
+    float32 attention forward at D = 64 (``ROUTE_NAMES``) as often as the
+    attention forward if ``d64``, else never. A trace can drop a launch
+    record (seen once in a 10-launch trace), never add one: up to 3 traces,
+    the first with every count exact passes. Returns the device time (us)
+    and the time by kernel name of that trace."""
+    by_symbols = {k: 0 for k in (*KERNEL_NAMES, *ROUTE_NAMES)}
     for key, per_call in expected.items():
         by_symbols[TRACED_AS.get(key, key)] += per_call
+    if d64:
+        by_symbols["attn_fwd_d64"] = by_symbols["attn_fwd"]
     expected = by_symbols
     for attempt in range(3):
         counts, device_us, by_name = trace(torch, fn)
@@ -1293,7 +1421,14 @@ def train_inputs(np, n):
     return adj, sc, synthetic_traffic_npz(num_nodes=n, seq_len=288 * 14)
 
 
-def train_phase(torch, dev):
+def train_phase(torch, dev, config="PEMS08", epochs=True):
+    """The float32 train step of ``config`` at batch 32: one step on the
+    kernels against one on the plain versions (loss and every gradient
+    within TRAIN_TOL), the launches of a step by counter and profiler, the
+    step time; then, with ``epochs``, a 1+1-epoch ``Trainer.train()`` whose
+    best checkpoint a Predictor serves, else TRAIN_STEPS more steps with a
+    finite loss. Returns the launches of the epochs or of those steps and
+    the traced step's device time (ms)."""
     import dataclasses
     import shutil
 
@@ -1305,9 +1440,9 @@ def train_phase(torch, dev):
 
     PlainTrainer = with_plain_history(Trainer)
 
-    save_dir = HERE / "experiments" / "chip_smoke"
+    save_dir = HERE / "experiments" / f"chip_smoke_{config}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"), batch_size=32,
+    cfg = load_config(str(HERE / "examples" / "configs" / f"{config}.json"), batch_size=32,
                       train_epochs=1, finetune_epochs=1, save_dir=str(save_dir))
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla",
                                     save_dir=str(save_dir / "plain"))
@@ -1318,7 +1453,7 @@ def train_phase(torch, dev):
     plain = PlainTrainer(plain_cfg, data=data, adj_matrix=adj, sc_matrix=sc, device=dev)
     plain.model.load_state_dict(tr.model.state_dict())
     n_params = sum(p.numel() for p in tr.model.parameters())
-    print(f"Trainer: PEMS08 config at batch 32 ({cfg.encoder_num_layers}+"
+    print(f"Trainer: {config} config at batch 32 ({cfg.encoder_num_layers}+"
           f"{cfg.decoder_num_layers} layers, d_model {cfg.d_model}, his_len {cfg.his_len}), "
           f"{n_params} random parameters (seed {cfg.seed}), synthetic series [N={n}, "
           f"T={data.shape[0]}], {len(tr.train_dataset)} train / {len(tr.val_dataset)} val / "
@@ -1358,7 +1493,8 @@ def train_phase(torch, dev):
     require(step_launches == LAUNCHES_PER_STEP,
             f"one train step launched {step_launches}, expected {LAUNCHES_PER_STEP}")
     device_us, by_name = traced_launches(torch, lambda: tr.train_step(src, tgt, kl, *lr),
-                                         LAUNCHES_PER_STEP, "one train step at batch 32")
+                                         LAUNCHES_PER_STEP, f"one {config} train step at batch 32",
+                                         d64=cfg.d_model == 64)
 
     # 3. step time, kernels against plain
     step_ms = time_ms(lambda: tr.train_step(src, tgt, kl, *lr), reps=10)
@@ -1373,6 +1509,20 @@ def train_phase(torch, dev):
           + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kernel.items())
           + f", other {device_us / 1e3 - sum(by_kernel.values()):.3f} ms", flush=True)
     del plain
+    if not epochs:
+        # 4. a few more steps on other windows
+        batches = list(tr.train_dataset.batch_starts(cfg.batch_size, shuffle=True, seed=1,
+                                                     drop_last=True))[:TRAIN_STEPS]
+        _build.reset_launches()
+        losses = torch.stack([tr.train_step_idx(s_b, kl, *lr)[0] for s_b in batches]).cpu().numpy()
+        launches = dict(_build.LAUNCHES)
+        print(f"  {len(batches)} more {config} train steps: losses {losses.tolist()}; launches "
+              f"{launches}", flush=True)
+        require(np.isfinite(losses).all(), f"a {config} train step gave a non-finite loss")
+        require(launches == {k: len(batches) * v for k, v in LAUNCHES_PER_STEP.items()},
+                f"{len(batches)} {config} train steps launched {launches}")
+        shutil.rmtree(save_dir, ignore_errors=True)
+        return launches, device_us / 1e3
 
     # 4. a short two-phase train (one main, one finetune epoch), then serve
     # its best checkpoint
@@ -1421,10 +1571,10 @@ def train_phase(torch, dev):
             f"the checkpoint's Predictor launched {served_launches}")
     require(serve_err <= 1e-5, f"the checkpoint serves other forecasts ({serve_err:.3e})")
     shutil.rmtree(save_dir, ignore_errors=True)
-    return launches
+    return launches, device_us / 1e3
 
 
-def check_bf16_step(torch, np, label, names, kernels, plain, f32, pooled=False):
+def check_bf16_step(torch, np, label, names, kernels, plain, f32, pooled=False, witness=None):
     """A bfloat16 step on the kernels against the same step on the plain
     bfloat16 versions, both against the float32 step (each ``(loss,
     gradients)``): the loss no further from the plain step than the plain
@@ -1436,12 +1586,16 @@ def check_bf16_step(torch, np, label, names, kernels, plain, f32, pooled=False):
     rule of :func:`within_bf16_spread` is required of all gradients as one
     vector, each normalised as above (phase 5: with dropout the lags' and
     the last gates' distances are rounding noise of the plain step's own
-    size, PERF.md)."""
+    size, PERF.md). ``witness`` (phase 6), the plain step on the CPU with the
+    same masks: the same rounding points, other float32 sum orders. Its
+    distance from the plain step is printed beside the kernels', and the
+    pooled rule is required on the mean only (at SYNTH the maximum is one
+    lag gradient's rounding noise, which the witness also fails; PERF.md)."""
     (k_loss, k_grads), (p_loss, p_grads), (f_loss, f_grads) = kernels, plain, f32
     require(np.isfinite(k_loss) and all(torch.isfinite(g).all().item() for g in k_grads),
             f"{label} on the kernels: non-finite loss or gradient")
     f_by = dict(zip(names, f_grads))
-    rows, k_all, q_all = [], [], []
+    rows, k_all, q_all, scales = [], [], [], []
     for name, gk, gp, gf in zip(names, k_grads, p_grads, f_grads):
         scale = gf.abs().max().item()
         if name.endswith("key_conv.bias"):
@@ -1449,6 +1603,7 @@ def check_bf16_step(torch, np, label, names, kernels, plain, f32, pooled=False):
             scale = max(f_by[prefix + c + "_conv.bias"].abs().max().item()
                         for c in ("query", "value", "out"))
         scale = scale if scale > 0 else 1.0  # a parameter the model does not use (a gate)
+        scales.append(scale)
         k, q = (gk - gp).abs().double() / scale, (gp - gf).abs().double() / scale
         k_all.append(k.reshape(-1))
         q_all.append(q.reshape(-1))
@@ -1486,9 +1641,23 @@ def check_bf16_step(torch, np, label, names, kernels, plain, f32, pooled=False):
         print(f"  {label}, the {k_all.numel()} gradient elements as one vector: kernels vs "
               f"plain bfloat16 max {k[0]:.3e} mean {k[1]:.3e}; plain bfloat16 vs float32 max "
               f"{q[0]:.3e} mean {q[1]:.3e}", flush=True)
-        require(within_bf16_spread(k, q), f"{label} gradients: kernels {k[0]:.3e} (mean "
-                f"{k[1]:.3e}) from the plain versions, which are {q[0]:.3e} (mean {q[1]:.3e}) "
-                "from float32")
+        if witness is None:
+            require(within_bf16_spread(k, q), f"{label} gradients: kernels {k[0]:.3e} (mean "
+                    f"{k[1]:.3e}) from the plain versions, which are {q[0]:.3e} (mean "
+                    f"{q[1]:.3e}) from float32")
+            return
+        w_loss, w_grads = witness
+        w_all = torch.cat([((gw.to(gp.device) - gp).abs().double() / scale).reshape(-1)
+                           for gw, gp, scale in zip(w_grads, p_grads, scales)])
+        w = (w_all.max().item(), w_all.mean().item())
+        print(f"  {label}, witness: the plain step on the CPU with the same masks vs on the card: "
+              f"loss {abs(w_loss - p_loss):.3e}, gradients max {w[0]:.3e} mean {w[1]:.3e}; "
+              f"phase 5's rule (max within the plain step's distance from float32, half of it "
+              f"on the mean) {'holds' if within_bf16_spread(w, q) else 'fails'} for the "
+              f"witness and {'holds' if within_bf16_spread(k, q) else 'fails'} for the kernels; "
+              "required here: the mean", flush=True)
+        require(k[1] <= 0.5 * q[1], f"{label} gradients: kernels mean {k[1]:.3e} from the "
+                f"plain versions, which are mean {q[1]:.3e} from float32")
         return
     for name, k, q, ok in rows:
         require(ok, f"{label} gradient {name}: kernels {k[0]:.3e} (mean {k[1]:.3e}) "
@@ -1682,29 +1851,51 @@ def teacher_forced_dropout(torch, fwd_calls, bwd_calls):
             "a bfloat16 dropout attention sublayer's backward disagrees with its plain version")
 
 
-def train_dropout_phase(torch, dev):
-    """Training at dropout DROPOUT, PEMS08 width and depth, batch 32, in
+class CardMasks:
+    """A CPU model's mask source that draws each site's keep mask on the card
+    (``DropoutMasks`` seeds a generator per site on the device it is asked
+    for) and hands it to the CPU: the masks of the card's trainers."""
+
+    def __init__(self, masks, dev):
+        self.masks, self.dev = masks, dev
+
+    def set_step(self, seed):
+        self.masks.set_step(seed)
+
+    def start(self):
+        self.masks.start()
+
+    def keep(self, shape, keep, device):
+        return self.masks.keep(shape, keep, self.dev).to(device)
+
+
+def train_dropout_phase(torch, dev, config="PEMS08"):
+    """Training at dropout DROPOUT, ``config`` width and depth, batch 32, in
     float32 and then in bfloat16. Per dtype: one step on the kernels against
     the same step on the plain versions with the same masks (both trainers'
     mask sources seeded for the same step), under phase 3's rule in float32
     and phase 4's in bfloat16 (against the float32 step with the same
     masks); the launches of a step by counter and profiler (the dropout
     forms of K4 and K5, no K2 and no K3); the step time; DROPOUT_STEPS more
-    steps with their own masks and a finite loss. Returns, per dtype, the
-    launches of those steps and the traced step's device time (ms)."""
+    steps with their own masks and a finite loss. At SYNTH (phase 6) the
+    bfloat16 step's gradients are also held against a witness, the plain
+    step on the CPU with the same masks (:func:`check_bf16_step`). Returns,
+    per dtype, the launches of those steps and the traced step's device time
+    (ms)."""
     import dataclasses
     import shutil
 
     import numpy as np
 
     from paddlexde_tpu_torch.models.d3stn import Trainer, load_config
+    from paddlexde_tpu_torch.models.d3stn.model import DropoutMasks
     from paddlexde_tpu_torch.ops import _build, attn
     from paddlexde_tpu_torch.ops.timing import time_ms
 
     PlainTrainer = with_plain_history(Trainer)
-    save_dir = HERE / "experiments" / "chip_smoke_dropout"
+    save_dir = HERE / "experiments" / f"chip_smoke_dropout_{config}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"), batch_size=32,
+    cfg = load_config(str(HERE / "examples" / "configs" / f"{config}.json"), batch_size=32,
                       dropout=DROPOUT, train_epochs=1, finetune_epochs=0)
     adj, sc, data = train_inputs(np, cfg.num_nodes)
     results = {}
@@ -1720,9 +1911,14 @@ def train_dropout_phase(torch, dev):
             others.append(Trainer(dataclasses.replace(dcfg, compute_dtype="float32",
                                                       save_dir=str(save_dir / f"{dtype}_f32")),
                                   data=data, adj_matrix=adj, sc_matrix=sc, device=dev))
+        if bf16 and config == "SYNTH":
+            others.append(Trainer(dataclasses.replace(dcfg, attn_impl="xla", gcn_impl="xla",
+                                                      save_dir=str(save_dir / f"{dtype}_cpu")),
+                                  data=data, adj_matrix=adj, sc_matrix=sc, device="cpu"))
+            others[-1].model.dropout_masks = CardMasks(DropoutMasks(dcfg.seed), dev)
         for other in others:
             other.model.load_state_dict(tr.model.state_dict())
-        print(f"{dtype} Trainer at dropout {cfg.dropout}: PEMS08 config at batch 32 "
+        print(f"{dtype} Trainer at dropout {cfg.dropout}: {config} config at batch 32 "
               f"({cfg.encoder_num_layers}+{cfg.decoder_num_layers} layers, d_model "
               f"{cfg.d_model}), random parameters (seed {cfg.seed}); built in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1734,25 +1930,28 @@ def train_dropout_phase(torch, dev):
         outs, fwd_calls, bwd_calls = [], [], []
         for trainer in (tr, *others):
             trainer.set_dropout_step(0, 0)
+            on_cpu = trainer.device.type == "cpu"
             with recording(attn, "fused_temporal_attention_bf16_kernel", fwd_calls,
                            trainer is tr and bf16), \
                     recording(attn, "fused_temporal_attention_bwd_bf16_kernel", bwd_calls,
                               trainer is tr and bf16):
-                total, _, _ = trainer.loss_fn(src, tgt, kl)
+                total, _, _ = trainer.loss_fn(src.cpu() if on_cpu else src,
+                                              tgt.cpu() if on_cpu else tgt, kl)
                 grads = torch.autograd.grad(total, trainer.state_tensors(),
                                             materialize_grads=True)
             outs.append((total.item(), grads))
         if bf16:
-            check_bf16_step(torch, np, "bfloat16 dropout train step", tr.state_names, *outs,
-                            pooled=True)
+            check_bf16_step(torch, np, f"{config} bfloat16 dropout train step", tr.state_names,
+                            *outs[:3], pooled=True, witness=outs[3] if len(outs) > 3 else None)
             teacher_forced_dropout(torch, fwd_calls, bwd_calls)
         else:
             (k_loss, k_grads), (p_loss, p_grads) = outs
             loss_err = abs(k_loss - p_loss) / abs(p_loss)
             errs = grad_errors(tr.state_names, k_grads, p_grads)
             worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
-            print(f"  float32 dropout train step at batch 32, kernels vs plain versions on the "
-                  f"card with the same masks: loss {k_loss:.6f} vs {p_loss:.6f}, relative err "
+            print(f"  {config} float32 dropout train step at batch 32, kernels vs plain versions "
+                  f"on the card with the same masks: loss {k_loss:.6f} vs {p_loss:.6f}, "
+                  f"relative err "
                   f"{loss_err:.3e}; {len(errs)} gradient tensors, max normalised err "
                   f"{worst[0][1]:.3e} (tol {TRAIN_TOL:g}); largest: "
                   + ", ".join(f"{k} {v:.2e}" for k, v in worst), flush=True)
@@ -1776,7 +1975,8 @@ def train_dropout_phase(torch, dev):
         require(step_launches == per_step,
                 f"one {dtype} dropout train step launched {step_launches}, expected {per_step}")
         device_us, by_name = traced_launches(torch, lambda: tr.train_step(src, tgt, kl, *lr),
-                                             per_step, f"one {dtype} dropout train step")
+                                             per_step, f"one {config} {dtype} dropout train step",
+                                             d64=cfg.d_model == 64)
 
         # 3. step time
         step_ms = time_ms(lambda: tr.train_step(src, tgt, kl, *lr), reps=10)
@@ -1836,15 +2036,31 @@ def main():
     bf16_launches, bf16_ms, _ = predictor_phase(torch, dev, "bfloat16", f32_outs)
     print(f"serving device time per batch of 32: float32 {f32_ms:.3f} ms, bfloat16 "
           f"{bf16_ms:.3f} ms", flush=True)
-    train_launches = train_phase(torch, dev)
+    train_launches, _ = train_phase(torch, dev)
     bf16_train_launches, bf16_step_ms = train_bf16_phase(torch, dev)
     print(f"bfloat16 train step device time at batch 32: {bf16_step_ms:.3f} ms", flush=True)
     dropout = train_dropout_phase(torch, dev)
     print("dropout train step device time at batch 32: "
           + ", ".join(f"{dtype} {ms:.3f} ms" for dtype, (_, ms) in dropout.items()), flush=True)
-    launches = {k: serve_launches[k] + bf16_launches[k] + train_launches[k]
-                + bf16_train_launches[k] + sum(d[0][k] for d in dropout.values())
-                for k in kernels}
+    # phase 6: SYNTH (D = 64, 4 heads, N = 16, with_adj) served and trained
+    synth_serve, synth_serve_ms, _ = predictor_phase(torch, dev, config="SYNTH")
+    synth_train, synth_step_ms = train_phase(torch, dev, "SYNTH", epochs=False)
+    synth_dropout = train_dropout_phase(torch, dev, "SYNTH")
+    print(f"SYNTH device time at batch 32: serving {synth_serve_ms:.3f} ms, float32 train step "
+          f"{synth_step_ms:.3f} ms, dropout train step "
+          + ", ".join(f"{dtype} {ms:.3f} ms" for dtype, (_, ms) in synth_dropout.items()),
+          flush=True)
+    pems = [serve_launches, bf16_launches, train_launches, bf16_train_launches,
+            *(d[0] for d in dropout.values())]
+    synth = [synth_serve, synth_train, *(d[0] for d in synth_dropout.values())]
+    launches = {}
+    for name in kernels:
+        if name.endswith("_d64"):  # the float32 attention forward at SYNTH's D = 64
+            launches[name] = sum(run[name[: -len("_d64")]] for run in synth)
+        elif name in ("attn_fwd", "attn_fwd_dropout"):  # at PEMS08's D = 128
+            launches[name] = sum(run[name] for run in pems)
+        else:
+            launches[name] = sum(run[name] for run in pems + synth)
     for name in kernels:
         require(launches[name] > 0, f"{name} was never launched on the main paths")
     print(card)

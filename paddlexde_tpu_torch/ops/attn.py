@@ -42,6 +42,7 @@ __all__ = [
     "fused_temporal_attention_bwd_bf16_kernel",
     "bwd_errors",
     "bf16_dw_splits",
+    "f32_fwd_route",
 ]
 
 _IMPLS = ("auto", "xla", "pallas")
@@ -279,11 +280,14 @@ def _bwd_plain_bf16(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g, causal_q: b
 def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo,
                                     causal_q: bool, causal_kv: bool, is_mask: bool,
                                     heads: int, dropout_mask=None):
-    """The CUDA forward kernel (float32, no autograd). At D3STN's shape one
-    call launches the weight-bank split and the fused kernel and counts
-    once. With ``dropout_mask`` (:func:`fused_temporal_attention_plain`) it
-    launches the dropout form of the D3STN kernel, which takes D3STN's
-    shape at D = 128 only, and counts under ``attn_fwd_dropout``."""
+    """The CUDA forward kernel (float32, no autograd). At D3STN's shapes (T =
+    12, K = 3, head dim 16, D = 128 with 8 heads or D = 64 with 4, its three
+    flag sets) one call launches the weight-bank split and the tensor-core
+    ``attn_fwd_d3stn_kernel`` and counts once; other shapes take the generic
+    CUDA-core kernel (:func:`f32_fwd_route`). With ``dropout_mask``
+    (:func:`fused_temporal_attention_plain`) it launches the dropout form of
+    the D3STN kernel, at D3STN's shapes only, and counts under
+    ``attn_fwd_dropout``."""
     arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo)
     if not mq.is_cuda:
         raise ValueError("fused_temporal_attention_kernel needs CUDA tensors")
@@ -302,22 +306,13 @@ def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo
             raise ValueError(f"conv biases must be [{d}], got {tuple(bias.shape)}")
     if is_mask and t_q != t_k:
         raise ValueError(f"the causal mask needs Tq == Tk, got {t_q} and {t_k}")
-    if d % 32 or d > 1024 or d % heads or t_q > 16 or t_k > 16:
-        raise ValueError(
-            f"the attention kernel takes D a multiple of 32 (<= 1024) split "
-            f"evenly over heads and T <= 16; got D={d}, heads={heads}, "
-            f"Tq={t_q}, Tk={t_k}"
-        )
+    route = f32_fwd_route(mq, mk, wq, causal_q, causal_kv, is_mask, heads,
+                          dropout_mask is not None)
     if dropout_mask is not None:
-        _check_d3stn_shape("float32 attention dropout", mq, mk, wq, causal_q, causal_kv,
-                           is_mask, heads, "runs it at other widths")
-        if d != 128:
-            raise ValueError(f"the float32 attention dropout kernel takes D = 128 (8 heads), "
-                             f"got D={d}; attn_impl=\"xla\" runs other widths")
         dropout_mask = _check_mask(dropout_mask, mq, mk, heads)
     lib = _build.library("attn")
     smem = lib.pxt_attn_fwd_smem_bytes(t_q, t_k, d, heads)
-    if smem > 232448:
+    if route == "generic" and smem > 232448:
         raise ValueError(f"D={d}, T={t_q}/{t_k} needs {smem} B of shared memory (> 227 KB)")
     arrays = [a.contiguous() for a in arrays]
     ptrs = (ctypes.c_void_p * 11)(*[a.data_ptr() for a in arrays])
@@ -348,17 +343,49 @@ def fused_temporal_attention_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo
 _BWD_FLAGS = ((False, False, False), (True, True, True), (True, False, False))
 
 
-def _check_d3stn_shape(kernel, mq, mk, wq, causal_q, causal_kv, is_mask, heads, other):
+def _is_d3stn_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads) -> bool:
+    """T = 12, K = 3, head dim 16 with D = 128 (8 heads) or 64 (4 heads), and
+    one of D3STN's three flag sets (``fast::covers`` in ``csrc/attn.cu``)."""
     d, t_q, t_k, ks = mq.shape[-1], mq.shape[-2], mk.shape[-2], wq.shape[0]
     flags = (bool(causal_q), bool(causal_kv), bool(is_mask))
-    if not (t_q == t_k == 12 and ks == 3 and d in (64, 128) and heads == d // 16
-            and flags in _BWD_FLAGS):
+    return (t_q == t_k == 12 and ks == 3 and d in (64, 128) and heads == d // 16
+            and flags in _BWD_FLAGS)
+
+
+def _check_d3stn_shape(kernel, mq, mk, wq, causal_q, causal_kv, is_mask, heads, other):
+    if not _is_d3stn_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads):
+        d, t_q, t_k, ks = mq.shape[-1], mq.shape[-2], mk.shape[-2], wq.shape[0]
+        flags = (bool(causal_q), bool(causal_kv), bool(is_mask))
         raise ValueError(
             f"the {kernel} kernel takes T = 12, K = 3, head dim 16 with "
             "D = 128 (8 heads) or 64 (4 heads) and D3STN's three flag sets; got "
             f"mq {tuple(mq.shape)}, mk {tuple(mk.shape)}, K={ks}, heads={heads}, "
             f"(causal_q, causal_kv, is_mask)={flags}; attn_impl=\"xla\" {other}"
         )
+
+
+def f32_fwd_route(mq, mk, wq, causal_q: bool, causal_kv: bool, is_mask: bool, heads: int,
+                  dropout: bool = False) -> str:
+    """Which CUDA kernel :func:`fused_temporal_attention_kernel` launches for
+    these shapes (read from the shapes alone, on any device): ``"d3stn"``,
+    the tensor-core ``attn_fwd_d3stn_kernel`` (D3STN's shapes, with or
+    without ``dropout``), or ``"generic"``, the CUDA-core ``attn_fwd_kernel``
+    (D a multiple of 32 up to 1024 split evenly over the heads, T <= 16; it
+    has no dropout form). A shape that neither takes raises a
+    ``ValueError`` naming ``attn_impl="xla"``."""
+    if _is_d3stn_shape(mq, mk, wq, causal_q, causal_kv, is_mask, heads):
+        return "d3stn"
+    if dropout:
+        _check_d3stn_shape("float32 attention dropout", mq, mk, wq, causal_q, causal_kv,
+                           is_mask, heads, "runs other shapes")
+    d, t_q, t_k = mq.shape[-1], mq.shape[-2], mk.shape[-2]
+    if d % 32 or d > 1024 or d % heads or t_q > 16 or t_k > 16:
+        raise ValueError(
+            f"the attention kernel takes D a multiple of 32 (<= 1024) split "
+            f"evenly over heads and T <= 16; got D={d}, heads={heads}, "
+            f"Tq={t_q}, Tk={t_k}; attn_impl=\"xla\" runs other shapes"
+        )
+    return "generic"
 
 
 def _check_like(mq, acts, weights):
@@ -729,8 +756,9 @@ def fused_temporal_attention_dropout(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, b
     H*Tk]`` float32 holds the pre-scaled keep weights {0, 1/keep}, head h in
     columns [h*Tk, (h+1)*Tk); the caller draws it, the forward multiplies
     the softmax weights by it and the backward replays it. On the card the
-    kernels take D3STN's shapes (float32 at D = 128 only); other shapes
-    raise a ``ValueError`` naming ``attn_impl="xla"``."""
+    kernels take D3STN's shapes (T = 12, K = 3, head dim 16, D = 128 or 64,
+    its three flag sets) in float32 and bfloat16; other shapes raise a
+    ``ValueError`` naming ``attn_impl="xla"``."""
     kernel = _use_kernel(mq, impl, dtype_name)
     arrays = (mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo)
     if kernel and torch.is_grad_enabled() and any(a.requires_grad for a in arrays):

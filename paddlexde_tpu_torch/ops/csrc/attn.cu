@@ -23,24 +23,26 @@
 // instantiation of attn_fwd_d3stn_kernel (entry pxt_attn_fwd_f32_dropout);
 // the generic kernel has no dropout form.
 //
-// D3STN's shape (T = 12, D = 128, H = 8, K = 3; every configuration the
-// repo ships at D = 128) and its three flag sets take attn_fwd_d3stn_kernel.
+// D3STN's shapes (T = 12, K = 3, head dim 16, D = 128 with H = 8 or D = 64
+// with H = 4: every configuration the repo ships) and its three flag sets
+// take attn_fwd_d3stn_kernel<D, ...>, with and without dropout.
 // Bound: operations. The four convs are 98% of its work (8 K D^2 T flops per
 // row); they run on the tensor cores in 3xTF32 through tc_conv.cuh (wgmma
-// m64n128k8, float32 accuracy), the attention core on the CUDA cores.
-//   - attn_fwd_wsplit_kernel splits the four weight banks into {big, small}
-//     TF32 halves once per call, in the order the tensor cores read them
-//     (scratch from the caller).
-//   - attn_fwd_d3stn_kernel: one CTA of two warpgroups per 8 (batch, node)
-//     rows (96 positions; half of the second warpgroup's m64 tile is
-//     padding, since 16-row tiles would not fit q, k, P and the weight
-//     stages in shared memory). mq and mk are staged in two shared tiles
-//     (cp.async); the q and k
-//     convs run in place; the scores, scale, mask and row softmax of each
-//     (row, head, query step) go to a shared [8, H, T, T] buffer; vs is
-//     staged over q, its conv runs in place and is replaced by P v column by
-//     column; the out conv writes y. Nothing but the inputs, y and the split
-//     banks touches device memory. 183 KB of shared memory: one CTA per SM.
+// m64nDk8, float32 accuracy), the attention core on the CUDA cores.
+//   - attn_fwd_wsplit_kernel<D> splits the four weight banks into {big,
+//     small} TF32 halves once per call, in the order the tensor cores read
+//     them (scratch from the caller).
+//   - attn_fwd_d3stn_kernel<D, ...>: one CTA of two warpgroups per 8
+//     (batch, node) rows (96 positions; half of the second warpgroup's m64
+//     tile is padding, since 16-row tiles would not fit q, k, P and the
+//     weight stages in shared memory at D = 128). mq and mk are staged in
+//     two shared tiles (cp.async); the q and k convs run in place; the
+//     scores, scale, mask and row softmax of each (row, head, query step)
+//     go to a shared [8, H, T, T] buffer; vs is staged over q, its conv runs
+//     in place and is replaced by P v column by column; the out conv writes
+//     y. Nothing but the inputs, y and the split banks touches device
+//     memory. Shared memory: 183 KB at D = 128 (one CTA per SM), 93 KB at
+//     D = 64 (SYNTH at batch 32: 512 rows, 64 CTAs on 132 SMs).
 //     The convs read the next weight chunk's A fragments while the tensor
 //     cores run the current one (tc::conv at 256 threads).
 //
@@ -48,7 +50,7 @@
 // one thread per output feature (blockDim = D), the rows' inputs staged in
 // shared memory, each conv's kNodes x T outputs of a feature in registers
 // and W read from global memory (L2-resident); bound by operations in
-// float32 on the CUDA cores.
+// float32 on the CUDA cores. No configuration the repo ships reaches it.
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -238,26 +240,28 @@ int launch(const void* const* p, void* out, int64_t rows, int tq, int tk,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// D3STN shape: T = 12, D = 128, H = 8, K = 3 (every configuration the repo
-// ships) and D3STN's three flag sets. See the head of this file.
+// D3STN shape: T = 12, K = 3, head dim 16, D = 128 (H = 8) or D = 64 (H = 4)
+// (every configuration the repo ships) and D3STN's three flag sets. See the
+// head of this file.
 // ---------------------------------------------------------------------------
 
 namespace fast {
 
-constexpr int T = tc::T, D = 128, H = 8, K = tc::K;
-constexpr int DH = D / H;  // 16 features per head
+constexpr int T = tc::T, K = tc::K;
+constexpr int DH = 16;   // features per head
 constexpr int ROWS = 8;  // rows per CTA: 96 positions, two warpgroups
-using G = tc::Geo<D, ROWS>;
-constexpr int64_t BANK = tc::Bank<D>::SIZE;
 
+template <int D>
 struct Smem {
-  float a[G::TILE];                 // mq -> q, then vs -> v -> P v
-  float b[G::TILE];                 // mk -> k
+  static constexpr int H = D / DH;
+  float a[tc::Geo<D, ROWS>::TILE];  // mq -> q, then vs -> v -> P v
+  float b[tc::Geo<D, ROWS>::TILE];  // mk -> k
   float w[tc::Bank<D>::STAGES];     // weight stages
   float p[ROWS][H][T][T];           // softmax rows
 };
 
 // the four [K, D, D] banks -> split banks (tc::bank_index order)
+template <int D>
 __global__ void attn_fwd_wsplit_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
                                        const float* __restrict__ wv, const float* __restrict__ wo,
                                        float* __restrict__ ws) {
@@ -267,15 +271,17 @@ __global__ void attn_fwd_wsplit_kernel(const float* __restrict__ wq, const float
   const int i = (int)(idx / W);
   const int r = (int)(idx - i * W);
   const float* w = i == 0 ? wq : i == 1 ? wk : i == 2 ? wv : wo;
-  tc::put_split<D>(ws + i * BANK, r / (D * D), (r / D) % D, r % D, w[r]);
+  tc::put_split<D>(ws + i * tc::Bank<D>::SIZE, r / (D * D), (r / D) % D, r % D, w[r]);
 }
 
 // scores of the tile's q (s.a) and k (s.b) per (row, head, query step),
 // scaled and masked, and their row softmax -> s.p; with DROP times the keep
 // mask's row of (row, query step, head), dm[row][i][h T + j]
-template <bool MASK, bool DROP>
-__device__ __forceinline__ void softmax_rows(Smem& s, const float* __restrict__ dm,
+template <int D, bool MASK, bool DROP>
+__device__ __forceinline__ void softmax_rows(Smem<D>& s, const float* __restrict__ dm,
                                              int64_t row0, int n_rows) {
+  using G = tc::Geo<D, ROWS>;
+  constexpr int H = Smem<D>::H;
   const float scale = 1.f / sqrtf((float)DH);
   for (int item = threadIdx.x; item < ROWS * H * T; item += G::THREADS) {
     const int i = item % T;
@@ -319,6 +325,7 @@ __device__ __forceinline__ void softmax_rows(Smem& s, const float* __restrict__ 
     for (int j = 0; j < T; j += 4) {
       float4 p = make_float4(row[j] / sum, row[j + 1] / sum, row[j + 2] / sum, row[j + 3] / sum);
       if (DROP) {
+        // the mask row is H T floats (96 at D = 128, 48 at D = 64): 16-byte aligned
         float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
         if (r < n_rows)
           m = __ldg(reinterpret_cast<const float4*>(dm + ((row0 + r) * T + i) * (H * T) + h * T + j));
@@ -331,7 +338,9 @@ __device__ __forceinline__ void softmax_rows(Smem& s, const float* __restrict__ 
 
 // s.a (v) <- P v, one (row, feature) column per step: a column reads and
 // writes only itself, so the update is in place
-__device__ __forceinline__ void apply_p(Smem& s) {
+template <int D>
+__device__ __forceinline__ void apply_p(Smem<D>& s) {
+  using G = tc::Geo<D, ROWS>;
   for (int col = threadIdx.x; col < ROWS * D; col += G::THREADS) {
     const int f = col % D;
     const int r = col / D;
@@ -349,15 +358,16 @@ __device__ __forceinline__ void apply_p(Smem& s) {
   }
 }
 
-template <bool CQ, bool CKV, bool MASK, bool DROP>
-__global__ void __launch_bounds__(G::THREADS, 1)
+template <int D, bool CQ, bool CKV, bool MASK, bool DROP>
+__global__ void __launch_bounds__(tc::Geo<D, ROWS>::THREADS, 1)
 attn_fwd_d3stn_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
                       const float* __restrict__ vs, const float* __restrict__ ws,
                       const float* __restrict__ bq, const float* __restrict__ bk,
                       const float* __restrict__ bv, const float* __restrict__ bo,
                       const float* __restrict__ dm, float* __restrict__ out, int64_t rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<D>& s = *reinterpret_cast<Smem<D>*>(smem_raw);
+  constexpr int64_t BANK = tc::Bank<D>::SIZE;
   constexpr int PAD_SAME = (K - 1) / 2;
   constexpr int PQ = CQ ? K - 1 : PAD_SAME;
   constexpr int PKV = CKV ? K - 1 : PAD_SAME;
@@ -373,35 +383,36 @@ attn_fwd_d3stn_kernel(const float* __restrict__ mq, const float* __restrict__ mk
   tc::conv<D, ROWS>(s.b, ws + BANK, s.w, PKV, acc);
   tc::store_tile<D, ROWS>(s.b, acc, bk);
   __syncthreads();
-  softmax_rows<MASK, DROP>(s, dm, row0, n_rows);
+  softmax_rows<D, MASK, DROP>(s, dm, row0, n_rows);
   __syncthreads();
   tc::stage<D, ROWS>(s.a, vs, row0, n_rows);
   __syncthreads();
   tc::conv<D, ROWS>(s.a, ws + 2 * BANK, s.w, PKV, acc);
   tc::store_tile<D, ROWS>(s.a, acc, bv);
   __syncthreads();
-  apply_p(s);
+  apply_p<D>(s);
   __syncthreads();
   tc::conv<D, ROWS>(s.a, ws + 3 * BANK, s.w, PAD_SAME, acc);
   tc::store_global<D, ROWS>(out, row0, n_rows, acc, bo);
 }
 
-template <bool CQ, bool CKV, bool MASK, bool DROP>
+template <int D, bool CQ, bool CKV, bool MASK, bool DROP>
 int launch(const void* const* p, const float* dm, void* out, float* ws, int64_t rows,
            cudaStream_t stream) {
   constexpr int64_t W = (int64_t)K * D * D;
-  attn_fwd_wsplit_kernel<<<(unsigned)((4 * W + 255) / 256), 256, 0, stream>>>(
+  attn_fwd_wsplit_kernel<D><<<(unsigned)((4 * W + 255) / 256), 256, 0, stream>>>(
       (const float*)p[3], (const float*)p[5], (const float*)p[7], (const float*)p[9], ws);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int smem = (int)sizeof(Smem);
-  err = cudaFuncSetAttribute(attn_fwd_d3stn_kernel<CQ, CKV, MASK, DROP>,
+  const int smem = (int)sizeof(Smem<D>);
+  err = cudaFuncSetAttribute(attn_fwd_d3stn_kernel<D, CQ, CKV, MASK, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (rows + ROWS - 1) / ROWS;
-  attn_fwd_d3stn_kernel<CQ, CKV, MASK, DROP><<<(unsigned)blocks, G::THREADS, smem, stream>>>(
-      (const float*)p[0], (const float*)p[1], (const float*)p[2], ws, (const float*)p[4],
-      (const float*)p[6], (const float*)p[8], (const float*)p[10], dm, (float*)out, rows);
+  attn_fwd_d3stn_kernel<D, CQ, CKV, MASK, DROP>
+      <<<(unsigned)blocks, tc::Geo<D, ROWS>::THREADS, smem, stream>>>(
+          (const float*)p[0], (const float*)p[1], (const float*)p[2], ws, (const float*)p[4],
+          (const float*)p[6], (const float*)p[8], (const float*)p[10], dm, (float*)out, rows);
   return (int)cudaGetLastError();
 }
 
@@ -409,17 +420,25 @@ int launch(const void* const* p, const float* dm, void* out, float* ws, int64_t 
 // self-attention, decoder source attention. Other sets take the generic kernel.
 bool covers(int tq, int tk, int d, int heads, int ks, int causal_q, int causal_kv,
             int is_mask) {
-  if (tq != T || tk != T || d != D || heads != H || ks != K) return false;
+  if (tq != T || tk != T || (d != 128 && d != 64) || heads != d / DH || ks != K) return false;
   return (!causal_q && !causal_kv && !is_mask) || (causal_q && causal_kv && is_mask) ||
          (causal_q && !causal_kv && !is_mask);
 }
 
+template <int D, bool DROP>
+int dispatch_d(const void* const* p, const float* dm, void* out, float* ws, int64_t rows,
+               int causal_q, int causal_kv, cudaStream_t stream) {
+  if (!causal_q) return launch<D, false, false, false, DROP>(p, dm, out, ws, rows, stream);
+  if (causal_kv) return launch<D, true, true, true, DROP>(p, dm, out, ws, rows, stream);
+  return launch<D, true, false, false, DROP>(p, dm, out, ws, rows, stream);
+}
+
+// a shape that covers() accepts
 template <bool DROP>
-int dispatch(const void* const* p, const float* dm, void* out, float* ws, int64_t rows,
+int dispatch(const void* const* p, const float* dm, void* out, float* ws, int64_t rows, int d,
              int causal_q, int causal_kv, cudaStream_t stream) {
-  if (!causal_q) return launch<false, false, false, DROP>(p, dm, out, ws, rows, stream);
-  if (causal_kv) return launch<true, true, true, DROP>(p, dm, out, ws, rows, stream);
-  return launch<true, false, false, DROP>(p, dm, out, ws, rows, stream);
+  if (d == 128) return dispatch_d<128, DROP>(p, dm, out, ws, rows, causal_q, causal_kv, stream);
+  return dispatch_d<64, DROP>(p, dm, out, ws, rows, causal_q, causal_kv, stream);
 }
 
 }  // namespace fast
@@ -449,7 +468,8 @@ extern "C" int pxt_attn_fwd_f32(const void* const* p, void* out, void* scratch, 
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (fast::covers(tq, tk, d, heads, ks, causal_q, causal_kv, is_mask))
-    return fast::dispatch<false>(p, nullptr, out, (float*)scratch, rows, causal_q, causal_kv, s);
+    return fast::dispatch<false>(p, nullptr, out, (float*)scratch, rows, d, causal_q, causal_kv,
+                                 s);
   const int smem = pxt_attn_fwd_smem_bytes(tq, tk, d, heads);
   if (tq <= 12 && tk <= 12)
     return launch<12>(p, out, rows, tq, tk, d, heads, ks, causal_q, causal_kv,
@@ -458,7 +478,7 @@ extern "C" int pxt_attn_fwd_f32(const void* const* p, void* out, void* scratch, 
                     is_mask, smem, s);
 }
 
-// the dropout form at D3STN's shape only; dmask: float32 [rows, 12, 8 * 12]
+// the dropout form at D3STN's shapes only; dmask: float32 [rows, 12, (d / 16) * 12]
 extern "C" int pxt_attn_fwd_f32_dropout(const void* const* p, const void* dmask, void* out,
                                         void* scratch, int64_t rows, int tq, int tk, int d,
                                         int heads, int ks, int causal_q, int causal_kv,
@@ -466,7 +486,7 @@ extern "C" int pxt_attn_fwd_f32_dropout(const void* const* p, const void* dmask,
   if (!fast::covers(tq, tk, d, heads, ks, causal_q, causal_kv, is_mask))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  return fast::dispatch<true>(p, (const float*)dmask, out, (float*)scratch, rows, causal_q,
+  return fast::dispatch<true>(p, (const float*)dmask, out, (float*)scratch, rows, d, causal_q,
                               causal_kv, (cudaStream_t)stream);
 }
 

@@ -12,8 +12,10 @@ max-abs error <= 1e-4, TF32 off; the attention gradients by
 plain version's time (CUDA events) and both bounds of ``ops/timing.py``
 (float32 on the CUDA cores, and the products in 3xTF32 on the tensor cores).
 The GCN kernels take D=64 and D=128 on the tensor cores (every shipped
-configuration); attention forward shapes other than D3STN's at D=128
-(SYNTH) take the generic attention kernel. The bfloat16 forwards (GCN with x
+configuration), and so does the float32 attention forward
+(``attn_fwd_d3stn_kernel``), which is also held and timed in its dropout
+form with a dropout-0.1 keep mask against the plain version on the same
+mask. The bfloat16 forwards (GCN with x
 float32, as D3STN passes it, and attention) are held against their plain
 bfloat16 versions (within one bfloat16 ulp at the top binade on at most 1%
 of elements, ``ops/compare.py``) and timed against the bfloat16 bound, and
@@ -211,19 +213,28 @@ def _attn(name, n, d, heads, ks, gen, dev):
     for _ in range(4):
         weights.append((2 * torch.rand(ks, d, d, generator=gen, device=dev) - 1) * lim)
         weights.append(0.1 * torch.randn(d, generator=gen, device=dev))
-    errs, times, plain_times = [], [], []
+    keep = 0.9
+    mask = (torch.rand(BATCH, n, T_LEN, heads * T_LEN, generator=gen, device=dev) < keep).float()
+    mask /= keep
+    res = {key: [] for key in ("err", "ms", "plain_ms", "drop_err", "drop_ms", "drop_plain_ms")}
     for flags in ((False, False, False), (True, True, True), (True, False, False)):
         args = (mq, mk, vs, *weights, *flags, heads)
-        run = lambda: attn.fused_temporal_attention_kernel(*args)  # noqa: E731
-        errs.append(_norm_err(run(), attn.fused_temporal_attention_plain(*args)))
-        times.append(device_ms(run, "attn_fwd_"))
-        plain_times.append(time_ms(lambda: attn.fused_temporal_attention_plain(*args)))
-    if max(errs) > TOL:
-        raise RuntimeError(f"{name}: attention error {max(errs):.3e} > {TOL:g}")
-    d3stn = (d, heads, ks) == (128, 8, 3)
-    return {"err": max(errs), "ms": sum(times) / 3, "plain_ms": sum(plain_times) / 3,
-            **_bounds(attn_work(BATCH, n, T_LEN, d, heads, ks)),
-            "kernel": "d3stn" if d3stn else "generic"}
+        for drop, m in (("", None), ("drop_", mask)):
+            run = lambda: attn.fused_temporal_attention_kernel(*args, m)  # noqa: E731
+            plain = lambda: attn.fused_temporal_attention_plain(*args, "float32", m)  # noqa: E731
+            res[drop + "err"].append(_norm_err(run(), plain()))
+            res[drop + "ms"].append(device_ms(run, "attn_fwd_"))
+            res[drop + "plain_ms"].append(time_ms(plain))
+    if max(res["err"] + res["drop_err"]) > TOL:
+        raise RuntimeError(f"{name}: attention error {max(res['err'] + res['drop_err']):.3e} > "
+                           f"{TOL:g}")
+    route = attn.f32_fwd_route(mq, mk, weights[0], False, False, False, heads)
+    drop_bounds = _bounds(attn_work(BATCH, n, T_LEN, d, heads, ks, dropout=True))
+    return {"err": max(res["err"]), "ms": sum(res["ms"]) / 3,
+            "plain_ms": sum(res["plain_ms"]) / 3,
+            **_bounds(attn_work(BATCH, n, T_LEN, d, heads, ks)), "kernel": route,
+            "dropout": {"err": max(res["drop_err"]), "ms": sum(res["drop_ms"]) / 3,
+                        "plain_ms": sum(res["drop_plain_ms"]) / 3, **drop_bounds}}
 
 
 def main():
@@ -256,6 +267,7 @@ def main():
         ab16 = _attn_bwd_bf16(name, n, d, heads, ks, gen, dev)
         print(f"{name} [B={BATCH}, N={n}, T={T_LEN}, D={d}, H={heads}]: "
               + "; ".join((_fmt(f"gcn {g['kernel']}", g), _fmt(f"attn {a['kernel']}", a),
+                           _fmt(f"attn {a['kernel']} dropout", a["dropout"]),
                            _fmt("gcn_bwd", gb), _fmt("attn_bwd", ab), _fmt16("gcn_bf16", g16),
                            _fmt16("attn_bf16", a16), _fmt16("gcn_bwd_bf16", gb16),
                            _fmt16("attn_bwd_bf16", ab16))), flush=True)

@@ -211,3 +211,37 @@ def test_bound_without_products_is_the_cuda_core_bound():
         assert timing.bound_3xtf32_ms(work) == timing.bound_ms(work)
     assert timing.bound_ms(timing.Work(3.35e9, 0, 1e6)) == (pytest.approx(1.0), "bytes")
     assert timing.bound_ms(timing.Work(1e3, 0, 6.7e10)) == (pytest.approx(1.0), "operations")
+
+
+# The float32 forward's route (csrc/attn.cu, fast::covers): which kernel the
+# wrapper launches, decided from the shapes alone. (B, N, T, D, heads, flags,
+# dropout) -> route; SYNTH's D = 64 / 4 heads takes the tensor-core kernel
+# in both forms.
+ROUTES = [
+    ((2, 5, 12, 64, 4, "encoder_self", False), "d3stn"),
+    ((2, 5, 12, 64, 4, "decoder_masked_self", True), "d3stn"),
+    ((2, 5, 12, 64, 4, "decoder_source", True), "d3stn"),
+    ((2, 5, 12, 128, 8, "encoder_self", True), "d3stn"),
+    ((2, 5, 12, 64, 8, "encoder_self", False), "generic"),
+    ((2, 5, 12, 32, 2, "decoder_source", False), "generic"),
+    ((2, 5, 9, 64, 4, "decoder_masked_self", False), "generic"),
+]
+
+
+@pytest.mark.parametrize("shape,route", ROUTES)
+def test_float32_forward_route(shape, route):
+    b, n, t_len, d, heads, name, dropout = shape
+    arrays = [torch.tensor(a) for a in _inputs(b=b, n=n, tq=t_len, tk=t_len, d=d)]
+    assert attn.f32_fwd_route(*arrays[:2], arrays[3], *FLAGS[name], heads, dropout) == route
+
+
+# shapes the dropout kernel does not take: D = 64 with 8 heads (head dim 8),
+# D = 32, T != 12, K = 2, and the flag set D3STN never runs
+@pytest.mark.parametrize("t_len,d,heads,ks,flags", [
+    (12, 64, 8, 3, (False, False, False)), (12, 32, 2, 3, (True, True, True)),
+    (9, 64, 4, 3, (True, False, False)), (16, 128, 8, 3, (False, False, False)),
+    (12, 64, 4, 2, (False, False, False)), (12, 64, 4, 3, (False, True, False))])
+def test_float32_dropout_route_refuses_other_shapes(t_len, d, heads, ks, flags):
+    arrays = [torch.tensor(a) for a in _inputs(b=1, n=2, tq=t_len, tk=t_len, d=d, ks=ks)]
+    with pytest.raises(ValueError, match='attn_impl="xla"'):
+        attn.f32_fwd_route(*arrays[:2], arrays[3], *flags, heads, dropout=True)

@@ -284,11 +284,18 @@ def test_whole_step_matches_the_pallas_route(tmp_path):
     enc = (np.arange(HIS - 12, HIS) - 0.5 - 3 * rng.rand(12)).astype(np.float32)
     dec = (HIS - 1 - 2 * rng.rand(12)).astype(np.float32)
     init = JaxD3STN.init
-    routes = {}
+    routes, inits = {}, []
+
+    def init_once(self, key, *xs):
+        # one jitted init (tests/test_torch_trainer.py), shared by the two
+        # routes' trainers: the XLA trainer's parameters are replaced by the
+        # Pallas trainer's below, so it needs only the tree
+        if not inits:
+            inits.append(jax.jit(lambda k, *a: init(self, k, *a))(key, *xs))
+        return inits[0]
+
     with pytest.MonkeyPatch.context() as mp:
-        # one jitted init (tests/test_torch_trainer.py)
-        mp.setattr(JaxD3STN, "init",
-                   lambda self, key, *xs: jax.jit(lambda k, *a: init(self, k, *a))(key, *xs))
+        mp.setattr(JaxD3STN, "init", init_once)
         for route in ("pallas", "xla"):
             routes[route] = JaxTrainer(JaxConfig(**KW, attn_impl=route, gcn_impl=route,
                                                  save_dir=str(tmp_path / route)),

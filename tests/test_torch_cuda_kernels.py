@@ -72,14 +72,16 @@ def test_gcn_kernel_refuses_a_slice_beyond_shared_memory(dev):
         gcn.gcn_spatial_mix_kernel(x, torch.zeros(300, 300, device=dev))
 
 
-# D3STN's three flag sets at its shape take the tensor-core kernel (tiles of
-# 8 rows: B*N = 10, 37 and 340 leave a ragged last tile); the fourth set and
-# the other shapes the generic one
+# D3STN's three flag sets at its shapes (D = 128 / 8 heads, D = 64 / 4
+# heads) take the tensor-core kernel (tiles of 8 rows: B*N = 10, 37 and 340
+# leave a ragged last tile; SYNTH's 32 x 16 rows fill 64 tiles); the fourth
+# set and the other shapes the generic one
 @pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False),
                                    (False, True, False)])
 @pytest.mark.parametrize("b,n,tq,tk,d,heads", [(2, 5, 12, 12, 128, 8), (1, 37, 12, 12, 128, 8),
                                                 (2, 170, 12, 12, 128, 8), (1, 7, 9, 9, 64, 4),
-                                                (2, 3, 16, 16, 32, 2)])
+                                                (2, 3, 16, 16, 32, 2), (32, 16, 12, 12, 64, 4),
+                                                (1, 37, 12, 12, 64, 4)])
 def test_attention_kernel(dev, flags, b, n, tq, tk, d, heads):
     g = torch.Generator(device=dev).manual_seed(2)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -89,6 +91,10 @@ def test_attention_kernel(dev, flags, b, n, tq, tk, d, heads):
     before = _build.LAUNCHES["attn_fwd"]
     got = attn.fused_temporal_attention_kernel(*arrays, *flags, heads)
     assert _build.LAUNCHES["attn_fwd"] == before + 1
+    d3stn = (tq == tk == 12 and d in (64, 128) and heads == d // 16
+             and flags != (False, True, False))
+    assert attn.f32_fwd_route(*arrays[:2], arrays[3], *flags, heads) == (
+        "d3stn" if d3stn else "generic")
     want = attn.fused_temporal_attention_plain(*arrays, *flags, heads)
     assert _norm_err(got, want) <= 1e-4
     want64 = attn.fused_temporal_attention_plain(*[a.double() for a in arrays], *flags, heads,
@@ -381,14 +387,14 @@ def _keep_mask(g, dev, b, n, heads, rate=0.1):
 # the dropout forms of K4 and K5 (csrc/attn.cu, attn_bwd.cu, attn_bf16.cu,
 # attn_bwd_bf16.cu): ragged tiles (B*N = 37), several weight-gradient
 # splits (340 rows; 921 rows: K5 bf16's 116 tiles in 15 splits of 8, the
-# last split 4 tiles, its last tile one row), D = 128 and 64 (the float32
-# forward at 128 only); against the plain
+# last split 4 tiles, its last tile one row), D = 128 and 64 (SYNTH's 32 x
+# 16 rows at D = 64); against the plain
 # versions with the same mask on the card, the same bits twice, and an
 # all-keep mask giving the no-dropout kernel's bits
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
 @pytest.mark.parametrize("b,n,d,heads", [(1, 37, 128, 8), (2, 170, 128, 8), (1, 37, 64, 4),
-                                         (3, 307, 128, 8)])
+                                         (3, 307, 128, 8), (32, 16, 64, 4)])
 def test_attention_dropout_kernels(dev, dtype_name, flags, b, n, d, heads):
     g = torch.Generator(device=dev).manual_seed(12)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -406,22 +412,18 @@ def test_attention_dropout_kernels(dev, dtype_name, flags, b, n, d, heads):
         cot = cot.to(torch.bfloat16)
     suffix = "_bf16" if bf16 else ""
     before = dict(_build.LAUNCHES)
-    if bf16 or d == 128:
-        (y,) = _bitwise_twice(lambda: (fwd(*arrays, *flags, heads, dropout_mask=mask),))
-        assert _build.LAUNCHES[f"attn_fwd{suffix}_dropout"] == before[f"attn_fwd{suffix}_dropout"] + 2
-        want = attn.fused_temporal_attention_plain(*arrays, *flags, heads, dtype_name, mask)
-        if bf16:
-            _bf16_close(y, want)
-        else:
-            assert _norm_err(y, want) <= 1e-4
-            want64 = attn.fused_temporal_attention_plain(*[a.double() for a in arrays], *flags,
-                                                         heads, "float64", mask)
-            assert _norm_err(y.double(), want64) <= 1e-5
-        assert torch.equal(fwd(*arrays, *flags, heads, dropout_mask=ones),
-                           fwd(*arrays, *flags, heads))
+    (y,) = _bitwise_twice(lambda: (fwd(*arrays, *flags, heads, dropout_mask=mask),))
+    assert _build.LAUNCHES[f"attn_fwd{suffix}_dropout"] == before[f"attn_fwd{suffix}_dropout"] + 2
+    want = attn.fused_temporal_attention_plain(*arrays, *flags, heads, dtype_name, mask)
+    if bf16:
+        _bf16_close(y, want)
     else:
-        with pytest.raises(ValueError, match="attn_impl"):
-            fwd(*arrays, *flags, heads, dropout_mask=mask)
+        assert _norm_err(y, want) <= 1e-4
+        want64 = attn.fused_temporal_attention_plain(*[a.double() for a in arrays], *flags,
+                                                     heads, "float64", mask)
+        assert _norm_err(y.double(), want64) <= 1e-5
+    assert torch.equal(fwd(*arrays, *flags, heads, dropout_mask=ones),
+                       fwd(*arrays, *flags, heads))
     got = _bitwise_twice(lambda: bwd(*arrays, cot, *flags, heads, dropout_mask=mask))
     assert _build.LAUNCHES[f"attn_bwd{suffix}_dropout"] == before[f"attn_bwd{suffix}_dropout"] + 2
     if bf16:

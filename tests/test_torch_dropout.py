@@ -19,7 +19,11 @@ x64 off); inputs and keep masks come from numpy seeds.
   Float32 within ``tests/test_torch_trainer.py``'s tolerances, bfloat16 by
   ``tests/test_torch_bf16_train.py``'s rule (no further from the Pallas
   route than the JAX package's XLA route), but for the leaves whose
-  gradient JAX on the CPU sums in bfloat16.
+  gradient JAX on the CPU sums in bfloat16. The trainers share one jitted
+  JAX init.
+- One float32 Trainer step at SYNTH's width and depth (d_model 64, 4 heads,
+  2+2 layers, top_k 4, with_adj), dropout 0.1, against the JAX Trainer's
+  XLA route with the same masks (``test_synth_width_step_matches_jax``).
 - The GCN's dropout form (the JAX model's XLA form, no kernel) against JAX,
   its bfloat16 gate gradient against the exact sum rounded once.
 - Eval is deterministic; with the ``midpoint`` solver the model calls of one
@@ -39,7 +43,11 @@ from paddlexde_tpu.models.d3stn import synthetic_traffic_npz
 from paddlexde_tpu.ops import attn_pallas
 from paddlexde_tpu_torch.models.d3stn import D3STNConfig, Trainer
 from paddlexde_tpu_torch.models.d3stn.model import DropoutMasks
-from paddlexde_tpu_torch.models.d3stn.weights import _flax_to_state_dict, load_flax_params
+from paddlexde_tpu_torch.models.d3stn.weights import (
+    _flax_to_state_dict,
+    load_flax_params,
+    to_flax_params,
+)
 from paddlexde_tpu_torch.ops import attn
 from paddlexde_tpu_torch.ops.compare import bf16_errors
 from paddlexde_tpu_torch.ops.timing import attn_bwd_work, attn_work
@@ -322,15 +330,27 @@ def setup(tmp_path_factory):
     sc = rng.rand(N, N).astype(np.float32)
     enc = (np.arange(HIS - 12, HIS) - 0.5 - 3 * rng.rand(12)).astype(np.float32)
     dec = (HIS - 1 - 2 * rng.rand(12)).astype(np.float32)
-    return dict(root=root, data=data, adj=adj, sc=sc, enc=enc, dec=dec)
+    return dict(root=root, data=data, adj=adj, sc=sc, enc=enc, dec=dec, inits={})
 
 
 def _jax_trainer(s, route, **kw):
-    init = JaxD3STN.init
+    """A JAX Trainer of KW (updated by ``kw``) on the setup's data. Its
+    model's initial parameters come from one jitted init per model shape
+    (``s["inits"]``): flax draws float32 parameters from the config's seed
+    whatever the compute dtype or the kernel route, so each trainer gets the
+    tree its own init would return (the bfloat16 test's trainers overwrite
+    them with the float32 Pallas trainer's anyway) without tracing and
+    compiling the init again (3.6 s a trainer)."""
+    init, inits = JaxD3STN.init, s["inits"]
+    shape = tuple(sorted((k, v) for k, v in {**KW, **kw}.items() if k != "compute_dtype"))
+
+    def init_once(self, key, *xs):
+        if shape not in inits:  # one jitted init (tests/test_torch_trainer.py)
+            inits[shape] = jax.jit(lambda k, *a: init(self, k, *a))(key, *xs)
+        return inits[shape]
+
     with pytest.MonkeyPatch.context() as mp:
-        # one jitted init (tests/test_torch_trainer.py)
-        mp.setattr(JaxD3STN, "init",
-                   lambda self, key, *xs: jax.jit(lambda k, *a: init(self, k, *a))(key, *xs))
+        mp.setattr(JaxD3STN, "init", init_once)
         cfg = JaxConfig(**{**KW, **kw}, attn_impl=route, gcn_impl="xla",
                         save_dir=str(s["root"] / f"jax_{route}_{kw}"))
         return JaxTrainer(cfg, data=s["data"], adj_matrix=s["adj"], sc_matrix=s["sc"])
@@ -478,3 +498,86 @@ def test_gcn_pallas_with_dropout_warns(setup):
     src, tgt = tr.windows(next(tr.train_dataset.batch_starts(B)))
     with pytest.warns(UserWarning, match="dropout is active"):
         tr.loss_fn(src, tgt, KL)
+
+
+# SYNTH's width and depth (examples/configs/SYNTH.json: d_model 64 = d_proj
+# 32 + 2 x d_sect 16, 4 heads, 2+2 layers, top_k 4, with_adj and with_sc,
+# Corr attention) at dropout 0.1, cut to 5 nodes, a history of 24 steps and
+# a batch of 2
+SYNTH_N, SYNTH_HIS, SYNTH_B = 5, 24, 2
+SYNTH_KW = dict(KW, num_nodes=SYNTH_N, his_len=SYNTH_HIS, encoder_num_layers=2,
+                decoder_num_layers=2, d_model=64, d_proj=32, d_sect=16, head=4, top_k=4,
+                with_adj=True, with_sc=True, batch_size=SYNTH_B, dropout=0.1)
+# 2+2 layers: the encoder's two (attention, residual, GCN scores, residual)
+# and the decoder's two (two attentions with their residuals, GCN scores,
+# residual)
+SYNTH_SITES = 2 * 4 + 2 * 6
+
+
+def _head_major_masks(masks):
+    """The masks JAX's XLA route draws, with each attention mask [B, N, H,
+    Tq, Tk] (``nn.Dropout`` on the softmax weights) as the kernel's and the
+    port's head-major [B, N, Tq, H*Tk]."""
+    out = []
+    for m in masks:
+        if m.ndim == 5:
+            b, n, h, t_q, t_k = m.shape
+            m = m.transpose(0, 1, 3, 2, 4).reshape(b, n, t_q, h * t_k)
+        out.append(m)
+    return out
+
+
+def test_synth_width_step_matches_jax(tmp_path):
+    """The SYNTH slice: the port's float32 ``Trainer.loss_fn`` and gradients
+    at SYNTH's width and depth, dropout 0.1 (plain versions, CPU), against
+    the JAX Trainer's with the same masks, on the port's initial parameters.
+    The JAX side takes its ``attn_impl="xla"`` route, whose float32
+    attention dropout multiplies the softmax weights by the mask as the TPU
+    kernel does: this test takes ~10 s on one CPU worker with it and ~19 s
+    with the interpret-mode Pallas route. On the card the port runs this
+    shape on the dropout forms of K4 and K5 (``chip_smoke.py`` phase 6).
+    Cut from SYNTH.json: the nodes (16 -> 5), the history (288 -> 24 steps)
+    and the batch (16 -> 2); every width, the depth, top_k and the graph
+    flags are SYNTH's. The loss within 1e-5 relative, each gradient leaf
+    within 1e-4 normalised (``tests/test_torch_trainer.py``'s
+    tolerances)."""
+    rng = np.random.RandomState(11)
+    data = synthetic_traffic_npz(num_nodes=SYNTH_N, seq_len=288)
+    adj = (rng.rand(SYNTH_N, SYNTH_N) < 0.4).astype(np.float32)
+    adj = np.maximum(adj, adj.T)
+    sc = rng.rand(SYNTH_N, SYNTH_N).astype(np.float32)
+    enc = (np.arange(SYNTH_HIS - 12, SYNTH_HIS) - 0.5 - 3 * rng.rand(12)).astype(np.float32)
+    dec = (SYNTH_HIS - 1 - 2 * rng.rand(12)).astype(np.float32)
+    s = dict(root=tmp_path, data=data, adj=adj, sc=sc, enc=enc, dec=dec)
+    tr = Trainer(D3STNConfig(**SYNTH_KW, save_dir=str(tmp_path / "torch")), data=data,
+                 adj_matrix=adj, sc_matrix=sc, device="cpu")
+    # the port's initial parameters in place of the JAX init (whose trace and
+    # compile at this depth cost 4 s)
+    params = to_flax_params(tr.model)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxD3STN, "init",
+                   lambda self, key, *xs: {"params": jax.tree.map(jnp.asarray, params)})
+        jtr = JaxTrainer(JaxConfig(**SYNTH_KW, attn_impl="xla", gcn_impl="xla",
+                                   save_dir=str(tmp_path / "jax")),
+                         data=data, adj_matrix=adj, sc_matrix=sc)
+    ds = jtr.train_dataset
+    s_b = next(ds.batch_starts(SYNTH_B, shuffle=True, seed=3))
+    src = np.stack([ds.data[:, t : t + SYNTH_HIS] for t in s_b])
+    tgt = np.stack([ds.data[:, t + SYNTH_HIS : t + SYNTH_HIS + 12] for t in s_b])
+    masks = []
+    want_total, want = _jax_step(jtr, s, src, tgt, params, _recording_bernoulli(masks))
+    assert len(masks) == SYNTH_SITES
+    masks = _head_major_masks(masks)
+    assert masks[0].shape == (SYNTH_B, SYNTH_N, 12, 4 * 12)
+    with torch.no_grad():
+        tr.encoder_idx.copy_(torch.tensor(enc))
+        tr.decoder_idx.copy_(torch.tensor(dec))
+    tr.model.dropout_masks = ReplayMasks(masks)
+    total, _, _ = tr.loss_fn(torch.tensor(src), torch.tensor(tgt), KL)
+    grads = torch.autograd.grad(total, tr.state_tensors(), materialize_grads=True)
+    assert tr.model.dropout_masks.served == SYNTH_SITES
+    got = {k: g.double().numpy() for k, g in zip(tr.state_names, grads)}
+    assert set(got) == set(want)
+    assert abs(total.item() - want_total) <= 1e-5 * abs(want_total)
+    errs = {k: np.abs(got[k] - want[k]).max() / _scale(k, want) for k in got}
+    assert max(errs.values()) <= 1e-4, sorted(errs.items(), key=lambda kv: -kv[1])[:3]

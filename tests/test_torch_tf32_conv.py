@@ -16,7 +16,8 @@ each chain's products summed in float64 and rounded to float32 once, the
 chains added in float32. It holds the emulation at D3STN's widths (T = 12,
 D = 128, K = 3) against the port's plain versions in float64, for the three
 left paddings the kernels use (2: causal, 1: same, 0: the input gradient of
-a causal conv) and for a weight gradient over 4128 (row, t) pairs. The
+a causal conv) and for a weight gradient over 4128 (row, t) pairs, and K4's
+convs at SYNTH's D = 64 (causal and same padding). The
 plain versions are pinned to JAX's oracles of ``attn_pallas.py``:
 ``_tconv_ref`` in float64 (to 1e-12), ``_tconv_bwd_input`` and
 ``_conv_weight_grads`` to 1e-6 (they return float32 sums,
@@ -80,17 +81,17 @@ def _products(a, b, terms):
 def conv_tc(x, w, b, padl, terms=3, kc=8):
     """out[r, t] = b + sum_j x[r, t + j - padl] w[j] as the kernel runs it:
     per chunk of ``kc`` input channels the K taps chain on the tensor cores,
-    then the chain's sum adds to the float32 total."""
-    rows = x.shape[0]
-    xp = np.zeros((rows, T + K - 1, D), np.float32)
+    then the chain's sum adds to the float32 total (D from x: 128 or 64)."""
+    rows, d = x.shape[0], x.shape[-1]
+    xp = np.zeros((rows, T + K - 1, d), np.float32)
     xp[:, padl : padl + T] = x
-    acc = np.zeros((rows * T, D), np.float32)
-    for c0 in range(0, D, kc):
+    acc = np.zeros((rows * T, d), np.float32)
+    for c0 in range(0, d, kc):
         chain = sum(_products(xp[:, j : j + T, c0 : c0 + kc].reshape(rows * T, kc),
                               w[j, c0 : c0 + kc], terms).astype(np.float64)
                     for j in range(K))
         acc = np.float32(acc + np.float32(chain))
-    return np.float32(acc + b).reshape(rows, T, D)
+    return np.float32(acc + b).reshape(rows, T, d)
 
 
 def weight_grad_tc(x, g, padl, terms=3, chain_pairs=32):
@@ -112,12 +113,12 @@ def weight_grad_tc(x, g, padl, terms=3, chain_pairs=32):
     return np.stack(out)
 
 
-def _inputs(rows, seed):
+def _inputs(rows, seed, d=D):
     rng = np.random.default_rng(seed)
-    bound = np.sqrt(6.0 / (2 * K * D))
-    x = rng.standard_normal((rows, T, D)).astype(np.float32)
-    w = rng.uniform(-bound, bound, (K, D, D)).astype(np.float32)
-    b = (0.1 * rng.standard_normal(D)).astype(np.float32)
+    bound = np.sqrt(6.0 / (2 * K * d))
+    x = rng.standard_normal((rows, T, d)).astype(np.float32)
+    w = rng.uniform(-bound, bound, (K, d, d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(d)).astype(np.float32)
     return x, w, b
 
 
@@ -152,6 +153,22 @@ def test_3xtf32_conv_matches_float64_oracles(padl):
                                         torch.float64).numpy()
         assert _err(np.asarray(oracle), want) <= 1e-12
     assert got.shape == want.shape and _err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("padl", [2, 1])
+def test_3xtf32_conv_at_d64_matches_float64_plain(padl):
+    """K4's convs at SYNTH's D = 64 (``attn_fwd_d3stn_kernel<64, ...>``: 8
+    chunks of 8 channels, each chain 3 taps x 3 terms, m64n64k8) on 8 rows,
+    one CTA's tile: the q/k/v convs (causal or same padding) and the out
+    conv (same), against the port's plain version in float64 (pinned to
+    ``_tconv_ref`` above) within TOL; one TF32 product misses it by more
+    than 10x."""
+    x, w, b = _inputs(rows=8, seed=20 + padl, d=64)
+    got = conv_tc(x, w, b, padl)
+    want = attn.temporal_conv_plain(torch.tensor(x), torch.tensor(w), torch.tensor(b), padl == 2,
+                                    torch.float64).numpy()
+    assert got.shape == want.shape == (8, T, 64) and _err(got, want) <= TOL
+    assert _err(conv_tc(x, w, b, padl, terms=1), want) > 10 * TOL
 
 
 def test_3xtf32_weight_gradient_matches_float64_oracles():
