@@ -7,6 +7,8 @@ built at first call) and skip elsewhere. Run them on the card with
 ``chip_smoke.py`` holds the same kernels at the full PEMS08 shapes.
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -24,12 +26,44 @@ def dev():
     return torch.device("cuda")
 
 
+def cases(names, values):
+    """``pytest.mark.parametrize`` as one test item: the test runs every case
+    (stacked, every combination) and fails naming each case that failed.
+    Without a card the item skips once, where a parametrised test would put
+    one skipped item a case into the CPU suite, whose xdist workers take
+    chunks of tests sized by the number of items still pending."""
+    names = names.split(",")
+
+    def wrap(fn):
+        body, axes = getattr(fn, "cases_of", (fn, []))
+        axes = [(names, values)] + axes
+
+        def test(dev):
+            combos = list(itertools.product(*(v for _, v in axes)))
+            failed = []
+            for combo in combos:
+                case = {}
+                for (ns, _), v in zip(axes, combo):
+                    case.update(zip(ns, v) if len(ns) > 1 else {ns[0]: v})
+                try:
+                    body(dev, **case)
+                except (AssertionError, pytest.fail.Exception) as e:
+                    failed.append(f"{case}: {e}")
+            assert not failed, f"{len(failed)} of {len(combos)} cases:\n" + "\n".join(failed)
+
+        test.cases_of = (body, axes)
+        test.__name__, test.__doc__ = body.__name__, body.__doc__
+        return test
+
+    return wrap
+
+
 def _norm_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("derivative", [False, True])
+@cases("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@cases("derivative", [False, True])
 def test_spline_kernel(dev, dtype, tol, derivative):
     g = torch.Generator(device=dev).manual_seed(0)
     series = torch.randn(3, 5, 50, 3, generator=g, device=dev, dtype=dtype)
@@ -47,7 +81,7 @@ def test_spline_kernel(dev, dtype, tol, derivative):
 # SMs, so that a CTA walks several): within 1e-5 of the float64 plain
 # version and the same bits twice. Other D take the generic kernel, held at
 # 1e-4 against the float32 plain version.
-@pytest.mark.parametrize("shape", [(2, 17, 3, 32), (1, 45, 2, 128), (2, 100, 2, 128),
+@cases("shape", [(2, 17, 3, 32), (1, 45, 2, 128), (2, 100, 2, 128),
                                    (1, 170, 3, 128), (1, 200, 1, 128), (1, 307, 2, 128),
                                    (1, 358, 2, 128), (1, 883, 1, 128), (2, 33, 1, 256),
                                    (2, 80, 3, 128), (4, 100, 20, 128), (2, 16, 12, 64),
@@ -76,9 +110,9 @@ def test_gcn_kernel_refuses_a_slice_beyond_shared_memory(dev):
 # heads) take the tensor-core kernel (tiles of 8 rows: B*N = 10, 37 and 340
 # leave a ragged last tile; SYNTH's 32 x 16 rows fill 64 tiles); the fourth
 # set and the other shapes the generic one
-@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False),
+@cases("flags", [(False, False, False), (True, True, True), (True, False, False),
                                    (False, True, False)])
-@pytest.mark.parametrize("b,n,tq,tk,d,heads", [(2, 5, 12, 12, 128, 8), (1, 37, 12, 12, 128, 8),
+@cases("b,n,tq,tk,d,heads", [(2, 5, 12, 12, 128, 8), (1, 37, 12, 12, 128, 8),
                                                 (2, 170, 12, 12, 128, 8), (1, 7, 9, 9, 64, 4),
                                                 (2, 3, 16, 16, 32, 2), (32, 16, 12, 12, 64, 4),
                                                 (1, 37, 12, 12, 64, 4)])
@@ -114,7 +148,7 @@ def _bitwise_twice(fn):
 # one node tile of 64, across tiles, at HZME's N=80 and PEMS08's N=170, and
 # with B*T > 1 at an N not a multiple of 64 (the per-batch dgate partial sums
 # over the T steps); D=64 for the synthetic configuration
-@pytest.mark.parametrize("shape", [(2, 17, 3, 64), (1, 16, 12, 64), (2, 45, 2, 128),
+@cases("shape", [(2, 17, 3, 64), (1, 16, 12, 64), (2, 45, 2, 128),
                                    (1, 170, 3, 128), (1, 307, 1, 128), (2, 80, 3, 128),
                                    (3, 100, 4, 128), (2, 70, 5, 64)])
 def test_gcn_bwd_kernel(dev, shape):
@@ -132,8 +166,8 @@ def test_gcn_bwd_kernel(dev, shape):
 
 # rows (B*N) not a multiple of the 8-row tiles; 340 rows take 4 weight-
 # gradient splits of 85 rows
-@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
-@pytest.mark.parametrize("b,n,d,heads", [(2, 5, 128, 8), (1, 7, 64, 4), (3, 11, 128, 8),
+@cases("flags", [(False, False, False), (True, True, True), (True, False, False)])
+@cases("b,n,d,heads", [(2, 5, 128, 8), (1, 7, 64, 4), (3, 11, 128, 8),
                                          (1, 37, 128, 8), (1, 37, 64, 4), (2, 170, 128, 8),
                                          (2, 170, 64, 4)])
 def test_attention_bwd_kernel(dev, flags, b, n, d, heads):
@@ -166,8 +200,8 @@ def _bf16_close(got, want):
 # (200, PEMS04's 307: two passes), D = 64 and 128, x float32 (as D3STN passes
 # it) and bfloat16; against the plain bfloat16 version on the card, the same
 # bits twice
-@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 12, 64), (2, 16, 3, 128), (2, 80, 3, 64),
+@cases("x_dtype", [torch.float32, torch.bfloat16])
+@cases("shape", [(2, 16, 12, 64), (2, 16, 3, 128), (2, 80, 3, 64),
                                    (2, 80, 3, 128), (1, 170, 3, 64), (2, 170, 3, 128),
                                    (1, 200, 2, 64), (1, 307, 2, 128)])
 def test_gcn_bf16_kernel(dev, shape, x_dtype):
@@ -192,8 +226,8 @@ def test_gcn_bf16_kernel_refuses_other_widths(dev):
 
 # the bfloat16 K4 (csrc/attn_bf16.cu): B*N = 37 (a ragged last tile of 16
 # rows) and 340, D = 128 with 8 heads and 64 with 4, D3STN's three flag sets
-@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
-@pytest.mark.parametrize("b,n,d,heads", [(1, 37, 128, 8), (1, 37, 64, 4), (2, 170, 128, 8),
+@cases("flags", [(False, False, False), (True, True, True), (True, False, False)])
+@cases("b,n,d,heads", [(1, 37, 128, 8), (1, 37, 64, 4), (2, 170, 128, 8),
                                          (2, 170, 64, 4)])
 def test_attention_bf16_kernel(dev, flags, b, n, d, heads):
     g = torch.Generator(device=dev).manual_seed(7)
@@ -210,7 +244,7 @@ def test_attention_bf16_kernel(dev, flags, b, n, d, heads):
         assert torch.equal(attn.fused_temporal_attention(*arrays, *flags, heads, "bfloat16"), got)
 
 
-@pytest.mark.parametrize("d,heads,t_len,flags", [(32, 2, 12, (False, False, False)),
+@cases("d,heads,t_len,flags", [(32, 2, 12, (False, False, False)),
                                                  (128, 4, 12, (False, False, False)),
                                                  (128, 8, 9, (False, False, False)),
                                                  (128, 8, 12, (False, True, False))])
@@ -222,7 +256,7 @@ def test_attention_bf16_kernel_refuses_other_shapes(dev, d, heads, t_len, flags)
         attn.fused_temporal_attention_bf16_kernel(*arrays, *flags, heads)
 
 
-@pytest.mark.parametrize("d_in,bias", [(1, True), (128, False)])
+@cases("d_in,bias", [(1, True), (128, False)])
 def test_bf16_dense_sums_in_float32_whatever_the_flag(dev, d_in, bias):
     """The bfloat16 dense layer gives the same bits with cuBLAS's
     reduced-precision flag on and off, within one bfloat16 ulp of the CPU's
@@ -262,8 +296,8 @@ def test_bf16_dense_sums_in_float32_whatever_the_flag(dev, d_in, bias):
 # D = 64 (22 splits of 2, the last tile 4 rows); against the plain
 # bfloat16 backward on the card by attn.bwd_errors (limit as
 # chip_smoke.py's), the same bits twice
-@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
-@pytest.mark.parametrize("b,n,d,heads", [(1, 5, 128, 8), (1, 5, 64, 4), (1, 37, 128, 8),
+@cases("flags", [(False, False, False), (True, True, True), (True, False, False)])
+@cases("b,n,d,heads", [(1, 5, 128, 8), (1, 5, 64, 4), (1, 37, 128, 8),
                                          (1, 37, 64, 4), (2, 170, 128, 8), (2, 170, 64, 4),
                                          (3, 307, 64, 4), (16, 883, 128, 8), (16, 883, 64, 4)])
 def test_attention_bwd_bf16_kernel(dev, flags, b, n, d, heads):
@@ -300,7 +334,7 @@ def test_attention_bwd_bf16_kernel_takes_bf16_activations(dev):
     assert max(attn.bwd_errors(got, want)[3:]) <= 2e-3
 
 
-@pytest.mark.parametrize("d,heads,t_len,flags", [(32, 2, 12, (False, False, False)),
+@cases("d,heads,t_len,flags", [(32, 2, 12, (False, False, False)),
                                                  (128, 4, 12, (False, False, False)),
                                                  (128, 8, 9, (False, False, False)),
                                                  (128, 8, 12, (False, True, False))])
@@ -318,8 +352,8 @@ def test_attention_bwd_bf16_kernel_refuses_other_shapes(dev, d, heads, t_len, fl
 
 # K3 on a bfloat16 cotangent: the float32 kernel on g.float(), bit for bit,
 # x float32 and bfloat16
-@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 17, 3, 64), (1, 170, 3, 128), (2, 80, 3, 128)])
+@cases("x_dtype", [torch.float32, torch.bfloat16])
+@cases("shape", [(2, 17, 3, 64), (1, 170, 3, 128), (2, 80, 3, 128)])
 def test_gcn_bwd_kernel_on_bf16_cotangent(dev, shape, x_dtype):
     g = torch.Generator(device=dev).manual_seed(10)
     x = torch.randn(*shape, generator=g, device=dev).to(x_dtype)
@@ -391,9 +425,9 @@ def _keep_mask(g, dev, b, n, heads, rate=0.1):
 # 16 rows at D = 64); against the plain
 # versions with the same mask on the card, the same bits twice, and an
 # all-keep mask giving the no-dropout kernel's bits
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True), (True, False, False)])
-@pytest.mark.parametrize("b,n,d,heads", [(1, 37, 128, 8), (2, 170, 128, 8), (1, 37, 64, 4),
+@cases("dtype_name", ["float32", "bfloat16"])
+@cases("flags", [(False, False, False), (True, True, True), (True, False, False)])
+@cases("b,n,d,heads", [(1, 37, 128, 8), (2, 170, 128, 8), (1, 37, 64, 4),
                                          (3, 307, 128, 8), (32, 16, 64, 4)])
 def test_attention_dropout_kernels(dev, dtype_name, flags, b, n, d, heads):
     g = torch.Generator(device=dev).manual_seed(12)
@@ -440,7 +474,7 @@ def test_attention_dropout_kernels(dev, dtype_name, flags, b, n, d, heads):
                zip(bwd(*arrays, cot, *flags, heads, dropout_mask=ones), no_drop))
 
 
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@cases("dtype_name", ["float32", "bfloat16"])
 def test_autograd_through_the_dropout_kernels(dev, dtype_name):
     """Gradients of the dropout kernels against the plain dropout path
     (impl="xla") on the card, with ``mk is mq``; the mask gets None."""
