@@ -10,9 +10,11 @@ It builds the eight hand-written Hopper kernel sources from
 and shared memory of the GCN and attention kernels and the count of
 tensor-core instructions in their libraries, with and without the
 attention kernels' dropout instantiations (it fails if one has none, if a
-GCN kernel spills, if a bfloat16 kernel spills or has no HGMMA, or if a
-D = 64 instantiation of the float32 attention forward, with or without
-dropout, spills or has no HGMMA), and runs six phases (PyTorch's
+GCN kernel spills, if a bfloat16 kernel spills or has no HGMMA, checked by
+name for K5 bf16's conv kernel and each of K4 bf16's twelve
+instantiations, or if a D = 64 instantiation of the float32 attention
+forward, with or without dropout, spills or has no HGMMA), and runs six
+phases (PyTorch's
 TF32 off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
 float32 GCN and attention kernels run their products in 3xTF32, the
 bfloat16 ones in bfloat16):
@@ -23,7 +25,8 @@ bfloat16 ones in bfloat16):
    the backward kernels (GCN K3, attention K5) against the float32 and
    float64 plain backward (K3 within 1e-5 of float64), each run twice and
    required to give the same bits, with K3's and K5's device time per
-   kernel; the bfloat16 forward kernels (GCN, attention) against their
+   kernel (K5 bf16's conv stage and weight-gradient stage each beside its
+   own bound); the bfloat16 forward kernels (GCN, attention) against their
    plain bfloat16 versions (within one bfloat16 ulp at the top binade, on at
    most 1% of elements) and run twice for the same bits; the bfloat16
    attention backward K5 against the plain bfloat16 backward
@@ -142,8 +145,9 @@ LAUNCHES_PER_STEP_DROPOUT = {**_ZERO, "spline": 4, "attn_fwd_dropout": 6, "attn_
 LAUNCHES_PER_STEP_DROPOUT_BF16 = {**_ZERO, "spline": 4, "attn_fwd_bf16_dropout": 6,
                                   "attn_bwd_bf16_dropout": 6}
 # CUDA symbol substrings in a profiler trace; one wrapper call launches one
-# kernel of each symbol. K3 on a bfloat16 cotangent (counter gcn_bwd_bf16)
-# launches the gcn_bwd kernels: a trace counts it under gcn_bwd
+# kernel of each symbol (ops/timing.py's LAUNCHES_PER_CALL: more). K3 on a
+# bfloat16 cotangent (counter gcn_bwd_bf16) launches the gcn_bwd kernels: a
+# trace counts it under gcn_bwd
 KERNEL_NAMES = {
     "spline": ("hermite_gather_kernel",),
     "gcn_fwd": ("gcn_fwd_",),  # gcn_fwd_tc_kernel (D=64, 128) or gcn_fwd_kernel
@@ -153,9 +157,9 @@ KERNEL_NAMES = {
                  "attn_bwd_dx_conv_kernel", "attn_bwd_dw_kernel", "attn_bwd_sum_kernel"),
     "gcn_fwd_bf16": ("gcn_bf16_fwd_kernel",),
     "attn_fwd_bf16": ("attn_bf16_wcast_kernel", "attn_bf16_fwd_kernel"),
-    "attn_bwd_bf16": ("attn_bwd_bf16_wcast_kernel", "attn_bwd_bf16_qkv_conv_kernel",
-                      "attn_bwd_bf16_core_kernel", "attn_bwd_bf16_dx_conv_kernel",
-                      "attn_bwd_bf16_dw_kernel", "attn_bwd_bf16_sum_kernel"),
+    "attn_bwd_bf16": ("attn_bwd_bf16_wcast_kernel", "attn_bwd_bf16_conv_kernel",
+                      "attn_bwd_bf16_core_kernel", "attn_bwd_bf16_dw_kernel",
+                      "attn_bwd_bf16_sum_kernel"),
 }
 # which float32 attention forward ran: the tensor-core kernel at D = 64
 # (attn_fwd_d3stn_kernel<64, ...>, SYNTH) or the generic CUDA-core
@@ -275,6 +279,11 @@ def hgmma_by_function(sass, symbol):
 
 # the mangled name of the float32 attention forward's D = 64 instantiations
 ATTN_FWD_D64 = "attn_fwd_d3stn_kernelILi64E"
+# the kernels of the bfloat16 temporal conv (tc_bf16_conv.cuh) by library,
+# with their instantiations: K5 bf16's persistent conv kernel (D = 64, 128)
+# and K4 bf16 (3 flag sets x D = 64, 128 x DROP)
+BF16_CONV_KERNELS = {"attn_bwd_bf16": (("attn_bwd_bf16_conv_kernel", 2),),
+                     "attn_bf16": (("attn_bf16_fwd_kernel", 12),)}
 
 
 def build_report():
@@ -284,9 +293,10 @@ def build_report():
     backward), and the tensor-core
     instructions (HMMA/HGMMA) in their SASS. The GCN kernels, the bfloat16
     kernels and the float32 attention forward at D = 64 must not spill;
-    the bfloat16 libraries, and each of the six D = 64 instantiations of
-    the float32 attention forward (three flag sets, with and without DROP),
-    must hold HGMMA (wgmma)."""
+    the bfloat16 libraries, each of the six D = 64 instantiations of the
+    float32 attention forward (three flag sets, with and without DROP), K5
+    bf16's persistent conv kernel (D = 64, 128) and each of K4 bf16's
+    twelve instantiations must hold HGMMA (wgmma)."""
     from paddlexde_tpu_torch.ops import _build
 
     for lib in ("gcn", "gcn_bwd", "attn", "attn_bwd", "gcn_bf16", "attn_bf16", "attn_bwd_bf16"):
@@ -323,6 +333,13 @@ def build_report():
             print(f"  {lib}: HGMMA of the weight-gradient kernels {sorted(dw.values())}",
                   flush=True)
             require(len(dw) == 2 and all(dw.values()), f"{lib}: a dw kernel has no HGMMA: {dw}")
+        for symbol, want in BF16_CONV_KERNELS.get(lib, ()):
+            hg = hgmma_by_function(sass, symbol)
+            regs = sorted(r for name, r, *_ in ptxas_report(log) if symbol in name)
+            print(f"  {lib}: {symbol}: {len(hg)} instantiations, HGMMA {sorted(hg.values())}, "
+                  f"registers {regs}, no spills", flush=True)
+            require(len(hg) == want and len(regs) == want and all(hg.values()),
+                    f"{lib}: {symbol} missing or without HGMMA: {hg}")
 
 
 # --------------------------------------------------------------------------
@@ -675,6 +692,25 @@ def dw_stage_ms(by_kernel):
     return sum(ms for name, ms in by_kernel.items() if "_dw_kernel" in name or "_sum_kernel" in name)
 
 
+def conv_stage_work(rows, t_len, d, ks):
+    """K5 bf16's conv stage (its conv kernel's two launches, kernels 2 and
+    4): mq, mk, vs (float32) and g (bfloat16) read, q, k, v (bfloat16) and
+    dx_attn (float32) written; dq, dk, dv (bfloat16) read, dmq, dmk, dvs
+    (float32) written; the seven bfloat16 banks read once; seven convs of
+    2 K D^2 flops per (row, t), their chains' float32 sums (D / 16 per
+    output) and the three bias adds."""
+    from paddlexde_tpu_torch.ops.timing import Work
+
+    act = rows * t_len * d
+    return Work((3 * 4 + 2 + 3 * 2 + 4 + 3 * 2 + 3 * 4) * act + 2 * 7 * ks * d * d,
+                7 * 2 * ks * d * d * rows * t_len, 7 * act * (d // 16) + 3 * act)
+
+
+def conv_stage_ms(by_kernel):
+    """Device ms of the conv stage (both conv launches) in one K5 bf16 call."""
+    return sum(ms for name, ms in by_kernel.items() if "_conv_kernel" in name)
+
+
 def check_attn_bwd_bf16(torch, dev, gen):
     from paddlexde_tpu_torch.ops import attn
     from paddlexde_tpu_torch.ops.timing import (
@@ -690,7 +726,9 @@ def check_attn_bwd_bf16(torch, dev, gen):
     splits = attn.bf16_dw_splits(b * n, d, torch.cuda.get_device_properties(dev)
                                  .multi_processor_count)
     stage_bound = bound_bf16_ms(dw_stage_work(b * n, t_len, d, ks, splits))
+    conv_bound = bound_bf16_ms(conv_stage_work(b * n, t_len, d, ks))
     errs, controls, times, wrapper_times, plain_times, stage_times = [], [], [], [], [], []
+    conv_times = []
     for flags in ((False, False, False), (True, True, True), (True, False, False)):
         args = (*acts, *weights, g, *flags, heads)
         run = lambda: attn.fused_temporal_attention_bwd_bf16_kernel(*args)  # noqa: E731
@@ -711,7 +749,12 @@ def check_attn_bwd_bf16(torch, dev, gen):
         by_kernel = device_ms_by_kernel(run, "attn_bwd_bf16_")
         times.append(sum(by_kernel.values()))
         stage_times.append(dw_stage_ms(by_kernel))
+        conv_times.append(conv_stage_ms(by_kernel))
         print_by_kernel(by_kernel, flags)
+        print(f"  flags {flags}: conv stage (the conv kernel's two launches) "
+              f"{conv_times[-1]:.4f} ms, its bound {conv_bound[0]:.4f} ms by {conv_bound[1]} "
+              f"(inputs read once, outputs written once; bfloat16 products), "
+              f"{conv_bound[0] / conv_times[-1]:.1%} of it", flush=True)
         print(f"  flags {flags}: weight-gradient stage (dw + sum kernels) {stage_times[-1]:.4f} "
               f"ms, its bound {stage_bound[0]:.4f} ms by {stage_bound[1]} (inputs read once, "
               f"{splits} splits' partials written and read; bfloat16 products), "
@@ -724,6 +767,7 @@ def check_attn_bwd_bf16(torch, dev, gen):
                 wrapper_ms=statistics.mean(wrapper_times), plain_ms=statistics.mean(plain_times),
                 bound16=bound_bf16_ms(work), per_flags=list(zip(errs, times, plain_times)),
                 stage_ms=statistics.mean(stage_times), stage_bound=stage_bound, splits=splits,
+                conv_ms=statistics.mean(conv_times), conv_bound=conv_bound,
                 shape=f"[{b},{n},{t_len},{d}] float32, g bfloat16, H={heads}, K={ks}, 3 flag "
                       "sets, 11 gradients; bitwise equal twice")
 
@@ -983,6 +1027,10 @@ def kernel_phase(torch, dev):
                   f"bound {res['stage_bound'][0]:.4f} ms by {res['stage_bound'][1]} "
                   f"({res['splits']} splits), {res['stage_bound'][0] / res['stage_ms']:.1%} of "
                   "it", flush=True)
+        if "conv_ms" in res:
+            print(f"  of which the conv stage {res['conv_ms']:.4f} ms against its bound "
+                  f"{res['conv_bound'][0]:.4f} ms by {res['conv_bound'][1]}, "
+                  f"{res['conv_bound'][0] / res['conv_ms']:.1%} of it", flush=True)
         for flags_res in res.get("per_flags", ()):
             print(f"  flag set: err {flags_res[0]:.3e}, kernel {flags_res[1]:.4f} ms (device), "
                   f"plain {flags_res[2]:.4f} ms", flush=True)
@@ -1359,27 +1407,33 @@ def trace(torch, fn):
 
 
 def traced_launches(torch, fn, expected, label, d64=False):
-    """Every kernel symbol launched exactly ``expected[key]`` times in a
-    profiler trace of ``fn``, the generic attention forward never, and the
-    float32 attention forward at D = 64 (``ROUTE_NAMES``) as often as the
-    attention forward if ``d64``, else never. A trace can drop a launch
-    record (seen once in a 10-launch trace), never add one: up to 3 traces,
-    the first with every count exact passes. Returns the device time (us)
+    """Every kernel symbol launched exactly ``expected[key]`` times (times
+    its ``LAUNCHES_PER_CALL``) in a profiler trace of ``fn``, the generic
+    attention forward never, and the float32 attention forward at D = 64
+    (``ROUTE_NAMES``) as often as the attention forward if ``d64``, else
+    never. A trace can drop a launch record (seen once in a 10-launch
+    trace), never add one: up to 3 traces, the first with every count exact
+    passes. Returns the device time (us)
     and the time by kernel name of that trace."""
+    from paddlexde_tpu_torch.ops.timing import LAUNCHES_PER_CALL
+
     by_symbols = {k: 0 for k in (*KERNEL_NAMES, *ROUTE_NAMES)}
     for key, per_call in expected.items():
         by_symbols[TRACED_AS.get(key, key)] += per_call
     if d64:
         by_symbols["attn_fwd_d64"] = by_symbols["attn_fwd"]
-    expected = by_symbols
+    # per symbol of each key
+    expected = {key: [per_call * LAUNCHES_PER_CALL.get(sym, 1)
+                      for sym in KERNEL_NAMES.get(key, (key,))]
+                for key, per_call in by_symbols.items()}
     for attempt in range(3):
         counts, device_us, by_name = trace(torch, fn)
         print(f"  profiler, {label} (trace {attempt + 1}): kernel launches {counts}, "
               f"device time {device_us / 1e3:.3f} ms in {len(by_name)} kernel names", flush=True)
-        for key, per_call in expected.items():
-            require(max(counts[key]) <= per_call,
-                    f"profiler shows {counts[key]} {key} launches in {label}, expected {per_call}")
-        exact = all(c == per_call for key, per_call in expected.items() for c in counts[key])
+        for key, want in expected.items():
+            require(all(c <= w for c, w in zip(counts[key], want)),
+                    f"profiler shows {counts[key]} {key} launches in {label}, expected {want}")
+        exact = all(counts[key] == want for key, want in expected.items())
         if exact:
             break
     require(exact, f"profiler shows launches {counts} in {label}, expected {expected} of each")

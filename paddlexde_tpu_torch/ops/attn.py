@@ -42,6 +42,7 @@ __all__ = [
     "fused_temporal_attention_bwd_bf16_kernel",
     "bwd_errors",
     "bf16_dw_splits",
+    "bf16_conv_ctas",
     "f32_fwd_route",
 ]
 
@@ -538,6 +539,20 @@ def bf16_dw_splits(rows: int, d: int, sms: int) -> int:
     return -(-tiles // -(-tiles // splits))
 
 
+# K5 bf16's conv kernel (csrc/attn_bwd_bf16.cu): persistent, one CTA per
+# SM, each CTA on one job's tiles of 16 rows
+_CONV_TILE_ROWS = 16
+
+
+def bf16_conv_ctas(rows: int, jobs: int, sms: int) -> int:
+    """CTAs per job of K5 bf16's conv kernel launched with ``jobs`` convs
+    (4: q, k, v, dx_attn; 3: dmq, dmk, dvs): the SMs shared out over the
+    jobs, at least one and at most one per tile of 16 rows. CTA ``c`` of a
+    job takes the job's tiles ``c, c + ctas, c + 2 ctas, ...``."""
+    tiles = -(-rows // _CONV_TILE_ROWS)
+    return max(1, min(sms // jobs, tiles))
+
+
 def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, bv, wo, bo, g,
                                              causal_q: bool, causal_kv: bool, is_mask: bool,
                                              heads: int, dropout_mask=None):
@@ -547,10 +562,10 @@ def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, b
     float32 or bfloat16 (each gradient goes out in its input's dtype),
     weights float32 (their gradients float32), ``g`` bfloat16 (a float32 g
     is rounded first, as the TPU kernel rounds it where it enters each
-    product). One call launches the weight cast, the q/k/v/dx_attn convs,
-    the attention core, the input-gradient convs, the split weight-gradient
-    products and their fixed-order sum (``csrc/attn_bwd_bf16.cu``) and counts
-    once; with ``dropout_mask`` the core's dropout form, counted under
+    product). One call launches the weight cast, the conv kernel for the
+    q/k/v/dx_attn convs, the attention core, the conv kernel again for the
+    input-gradient convs, the split weight-gradient products and their
+    fixed-order sum (``csrc/attn_bwd_bf16.cu``) and counts once; with ``dropout_mask`` the core's dropout form, counted under
     ``attn_bwd_bf16_dropout``."""
     if not mq.is_cuda:
         raise ValueError("fused_temporal_attention_bwd_bf16_kernel needs CUDA tensors")
@@ -578,8 +593,8 @@ def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, b
     if not rows:
         dw.zero_()
     else:
-        splits = bf16_dw_splits(rows, d, torch.cuda.get_device_properties(mq.device)
-                                .multi_processor_count)
+        sms = torch.cuda.get_device_properties(mq.device).multi_processor_count
+        splits = bf16_dw_splits(rows, d, sms)
         lib = _build.library("attn_bwd_bf16")
         lib.pxt_attn_bwd_bf16_scratch_bytes.restype = ctypes.c_int64
         lib.pxt_attn_bwd_bf16_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int,
@@ -591,12 +606,13 @@ def fused_temporal_attention_bwd_bf16_kernel(mq, mk, vsrc, wq, bq, wk, bk, wv, b
         fn = lib.pxt_attn_bwd_bf16_dropout if drop else lib.pxt_attn_bwd_bf16
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * (4 if drop else 3) + [ctypes.c_int64]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         mask_ptr = (dropout_mask.data_ptr(),) if drop else ()
         with torch.cuda.device(mq.device):
             stream = torch.cuda.current_stream(mq.device).cuda_stream
-            code = fn(ptrs, *mask_ptr, outs, scratch.data_ptr(), rows, splits, d, int(causal_q),
-                      int(causal_kv), int(is_mask), stream)
+            code = fn(ptrs, *mask_ptr, outs, scratch.data_ptr(), rows, splits,
+                      bf16_conv_ctas(rows, 4, sms), bf16_conv_ctas(rows, 3, sms), d,
+                      int(causal_q), int(causal_kv), int(is_mask), stream)
         _build.check(lib, code, "attn_bwd_bf16 kernels")
         _build.LAUNCHES["attn_bwd_bf16_dropout" if drop else "attn_bwd_bf16"] += 1
     dacts = [a.to(x.dtype) for a, x in zip(dacts, acts)]

@@ -22,25 +22,37 @@
 // caller; y bfloat16. Shapes: T = 12, K = 3, head dim 16, D = 128 (8 heads)
 // or 64 (4 heads), D3STN's three flag sets.
 //
-// Bound: operations. The four convs are 98% of the work (8 K D^2 T flops per
-// row); they run on the tensor cores in bfloat16 (wgmma m64nDk16, one
-// product where the float32 kernel attn.cu needs three), the attention core
-// on the CUDA cores.
+// Bound: bytes (117 MB at PEMS08, batch 32: 0.035 ms at 3.35 TB/s; the
+// products of the four convs, 98% of the work, take less on the tensor
+// cores in bfloat16). The convs run as wgmma m64nDk16 (one product where
+// the float32 kernel attn.cu needs three), the attention core on the CUDA
+// cores.
 //   - attn_bf16_wcast_kernel rounds the four weight banks to bfloat16 once
 //     per call, in the order the tensor cores read them (scratch from the
 //     caller): chunk of 16 input channels, tap, then K-major core matrices
-//     over the inputs (tc_bf16.cuh).
+//     over the inputs (tc_bf16.cuh). The four banks are contiguous, so the
+//     kernel's four convs read one run of 4 D / 16 chunks.
 //   - attn_bf16_fwd_kernel: one CTA of three warpgroups per 16 (batch,
-//     node) rows (192 positions, no padding: bfloat16 tiles fit where
-//     attn.cu's float32 ones took 8 rows and a quarter of padding). mq and
-//     mk are rounded into two bfloat16 shared tiles; the q and k convs run
-//     in place (each chunk of 16 input channels x 3 taps starts a fresh
-//     accumulator, added in float32 on the CUDA cores); the scores go to a
-//     shared [16, H, T, T] buffer with each head's row maximum, then their
-//     softmax as bf16(p); vs is rounded over q, its conv runs in place and
-//     is replaced by P v column by column; the out conv writes y. 204 KB of
-//     shared memory at D = 128: one CTA per SM. 16 rows take the weight
-//     chunks and the barriers of a conv once for twice the rows of 8.
+//     node) rows (192 positions, no padding). mq and mk are rounded into
+//     two bfloat16 shared tiles; the q and k convs run in place; the
+//     scores go to a shared [16, H, T, T] buffer with each head's row
+//     maximum, then their softmax as bf16(p); vs is rounded over q, its
+//     conv runs in place and is replaced by P v column by column; the out
+//     conv writes y.
+//   - The convs (tc_bf16_conv.cuh, conv_ring): the weight chunks (12,288
+//     bytes at D = 128) pass through a ring of 3 stages filled by one
+//     thread's bulk copies and handed over by mbarriers, running on across
+//     the four convs, so a conv's first chunks land during the previous
+//     conv's tail and the attention core. One CTA barrier per conv (its
+//     tile is overwritten in place after it), none per chunk. Each chunk of
+//     16 input channels x 3 taps starts a fresh accumulator, added in
+//     float32 on the CUDA cores in chunk order: the parent's chains, the
+//     parent's bits.
+//   - Shared memory at D = 128: two tiles 104,448 bytes, the ring 36,912,
+//     the scores 73,728 and maxima 6,144: 221,232 bytes, one CTA per SM
+//     (D = 64: 113,712). What still bounds it: the CUDA-core middle leaves
+//     the tensor cores and the copies idle (nothing else is resident), and
+//     340 CTAs are 2.6 waves on 132 SMs (ROADMAP.md, §2.B).
 
 #include <cfloat>
 #include <cuda_bf16.h>
@@ -54,7 +66,6 @@ namespace {
 
 constexpr int T = tc::T, K = tc::K;
 using tc16::bank_index;
-using tc16::conv;
 using tc16::DH;
 using tc16::Geo;
 using tc16::M;
@@ -64,9 +75,9 @@ using tc16::THREADS;
 template <int D>
 struct Smem {
   using G = Geo<D>;
-  uint16_t a[M][G::S];       // mq -> q, then vs -> v -> P v
-  uint16_t b[M][G::S];       // mk -> k
-  uint16_t w[2][G::CHUNK];   // weight stages
+  uint16_t a[M][G::S];        // mq -> q, then vs -> v -> P v
+  uint16_t b[M][G::S];        // mk -> k
+  tc16::WRing<D> w;           // the weight chunks of the four convs, in turn
   float p[ROWS][G::H][T][T];  // scores, then bf16(p)
   float hmax[ROWS][T][G::H];  // each head's row maximum of the scores
 };
@@ -86,7 +97,9 @@ __global__ void attn_bf16_wcast_kernel(const float* __restrict__ wq, const float
 }
 
 // rows [row0, row0 + ROWS) of src [rows, T, D] float32 -> the bfloat16
-// tile, zeros past n_rows
+// tile, zeros past n_rows, a piece at a time (for mq and mk, batching all of
+// a thread's loads into registers first spills; for vs it is no faster
+// beyond noise)
 template <int D>
 __device__ __forceinline__ void stage(uint16_t (*xs)[Geo<D>::S], const float* __restrict__ src,
                                       int64_t row0, int n_rows) {
@@ -242,20 +255,22 @@ attn_bf16_fwd_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
                      const float* __restrict__ dm, uint16_t* __restrict__ out, int64_t rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<D>& s = *reinterpret_cast<Smem<D>*>(smem_raw);
-  constexpr int BANK = Geo<D>::BANK;
   constexpr int PAD_SAME = (K - 1) / 2;
   constexpr int PQ = CQ ? K - 1 : PAD_SAME;
   constexpr int PKV = CKV ? K - 1 : PAD_SAME;
+  constexpr int CH = Geo<D>::CHUNKS;
   const int64_t row0 = (int64_t)blockIdx.x * ROWS;
   const int n_rows = (int)min((int64_t)ROWS, rows - row0);
   float acc[D / 2];
 
+  // the four banks are contiguous: 4 CH chunks through one ring
+  tc16::ring_start<D>(s.w, ws, 4 * CH);
   stage<D>(s.a, mq, row0, n_rows);
   stage<D>(s.b, mk, row0, n_rows);
   __syncthreads();
-  conv<D>(s.a, ws, s.w, PQ, acc);
+  tc16::conv_ring<D>(s.a, s.w, ws, 0, 4 * CH, PQ, acc);
   store_tile<D>(s.a, acc, bq);
-  conv<D>(s.b, ws + BANK, s.w, PKV, acc);
+  tc16::conv_ring<D>(s.b, s.w, ws, CH, 4 * CH, PKV, acc);
   store_tile<D>(s.b, acc, bk);
   __syncthreads();
   scores<D, MASK>(s);
@@ -263,12 +278,12 @@ attn_bf16_fwd_kernel(const float* __restrict__ mq, const float* __restrict__ mk,
   softmax<D, DROP>(s, dm, row0, n_rows);
   stage<D>(s.a, vs, row0, n_rows);  // q is done with
   __syncthreads();
-  conv<D>(s.a, ws + 2 * BANK, s.w, PKV, acc);
+  tc16::conv_ring<D>(s.a, s.w, ws, 2 * CH, 4 * CH, PKV, acc);
   store_tile<D>(s.a, acc, bv);
   __syncthreads();
   apply_p<D>(s);
   __syncthreads();
-  conv<D>(s.a, ws + 3 * BANK, s.w, PAD_SAME, acc);
+  tc16::conv_ring<D>(s.a, s.w, ws, 3 * CH, 4 * CH, PAD_SAME, acc);
   epilogue<D>(acc, bo, [&](int pos, int f, float v0, float v1) {
     if (pos < n_rows * T)
       *reinterpret_cast<uint32_t*>(out + (row0 * T + pos) * D + f) = tc16::pack_bf16(v0, v1);

@@ -27,24 +27,46 @@
 // each) are 98% of the work; they run on the tensor cores in bfloat16
 // (the convs wgmma m64nDk16 in the RS form, tc_bf16.cuh; the weight
 // gradients m64n(D/2)k16 from shared memory, kernel 5), the attention core
-// on the CUDA cores. The structure is the float32 K5's (attn_bwd.cu), six kernels:
+// on the CUDA cores. The structure is the float32 K5's (attn_bwd.cu), six
+// launches of five kernels:
 //
 // 1. attn_bwd_bf16_wcast_kernel writes seven bfloat16 weight banks in the
 //    order the tensor cores read them (chunk of 16 input channels, tap,
 //    K-major core matrices): q, k, v as they are, and o, q, k, v with their
 //    taps reversed and each tap transposed, W'[j] = W[K-1-j]^T, so the input
 //    gradients are ordinary convs (left pad K-1-pad_left).
-// 2. attn_bwd_bf16_qkv_conv_kernel: the convs q, k, v (bfloat16 out, the
-//    bias added in bfloat16) and dx_attn (float32 out), one per blockIdx.y,
-//    on tiles of 16 rows with K4 bf16's conv (tc_bf16_conv.cuh: 192
-//    positions, three warpgroups, each chunk of 16 input channels x 3 taps
-//    added to a float32 sum on the CUDA cores).
+// 2. attn_bwd_bf16_conv_kernel with four jobs: the convs q, k, v (bfloat16
+//    out, the bias added in bfloat16) and dx_attn (float32 out).
 // 3. attn_bwd_bf16_core_kernel: the attention core per row in float32 (a
 //    warp per row, lane l owning D/32 features of all 12 steps): x_attn, dq,
 //    dk, dv, stored rounded to bfloat16 (each of their consumers rounds
 //    them). The core backward uses the float32 p; bf16(p) only feeds x_attn.
-// 4. attn_bwd_bf16_dx_conv_kernel: dmq, dmk, dvs (float32), one per
-//    blockIdx.y.
+// 4. attn_bwd_bf16_conv_kernel again with three jobs: dmq, dmk, dvs
+//    (float32 out).
+//    The conv stage (2 and 4) is bound by bytes: at PEMS08, batch 32, it
+//    reads mq, mk, vs (float32), g, dq, dk, dv (bfloat16) and writes q, k, v
+//    (bfloat16), dx_attn, dmq, dmk, dvs (float32), 351 MB, 0.105 ms at 3.35
+//    TB/s, against 0.045 ms of products. The kernel is persistent and
+//    warp-specialised (tc_bf16_conv.cuh has the chain and its numerics):
+//    - one CTA per SM, on one job (the SMs shared out over the jobs,
+//      ops/attn.py::bf16_conv_ctas), walking that job's tiles of 16 rows
+//      (192 positions) with a stride of the job's CTA count;
+//    - the job's whole bank (98,304 bytes at D = 128) stays in shared
+//      memory, loaded once by bulk copies (before: every 16 rows streamed it
+//      from L2 in chunks, behind two CTA barriers a chunk);
+//    - a producer warpgroup fills a ring of bfloat16 x tiles (2 x 52,224
+//      bytes at D = 128, 4 x 27,648 at D = 64): bfloat16 inputs by cp.async
+//      straight in, float32 inputs by 16-byte loads, 12 in flight a thread,
+//      rounded on the way. Shared memory 202,792 bytes at D = 128 (135,240
+//      at D = 64): one CTA per SM;
+//    - three consumer warpgroups wait for a tile (mbarrier full), run its
+//      chains for the output halves 0-63 and 64-127 (wgmma m64n64k16; the
+//      same chains as the full-width product, so the same bits), release
+//      the tile (mbarrier empty) and store each half from registers while
+//      the producer refills the stage. No CTA barrier in the loop;
+//    - registers: setmaxnreg gives the producer 72 and the consumers 144 a
+//      thread (32 accumulators, 32 chain partials, the fragments);
+//      chip_smoke.py's build report requires no spills and HGMMA.
 // 5. attn_bwd_bf16_dw_kernel: the weight gradients dW_i[j][c][f] =
 //    sum over (row, t) of bf16(xpad_i)[t + j][c] bf16(d_i)[t][f] and db_i,
 //    four [D x R] x [R x D] products per tap over R = rows * 12 pairs. Bound:
@@ -106,7 +128,6 @@ constexpr int T = tc::T, K = tc::K;
 constexpr int PAD_SAME = (K - 1) / 2;
 constexpr int CW = 4;          // rows (warps) per CTA of the core kernel
 using tc16::bank_index;
-using tc16::conv;
 using tc16::DH;
 using tc16::Geo;
 using tc16::M;
@@ -151,80 +172,171 @@ struct ConvJobs {
   int padl[4];
 };
 
+constexpr int PRODUCERS = 128;                    // the conv kernel's producer warpgroup
+constexpr int CONV_THREADS = THREADS + PRODUCERS;  // three consumer warpgroups first
+// registers a thread after setmaxnreg: the producer's 12 loads in flight
+// and their addresses; the consumers' 32 + 32 accumulators, fragments and
+// epilogue (72 x 128 + 144 x 384 <= 65,536)
+constexpr int PRODUCER_REGS = 72;
+constexpr int CONSUMER_REGS = 144;
+
+// the conv kernel's ring of x tiles: two at D = 128 (the bank and two tiles
+// are 202,752 bytes), four at D = 64
+template <int D>
+constexpr int CONV_STAGES = D == 128 ? 2 : 4;
+
 template <int D>
 struct ConvSmem {
-  uint16_t x[M][Geo<D>::S];
-  uint16_t w[2][Geo<D>::CHUNK];
+  uint16_t w[Geo<D>::BANK];                  // the job's bank, resident
+  uint16_t x[CONV_STAGES<D>][M][Geo<D>::S];  // the ring of bfloat16 x tiles
+  uint64_t bank_full;
+  uint64_t full[CONV_STAGES<D>];   // a tile is in (PRODUCERS arrivals)
+  uint64_t empty[CONV_STAGES<D>];  // the consumers are done with it (THREADS arrivals)
 };
 
-// rows [row0, row0 + ROWS) of src [rows, T, D] -> the bfloat16 tile, zeros
-// past n_rows
-template <int D>
-__device__ __forceinline__ void stage(uint16_t (*xs)[Geo<D>::S], const void* src, bool bf16,
-                                      int64_t row0, int n_rows) {
-  for (int u = threadIdx.x; u < M * (D / 4); u += THREADS) {
-    const int pos = u / (D / 4);
-    const int q = u % (D / 4);
-    uint2 v = make_uint2(0u, 0u);
-    if (pos < n_rows * T) {
-      const int64_t off = (row0 * T + pos) * D + 4 * q;
-      if (bf16) {
-        v = __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(src) + off));
-      } else {
-        const float4 f = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(src) + off));
-        v = make_uint2(tc16::pack_bf16(f.x, f.y), tc16::pack_bf16(f.z, f.w));
-      }
-    }
-    *reinterpret_cast<uint2*>(&xs[pos][4 * q]) = v;
-  }
+// a[i] of a kernel parameter's array, with constant offsets (an index into
+// the parameter space would copy the array to the stack)
+template <class T>
+__device__ __forceinline__ T pick(const T (&a)[4], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
 }
 
+// producer thread pt of PRODUCERS: its part of rows [row0, row0 + n_rows)
+// of src [rows, T, D] -> the bfloat16 tile xs (zeros past n_rows), then its
+// arrival on `full`. bfloat16 src: cp.async straight in, the arrival made
+// when the copies land; float32 src: 16-byte loads, 12 in flight a thread,
+// rounded on the way in
 template <int D>
-__device__ __forceinline__ void conv_rows(const ConvJobs& jobs, int64_t rows) {
+__device__ __forceinline__ void fill_tile(uint16_t (*xs)[Geo<D>::S], const void* src, bool bf16,
+                                          int64_t row0, int n_rows, uint64_t* full, int pt) {
+  const int np = n_rows * T;
+  if (bf16) {
+    const uint16_t* base = static_cast<const uint16_t*>(src) + row0 * T * D;
+    for (int u = pt; u < M * (D / 8); u += PRODUCERS) {
+      const int pos = u / (D / 8), q = u % (D / 8);
+      const bool ok = pos < np;
+      tc::cp_async16_zfill(&xs[pos][8 * q], base + (ok ? (int64_t)pos * D + 8 * q : 0), ok);
+    }
+    tc16::barrier_arrive_cp_async(full);
+    return;
+  }
+  constexpr int PER = M * (D / 4) / PRODUCERS;  // 48 or 24
+  constexpr int BATCH = 12;
+  static_assert(PER % BATCH == 0, "whole batches of loads");
+  const float* base = static_cast<const float*>(src) + row0 * T * D;
+#pragma unroll 1
+  for (int b0 = 0; b0 < PER; b0 += BATCH) {
+    float4 v[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int u = pt + PRODUCERS * (b0 + i);
+      const int pos = u / (D / 4);
+      v[i] = pos < np ? __ldg(reinterpret_cast<const float4*>(base + (int64_t)pos * D + 4 * (u % (D / 4))))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int u = pt + PRODUCERS * (b0 + i);
+      *reinterpret_cast<uint2*>(&xs[u / (D / 4)][4 * (u % (D / 4))]) =
+          make_uint2(tc16::pack_bf16(v[i].x, v[i].y), tc16::pack_bf16(v[i].z, v[i].w));
+    }
+  }
+  tc16::barrier_arrive(full);
+}
+
+// The convs of one launch (kernel 2: q, k, v, dx_attn; kernel 4: dmq, dmk,
+// dvs), persistent: CTA blockIdx.x takes job blockIdx.x / ctas and that
+// job's tiles of 16 rows blockIdx.x % ctas, + ctas, ... (no tile left out,
+// none taken twice: tests/test_torch_bf16_conv_ring.py). The job's bank is
+// loaded once (bulk copies) and stays; the producer warpgroup fills the ring
+// of x tiles; each consumer warpgroup waits for a tile, runs its 64
+// positions' chains in two output halves at D = 128 (one at 64), releases
+// the tile after the last half's chains and stores that half's outputs from
+// registers while the producer refills the stage.
+template <int D>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+attn_bwd_bf16_conv_kernel(ConvJobs jobs, int64_t rows, int ctas) {
+  constexpr int ST = CONV_STAGES<D>;
+  constexpr int HALVES = D / tc16::HALF;
+  using G = Geo<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ConvSmem<D>& s = *reinterpret_cast<ConvSmem<D>*>(smem_raw);
-  const int job = blockIdx.y;
-  const int64_t row0 = (int64_t)blockIdx.x * ROWS;
-  const int n_rows = (int)min((int64_t)ROWS, rows - row0);
-  stage<D>(s.x, jobs.x[job], jobs.x_bf16[job] != 0, row0, n_rows);
+  const int job = blockIdx.x / ctas;
+  const int first = blockIdx.x % ctas;
+  const int64_t tiles = (rows + ROWS - 1) / ROWS;
+  const int ntiles = first < tiles ? (int)((tiles - 1 - first) / ctas + 1) : 0;
+  if (threadIdx.x == 0) {
+    tc16::barrier_init(&s.bank_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      tc16::barrier_init(&s.full[st], PRODUCERS);
+      tc16::barrier_init(&s.empty[st], THREADS);
+    }
+    tc16::fence_barrier_init();
+  }
   __syncthreads();
-  float acc[D / 2];
-  conv<D>(s.x, jobs.w[job], s.w, jobs.padl[job], acc);
-  const float* __restrict__ bias = jobs.b[job];
+
+  if (threadIdx.x >= THREADS) {
+    // the producer warpgroup
+    tc16::regs_dec<PRODUCER_REGS>();
+    const int pt = threadIdx.x - THREADS;
+    const void* X = pick(jobs.x, job);
+    const bool x_bf16 = pick(jobs.x_bf16, job) != 0;
+    if (pt == 0) {
+      const uint16_t* bank = pick(jobs.w, job);
+      tc16::barrier_expect(&s.bank_full, 2 * G::BANK);
+      for (int c = 0; c < G::CHUNKS; ++c)
+        tc16::bulk_copy(s.w + c * G::CHUNK, bank + c * G::CHUNK, 2 * G::CHUNK, &s.bank_full);
+    }
+    for (int n = 0; n < ntiles; ++n) {
+      const int st = n % ST;
+      if (n >= ST) tc16::barrier_wait(&s.empty[st], (n / ST - 1) & 1);
+      const int64_t row0 = (first + (int64_t)n * ctas) * ROWS;
+      fill_tile<D>(s.x[st], X, x_bf16, row0, (int)min((int64_t)ROWS, rows - row0), &s.full[st], pt);
+    }
+    tc::cp_async_wait_all();
+    return;
+  }
+
+  // the consumer warpgroups
+  tc16::regs_inc<CONSUMER_REGS>();
+  const float* __restrict__ bias = pick(jobs.b, job);
+  void* out = pick(jobs.out, job);
+  const int padl = pick(jobs.padl, job);
   const int tq = threadIdx.x & 3;
   const int p0 = tc::frag_row();
+  tc16::barrier_wait(&s.bank_full, 0);
+  for (int n = 0; n < ntiles; ++n) {
+    const int st = n % ST;
+    const int64_t row0 = (first + (int64_t)n * ctas) * ROWS;
+    const int np = (int)min((int64_t)ROWS, rows - row0) * T;
+    tc16::barrier_wait(&s.full[st], (n / ST) & 1);
+#pragma unroll 1
+    for (int half = 0; half < HALVES; ++half) {
+      float acc[tc16::HALF / 2];
+      tc16::conv_half<D>(s.x[st], s.w, half, padl, acc);
+      if (half == HALVES - 1) tc16::barrier_arrive(&s.empty[st]);
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) {
-    const int f = nb * 8 + 2 * tq;
+      for (int nb = 0; nb < tc16::HALF / 8; ++nb) {
+        const int f = half * tc16::HALF + nb * 8 + 2 * tq;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int pos = p0 + 8 * h;
-      if (pos >= n_rows * T) continue;
-      const int64_t off = (row0 * T + pos) * D + f;
-      const float v0 = acc[4 * nb + 2 * h], v1 = acc[4 * nb + 2 * h + 1];
-      if (bias != nullptr) {
-        // bf16(bf16(acc) + bf16(bias)), as _tconv_tile
-        const float b0 = tc16::round_bf16(__ldg(bias + f));
-        const float b1 = tc16::round_bf16(__ldg(bias + f + 1));
-        *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(jobs.out[job]) + off) =
-            tc16::pack_bf16(tc16::round_bf16(v0) + b0, tc16::round_bf16(v1) + b1);
-      } else {
-        *reinterpret_cast<float2*>(static_cast<float*>(jobs.out[job]) + off) = make_float2(v0, v1);
+        for (int h = 0; h < 2; ++h) {
+          const int pos = p0 + 8 * h;
+          if (pos >= np) continue;
+          const int64_t off = (row0 * T + pos) * D + f;
+          const float v0 = acc[4 * nb + 2 * h], v1 = acc[4 * nb + 2 * h + 1];
+          if (bias != nullptr) {
+            // bf16(bf16(acc) + bf16(bias)), as _tconv_tile
+            const float b0 = tc16::round_bf16(__ldg(bias + f));
+            const float b1 = tc16::round_bf16(__ldg(bias + f + 1));
+            *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(out) + off) =
+                tc16::pack_bf16(tc16::round_bf16(v0) + b0, tc16::round_bf16(v1) + b1);
+          } else {
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(v0, v1);
+          }
+        }
       }
     }
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-attn_bwd_bf16_qkv_conv_kernel(ConvJobs jobs, int64_t rows) {
-  conv_rows<D>(jobs, rows);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-attn_bwd_bf16_dx_conv_kernel(ConvJobs jobs, int64_t rows) {
-  conv_rows<D>(jobs, rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -789,7 +901,8 @@ int launch_core(const CoreArgs& io, const float* dm, int64_t rows, cudaStream_t 
 
 template <int D, bool DROP>
 int launch(const void* const* p, const float* dm, void* const* out, unsigned char* scratch,
-           int64_t rows, int splits, int causal_q, int causal_kv, cudaStream_t stream) {
+           int64_t rows, int splits, const int (&conv_ctas)[2], int causal_q, int causal_kv,
+           cudaStream_t stream) {
   constexpr int64_t BANK = Geo<D>::BANK;
   const int64_t act = rows * T * D;
   uint16_t* ws = reinterpret_cast<uint16_t*>(scratch);
@@ -815,17 +928,17 @@ int launch(const void* const* p, const float* dm, void* const* out, unsigned cha
   if (err != cudaSuccess) return (int)err;
 
   const int conv_smem = (int)sizeof(ConvSmem<D>);
-  const unsigned tiles = (unsigned)((rows + ROWS - 1) / ROWS);
+  err = cudaFuncSetAttribute(attn_bwd_bf16_conv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, conv_smem);
+  if (err != cudaSuccess) return (int)err;
   ConvJobs fwd = {{mq, mk, vs, g},
                   {0, 0, 0, 1},
                   {ws, ws + BANK, ws + 2 * BANK, ws + 3 * BANK},
                   {(const float*)p[4], (const float*)p[6], (const float*)p[8], nullptr},
                   {q, k, v, dxa},
                   {pq, pkv, pkv, K - 1 - PAD_SAME}};
-  err = cudaFuncSetAttribute(attn_bwd_bf16_qkv_conv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, conv_smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_bf16_qkv_conv_kernel<D><<<dim3(tiles, 4), THREADS, conv_smem, stream>>>(fwd, rows);
+  attn_bwd_bf16_conv_kernel<D><<<4 * conv_ctas[0], CONV_THREADS, conv_smem, stream>>>(
+      fwd, rows, conv_ctas[0]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -840,10 +953,8 @@ int launch(const void* const* p, const float* dm, void* const* out, unsigned cha
                   {nullptr, nullptr, nullptr, nullptr},
                   {out[0], out[1], out[2], nullptr},
                   {K - 1 - pq, K - 1 - pkv, K - 1 - pkv, 0}};
-  err = cudaFuncSetAttribute(attn_bwd_bf16_dx_conv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, conv_smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_bf16_dx_conv_kernel<D><<<dim3(tiles, 3), THREADS, conv_smem, stream>>>(bwd, rows);
+  attn_bwd_bf16_conv_kernel<D><<<3 * conv_ctas[1], CONV_THREADS, conv_smem, stream>>>(
+      bwd, rows, conv_ctas[1]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -881,31 +992,35 @@ extern "C" int64_t pxt_attn_bwd_bf16_scratch_bytes(int64_t rows, int splits, int
 // bv, wo, bo (float32), g (bfloat16 [rows, 12, d]); out: dmq, dmk, dvs
 // (float32) and one float32 buffer of 4 K d d + 4 d: dWq, dWk, dWv, dWo, then
 // dbq, dbk, dbv, dbo; scratch: pxt_attn_bwd_bf16_scratch_bytes (16-byte
-// aligned); d = 64 or 128 with head dim 16
+// aligned); splits: the weight-gradient kernel's row splits; ctas4, ctas3:
+// the conv kernel's CTAs per job in its 4-job and 3-job launches (each at
+// least 1, at most the tiles of 16 rows); d = 64 or 128 with head dim 16
 extern "C" int pxt_attn_bwd_bf16(const void* const* p, void* const* out, void* scratch,
-                                 int64_t rows, int splits, int d, int causal_q, int causal_kv,
-                                 int is_mask, void* stream) {
-  if (rows <= 0 || splits <= 0 || !flags_ok(causal_q, causal_kv, is_mask))
+                                 int64_t rows, int splits, int ctas4, int ctas3, int d,
+                                 int causal_q, int causal_kv, int is_mask, void* stream) {
+  if (rows <= 0 || splits <= 0 || ctas4 <= 0 || ctas3 <= 0 || !flags_ok(causal_q, causal_kv, is_mask))
     return (int)cudaErrorInvalidValue;
   unsigned char* sc = (unsigned char*)scratch;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128) return launch<128, false>(p, nullptr, out, sc, rows, splits, causal_q, causal_kv, s);
-  if (d == 64) return launch<64, false>(p, nullptr, out, sc, rows, splits, causal_q, causal_kv, s);
+  const int ctas[2] = {ctas4, ctas3};
+  if (d == 128) return launch<128, false>(p, nullptr, out, sc, rows, splits, ctas, causal_q, causal_kv, s);
+  if (d == 64) return launch<64, false>(p, nullptr, out, sc, rows, splits, ctas, causal_q, causal_kv, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // the dropout form; dmask: float32 [rows, 12, (d / 16) * 12]
 extern "C" int pxt_attn_bwd_bf16_dropout(const void* const* p, const void* dmask,
                                          void* const* out, void* scratch, int64_t rows,
-                                         int splits, int d, int causal_q, int causal_kv,
-                                         int is_mask, void* stream) {
-  if (rows <= 0 || splits <= 0 || !flags_ok(causal_q, causal_kv, is_mask))
+                                         int splits, int ctas4, int ctas3, int d, int causal_q,
+                                         int causal_kv, int is_mask, void* stream) {
+  if (rows <= 0 || splits <= 0 || ctas4 <= 0 || ctas3 <= 0 || !flags_ok(causal_q, causal_kv, is_mask))
     return (int)cudaErrorInvalidValue;
   unsigned char* sc = (unsigned char*)scratch;
   const float* dm = (const float*)dmask;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128) return launch<128, true>(p, dm, out, sc, rows, splits, causal_q, causal_kv, s);
-  if (d == 64) return launch<64, true>(p, dm, out, sc, rows, splits, causal_q, causal_kv, s);
+  const int ctas[2] = {ctas4, ctas3};
+  if (d == 128) return launch<128, true>(p, dm, out, sc, rows, splits, ctas, causal_q, causal_kv, s);
+  if (d == 64) return launch<64, true>(p, dm, out, sc, rows, splits, ctas, causal_q, causal_kv, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,18 +23,31 @@ so are the bfloat16 backwards: K5 bf16 against the plain bfloat16 backward
 (``attn.bwd_errors`` <= 2e-3) and K3 on a bfloat16 cotangent with its cast
 (bit for bit K3 on ``g.float()``).
 
+For comparing two trees of the repo bit for bit, the bfloat16 attention
+kernels (K4 bf16, K5 bf16) also give a digest of their outputs on the
+seeded inputs, over the three flag sets with and without a dropout-0.1 keep
+mask (``bits``), their device time by kernel (``by_kernel``; K5 bf16's conv
+stage, the launches of its conv kernels, as ``conv_ms``), and at PEMS08 the
+bfloat16 ``Trainer.train_step``'s and ``Predictor.forward``'s device time
+(``bf16_model``). To run a parent tree under the same harness, copy this
+file and ``ops/timing.py`` into it.
+
 Prints the card line, one line per configuration, and a JSON list of the
 measurements as the last line. Exits non-zero when a kernel disagrees.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..models.d3stn.config import load_config
@@ -48,6 +61,7 @@ from .timing import (
     bound_ms,
     device_ms,
     device_ms_by_kernel,
+    device_ms_total,
     gcn_bwd_work,
     gcn_work,
     time_ms,
@@ -58,6 +72,7 @@ BATCH, T_LEN = 32, 12
 TOL = 1e-4
 # the bfloat16 attention backward against its plain version (chip_smoke.py)
 ATTN_BWD_BF16_TOL = 2e-3
+FLAG_SETS = ((False, False, False), (True, True, True), (True, False, False))
 
 
 def _norm_err(got, want):
@@ -98,8 +113,35 @@ def _bf16_check(name, kernel, got, want):
 
 
 def _fmt16(name, r):
-    return (f"{name} {r['ms']:.4f} ms (err {r['err']:.2e}), plain {r['plain_ms']:.4f} ms, "
+    conv = f", conv stage {r['conv_ms']:.4f} ms" if "conv_ms" in r else ""
+    return (f"{name} {r['ms']:.4f} ms (err {r['err']:.2e}){conv}, plain {r['plain_ms']:.4f} ms, "
             f"bfloat16 bound {r['bound16_ms']:.4f} ms")
+
+
+def _digest(outputs):
+    """The first 16 hex digits of a SHA-256 of the output tensors' bytes."""
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _keep_mask(n, heads, gen, dev):
+    keep = 0.9
+    draw = torch.rand(BATCH, n, T_LEN, heads * T_LEN, generator=gen, device=dev)
+    return (draw < keep).float() / keep
+
+
+def _by_kernel(runs, symbol):
+    """Each kernel's device ms by short name (no namespace, no template
+    arguments), the mean over ``runs``; a kernel that a call launches twice
+    counts both launches."""
+    out = {}
+    for run in runs:
+        for name, ms in device_ms_by_kernel(run, symbol).items():
+            short = re.search(r"\w*" + symbol + r"\w*", name).group(0)
+            out[short] = out.get(short, 0.0) + ms / len(runs)
+    return out
 
 
 def _gcn_bf16(name, n, d, gen, dev):
@@ -120,16 +162,20 @@ def _attn_bf16(name, n, d, heads, ks, gen, dev):
     for _ in range(4):
         weights.append((2 * torch.rand(ks, d, d, generator=gen, device=dev) - 1) * lim)
         weights.append(0.1 * torch.randn(d, generator=gen, device=dev))
-    errs, times, plain_times = [], [], []
-    for flags in ((False, False, False), (True, True, True), (True, False, False)):
+    mask = _keep_mask(n, heads, gen, dev)
+    errs, runs, plain_times, outputs = [], [], [], []
+    for flags in FLAG_SETS:
         args = (mq, mk, vs, *weights, *flags, heads)
         run = lambda: attn.fused_temporal_attention_bf16_kernel(*args)  # noqa: E731
         plain = lambda: attn.fused_temporal_attention_plain(*args, "bfloat16")  # noqa: E731
-        errs.append(_bf16_check(name, "attention", run(), plain()))
-        times.append(device_ms(run, "attn_bf16_"))
+        outputs += [run(), attn.fused_temporal_attention_bf16_kernel(*args, dropout_mask=mask)]
+        errs.append(_bf16_check(name, "attention", outputs[-2], plain()))
+        runs.append(run)
         plain_times.append(time_ms(plain))
-    return {"err": max(errs), "ms": sum(times) / 3, "plain_ms": sum(plain_times) / 3,
-            "bound16_ms": bound_bf16_ms(attn_work(BATCH, n, T_LEN, d, heads, ks, 4, 2))[0]}
+    by_kernel = _by_kernel(runs, "attn_bf16_")
+    return {"err": max(errs), "ms": sum(by_kernel.values()), "plain_ms": sum(plain_times) / 3,
+            "bound16_ms": bound_bf16_ms(attn_work(BATCH, n, T_LEN, d, heads, ks, 4, 2))[0],
+            "by_kernel": by_kernel, "bits": _digest(outputs)}
 
 
 def _gcn_bwd(name, n, d, gen, dev):
@@ -191,19 +237,28 @@ def _attn_bwd_bf16(name, n, d, heads, ks, gen, dev):
     for _ in range(4):
         weights.append((2 * torch.rand(ks, d, d, generator=gen, device=dev) - 1) * lim)
         weights.append(0.1 * torch.randn(d, generator=gen, device=dev))
-    errs, times, plain_times = [], [], []
-    for flags in ((False, False, False), (True, True, True), (True, False, False)):
+    mask = _keep_mask(n, heads, gen, dev)
+    errs, runs, plain_times, digest = [], [], [], hashlib.sha256()
+    for flags in FLAG_SETS:
         args = (*acts, *weights, g, *flags, heads)
         run = lambda: attn.fused_temporal_attention_bwd_bf16_kernel(*args)  # noqa: E731
         plain = lambda: attn.fused_temporal_attention_bwd_plain(*args, "bfloat16")  # noqa: E731
-        errs.append(max(attn.bwd_errors(run(), plain())))
-        times.append(device_ms(run, "attn_bwd_bf16_"))
+        got = run()
+        errs.append(max(attn.bwd_errors(got, plain())))
+        digest.update(_digest(got).encode())
+        digest.update(_digest(attn.fused_temporal_attention_bwd_bf16_kernel(
+            *args, dropout_mask=mask)).encode())
+        del got
+        runs.append(run)
         plain_times.append(time_ms(plain, reps=5))
     if max(errs) > ATTN_BWD_BF16_TOL:
         raise RuntimeError(f"{name}: bfloat16 attention backward error {max(errs):.3e} > "
                            f"{ATTN_BWD_BF16_TOL:g}")
-    return {"err": max(errs), "ms": sum(times) / 3, "plain_ms": sum(plain_times) / 3,
-            "bound16_ms": bound_bf16_ms(attn_bwd_work(BATCH, n, T_LEN, d, heads, ks, 4, 2))[0]}
+    by_kernel = _by_kernel(runs, "attn_bwd_bf16_")
+    return {"err": max(errs), "ms": sum(by_kernel.values()), "plain_ms": sum(plain_times) / 3,
+            "bound16_ms": bound_bf16_ms(attn_bwd_work(BATCH, n, T_LEN, d, heads, ks, 4, 2))[0],
+            "conv_ms": sum(ms for k, ms in by_kernel.items() if "_conv_kernel" in k),
+            "by_kernel": by_kernel, "bits": digest.hexdigest()[:16]}
 
 
 def _attn(name, n, d, heads, ks, gen, dev):
@@ -235,6 +290,41 @@ def _attn(name, n, d, heads, ks, gen, dev):
             **_bounds(attn_work(BATCH, n, T_LEN, d, heads, ks)), "kernel": route,
             "dropout": {"err": max(res["drop_err"]), "ms": sum(res["drop_ms"]) / 3,
                         "plain_ms": sum(res["drop_plain_ms"]) / 3, **drop_bounds}}
+
+
+def _bf16_model(cfg_path, dev):
+    """Device ms of one bfloat16 ``Trainer.train_step`` and one
+    ``Predictor.forward`` at batch 32 on seeded synthetic traffic."""
+    from ..models.d3stn import Predictor, Trainer, synthetic_traffic_npz
+
+    rng = np.random.default_rng(0)
+    res = {}
+    with tempfile.TemporaryDirectory() as save_dir:
+        cfg = load_config(cfg_path, batch_size=BATCH, compute_dtype="bfloat16", train_epochs=1,
+                          finetune_epochs=0, save_dir=save_dir)
+        n = cfg.num_nodes
+        a = rng.random((n, n))
+        sc = ((a + a.T) / 2).astype(np.float32)
+        adj = (rng.random((n, n)) < 0.03).astype(np.float32)
+        adj = np.maximum(adj, adj.T)
+        tr = Trainer(cfg, data=synthetic_traffic_npz(num_nodes=n, seq_len=288 * 14),
+                     adj_matrix=adj, sc_matrix=sc, device=dev)
+        starts = next(tr.train_dataset.batch_starts(cfg.batch_size, shuffle=True, seed=cfg.seed))
+        src, tgt = tr.windows(starts)
+        res["step_ms"] = device_ms_total(lambda: tr.train_step(src, tgt, 1.0, 1e-4, 1e-5))
+        del tr
+    enc = (np.arange(12) + rng.random(12)).astype(np.float32)
+    dec = (cfg.his_len - 1 - 1.5 * rng.random(cfg.tgt_len)).astype(np.float32)
+    pred = Predictor(cfg, None, enc, dec, adj, sc, batch_size=BATCH, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    pred.warmup()
+    steps = np.arange(cfg.his_len)
+    value = 0.5 * np.sin(2 * np.pi * steps / 288 + rng.uniform(0, 6.28, (BATCH, n, 1)))
+    win = np.stack([value, np.broadcast_to((steps // 288) % 7, value.shape),
+                    np.broadcast_to(steps % 288, value.shape)], axis=-1).astype(np.float32)
+    win = torch.as_tensor(win).to(dev)
+    res["serve_ms"] = device_ms_total(lambda: pred.forward(win))
+    return res
 
 
 def main():
@@ -275,6 +365,12 @@ def main():
                      "gcn_bwd": gb, "attn_bwd": ab, "gcn_bf16": g16, "attn_bf16": a16,
                      "gcn_bwd_bf16": gb16, "attn_bwd_bf16": ab16})
         torch.cuda.empty_cache()
+        if name == "PEMS08":
+            rows[-1]["bf16_model"] = _bf16_model(str(root / "examples" / "configs" / "PEMS08.json"),
+                                                 dev)
+            print(f"PEMS08 bfloat16 device ms: train step {rows[-1]['bf16_model']['step_ms']:.4f}, "
+                  f"served batch {rows[-1]['bf16_model']['serve_ms']:.4f}", flush=True)
+            torch.cuda.empty_cache()
     print(json.dumps(rows))
 
 

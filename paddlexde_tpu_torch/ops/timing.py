@@ -33,8 +33,9 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOPS", "PEAK_TF32_FLOPS", "PEAK_BF16_FLOPS", "Work",
-           "time_ms", "device_ms", "device_ms_by_kernel", "bound_ms", "bound_3xtf32_ms",
-           "bound_bf16_ms", "gcn_work", "gcn_bwd_work", "attn_work", "attn_bwd_work"]
+           "LAUNCHES_PER_CALL", "time_ms", "device_ms", "device_ms_by_kernel", "device_ms_total",
+           "bound_ms", "bound_3xtf32_ms", "bound_bf16_ms", "gcn_work", "gcn_bwd_work",
+           "attn_work", "attn_bwd_work"]
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
 # operations/s on the CUDA cores and TF32 and bfloat16 operations/s on the
@@ -80,17 +81,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 # A profiler trace can miss launch records (9 of 10 seen at PEMS08 shapes, 3
 # of 10 for a microsecond kernel, once all of them); it cannot gain one. A
-# trace that saw none of a kernel's launches is taken again, up to this many
-# times in all.
-_TRACES = 3
+# trace that saw none of a kernel's launches, or lost one of a kernel that
+# launches more than once a call, is taken again, up to this many times in
+# all.
+_TRACES = 5
+
+# kernels (a substring of the name) that one call of their wrapper launches
+# more than once: K5 bf16's persistent conv kernel runs the q/k/v/dx_attn
+# convs and then the input-gradient convs
+LAUNCHES_PER_CALL = {"attn_bwd_bf16_conv_kernel": 2}
 
 
 def device_ms_by_kernel(fn, symbol: str, reps: int = 10) -> dict:
     """Median device time (ms) of each CUDA kernel whose name contains
     ``symbol`` in one call of ``fn``, from a profiler trace of ``reps``
     calls (the wrapper's host-side preparation is not in it; see
-    ``_TRACES`` for traces that miss launches)."""
+    ``_TRACES`` for traces that miss launches). A kernel that one call
+    launches k > 1 times (``LAUNCHES_PER_CALL``) counts the sum of a call's
+    k launches, taken in trace order, and only from a trace that kept all of
+    its k * ``reps`` records; a kernel launched once a call counts the
+    records that the trace kept."""
     from torch.profiler import ProfilerActivity, profile
+
+    def per_call(name):
+        return next((k for sub, k in LAUNCHES_PER_CALL.items() if sub in name), 1)
 
     fn()
     torch.cuda.synchronize()
@@ -102,13 +116,21 @@ def device_ms_by_kernel(fn, symbol: str, reps: int = 10) -> dict:
         by_name = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.name:
-                by_name.setdefault(e.name, []).append(e.device_time)
-        counts = {k: len(v) for k, v in by_name.items()}
-        if any(c > reps for c in counts.values()):
+                by_name.setdefault(e.name, []).append((e.time_range.start, e.device_time))
+        counts = {name: len(v) for name, v in by_name.items()}
+        if any(c > per_call(name) * reps for name, c in counts.items()):
             break
-        if by_name:
-            return {name: statistics.median(t) / 1e3 for name, t in by_name.items()}
-    raise RuntimeError(f"profiler saw launches {counts} of {symbol}, expected {reps} each")
+        if by_name and all(c == per_call(name) * reps for name, c in counts.items()
+                           if per_call(name) > 1):
+            out = {}
+            for name, records in by_name.items():
+                k = per_call(name)
+                times = [t for _, t in sorted(records)]
+                out[name] = statistics.median(
+                    sum(times[i : i + k]) for i in range(0, len(times), k)) / 1e3
+            return out
+    raise RuntimeError(f"profiler saw launches {counts} of {symbol}, expected {reps} calls "
+                       f"(launches per call: one, or {LAUNCHES_PER_CALL})")
 
 
 def device_ms(fn, symbol: str, reps: int = 10) -> float:
@@ -117,6 +139,23 @@ def device_ms(fn, symbol: str, reps: int = 10) -> float:
     (the backward kernels, the attention forward's weight split), the sum of
     each kernel's median (:func:`device_ms_by_kernel`)."""
     return sum(device_ms_by_kernel(fn, symbol, reps).values())
+
+
+def device_ms_total(fn, reps: int = 10) -> float:
+    """Device time (ms) of one call of ``fn`` over every kernel it launches
+    (a train step, a served batch): the trace's sum over ``reps`` calls,
+    divided by ``reps``. A launch record that the trace dropped reads as
+    time not spent, so this can read low, never high."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
 
 
 def _bound(t_bytes: float, t_ops: float):

@@ -224,11 +224,13 @@ def test_gcn_bf16_kernel_refuses_other_widths(dev):
         gcn.gcn_spatial_mix_bf16_kernel(x, torch.zeros(5, 5, device=dev))
 
 
-# the bfloat16 K4 (csrc/attn_bf16.cu): B*N = 37 (a ragged last tile of 16
-# rows) and 340, D = 128 with 8 heads and 64 with 4, D3STN's three flag sets
+# the bfloat16 K4 (csrc/attn_bf16.cu): B*N = 37 and 921 (a ragged last tile
+# of 16 rows), 340, and 14128 (883 tiles: several waves of CTAs over the SMs),
+# D = 128 with 8 heads and 64 with 4, D3STN's three flag sets
 @cases("flags", [(False, False, False), (True, True, True), (True, False, False)])
 @cases("b,n,d,heads", [(1, 37, 128, 8), (1, 37, 64, 4), (2, 170, 128, 8),
-                                         (2, 170, 64, 4)])
+                                         (2, 170, 64, 4), (3, 307, 128, 8), (16, 883, 128, 8),
+                                         (16, 883, 64, 4)])
 def test_attention_bf16_kernel(dev, flags, b, n, d, heads):
     g = torch.Generator(device=dev).manual_seed(7)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -286,20 +288,23 @@ def test_bf16_dense_sums_in_float32_whatever_the_flag(dev, d_in, bias):
 
 
 # the bfloat16 K5 (csrc/attn_bwd_bf16.cu), D = 128 with 8 heads and 64 with
-# 4, D3STN's three flag sets, at the edges of the convs' 16-row tiles, the
-# core's 4 rows and the weight-gradient kernel's 8-row tiles and splits
-# (attn.bf16_dw_splits, one wave of CTAs; on an H100 with 132 SMs):
-# B*N = 5 (fewer rows than one tile), 37 (5 splits of one tile, the last
-# ragged), 340 (43 tiles in 15 splits of 3 at D = 128: the last split one
-# tile of 4 rows), 921 (116 tiles in 29 splits of 4 at D = 64, the last
-# tile one row), 14128 (111 tiles a CTA at D = 128, 54 at D = 64) and 340 at
-# D = 64 (22 splits of 2, the last tile 4 rows); against the plain
-# bfloat16 backward on the card by attn.bwd_errors (limit as
-# chip_smoke.py's), the same bits twice
+# 4, D3STN's three flag sets, at the edges of the persistent conv kernel's
+# 16-row tiles (attn.bf16_conv_ctas), the core's 4 rows and the
+# weight-gradient kernel's 8-row tiles and splits (attn.bf16_dw_splits, one
+# wave of CTAs; on an H100 with 132 SMs): B*N = 5 (fewer rows than one
+# tile), 37 (5 splits of one tile, the last ragged), 340 (43 tiles in 15
+# splits of 3 at D = 128: the last split one tile of 4 rows; conv CTAs of
+# 2 or 3 tiles), 400 (25 conv tiles: fewer than the SMs per job, one tile a
+# CTA), 921 (116 tiles in 29 splits of 4 at D = 64, the last tile one row),
+# 14128 (111 tiles a CTA at D = 128, 54 at D = 64; 27 conv tiles a CTA in
+# the 4-job launch, 21 in the 3-job one) and 340 at D = 64 (22 splits of
+# 2, the last tile 4 rows); against the plain bfloat16 backward on the card
+# by attn.bwd_errors (limit as chip_smoke.py's), the same bits twice
 @cases("flags", [(False, False, False), (True, True, True), (True, False, False)])
 @cases("b,n,d,heads", [(1, 5, 128, 8), (1, 5, 64, 4), (1, 37, 128, 8),
                                          (1, 37, 64, 4), (2, 170, 128, 8), (2, 170, 64, 4),
-                                         (3, 307, 64, 4), (16, 883, 128, 8), (16, 883, 64, 4)])
+                                         (2, 200, 128, 8), (3, 307, 64, 4), (16, 883, 128, 8),
+                                         (16, 883, 64, 4)])
 def test_attention_bwd_bf16_kernel(dev, flags, b, n, d, heads):
     g = torch.Generator(device=dev).manual_seed(8)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -419,16 +424,18 @@ def _keep_mask(g, dev, b, n, heads, rate=0.1):
 
 
 # the dropout forms of K4 and K5 (csrc/attn.cu, attn_bwd.cu, attn_bf16.cu,
-# attn_bwd_bf16.cu): ragged tiles (B*N = 37), several weight-gradient
-# splits (340 rows; 921 rows: K5 bf16's 116 tiles in 15 splits of 8, the
-# last split 4 tiles, its last tile one row), D = 128 and 64 (SYNTH's 32 x
-# 16 rows at D = 64); against the plain
-# versions with the same mask on the card, the same bits twice, and an
-# all-keep mask giving the no-dropout kernel's bits
+# attn_bwd_bf16.cu): ragged tiles (B*N = 37; 921 rows, not a multiple of
+# 16), several weight-gradient splits (340 rows; 921 rows: K5 bf16's 116
+# tiles in 15 splits of 8, the last split 4 tiles, its last tile one row),
+# 14128 rows (883 tiles of 16: several waves, and many tiles a persistent
+# conv CTA), D = 128 and 64 (SYNTH's 32 x 16 rows at D = 64); against the
+# plain versions with the same mask on the card, the same bits twice, and
+# an all-keep mask giving the no-dropout kernel's bits
 @cases("dtype_name", ["float32", "bfloat16"])
 @cases("flags", [(False, False, False), (True, True, True), (True, False, False)])
 @cases("b,n,d,heads", [(1, 37, 128, 8), (2, 170, 128, 8), (1, 37, 64, 4),
-                                         (3, 307, 128, 8), (32, 16, 64, 4)])
+                                         (3, 307, 128, 8), (32, 16, 64, 4), (16, 883, 128, 8),
+                                         (16, 883, 64, 4)])
 def test_attention_dropout_kernels(dev, dtype_name, flags, b, n, d, heads):
     g = torch.Generator(device=dev).manual_seed(12)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
