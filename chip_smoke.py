@@ -155,7 +155,10 @@ KERNEL_NAMES = {
     "attn_fwd": ("attn_fwd_wsplit_kernel", "attn_fwd_d3stn_kernel"),  # D3STN's shape
     "attn_bwd": ("attn_bwd_wt_kernel", "attn_bwd_qkv_conv_kernel", "attn_bwd_core_kernel",
                  "attn_bwd_dx_conv_kernel", "attn_bwd_dw_kernel", "attn_bwd_sum_kernel"),
-    "gcn_fwd_bf16": ("gcn_bf16_fwd_kernel",),
+    # the slice kernel up to N = 192, at 129-192 nodes (PEMS08) after
+    # bf16(gate); past 192 the two-pass kernel alone
+    # (gcn_bf16_fwd_kernel_two_pass)
+    "gcn_fwd_bf16": ("gcn_bf16_gate_kernel", "gcn_bf16_fwd_kernel"),
     "attn_fwd_bf16": ("attn_bf16_wcast_kernel", "attn_bf16_fwd_kernel"),
     "attn_bwd_bf16": ("attn_bwd_bf16_wcast_kernel", "attn_bwd_bf16_conv_kernel",
                       "attn_bwd_bf16_core_kernel", "attn_bwd_bf16_dw_kernel",
@@ -279,11 +282,14 @@ def hgmma_by_function(sass, symbol):
 
 # the mangled name of the float32 attention forward's D = 64 instantiations
 ATTN_FWD_D64 = "attn_fwd_d3stn_kernelILi64E"
-# the kernels of the bfloat16 temporal conv (tc_bf16_conv.cuh) by library,
-# with their instantiations: K5 bf16's persistent conv kernel (D = 64, 128)
-# and K4 bf16 (3 flag sets x D = 64, 128 x DROP)
-BF16_CONV_KERNELS = {"attn_bwd_bf16": (("attn_bwd_bf16_conv_kernel", 2),),
-                     "attn_bf16": (("attn_bf16_fwd_kernel", 12),)}
+# the redesigned bfloat16 kernels by library, with their instantiations:
+# K5 bf16's persistent conv kernel (D = 64, 128) and K4 bf16 (3 flag sets x
+# D = 64, 128 x DROP), both on the bfloat16 temporal conv
+# (tc_bf16_conv.cuh), and K2 bf16 (D = 64, 128 x x float32, bfloat16 x the
+# slice kernel at 1, 2, 3 resident node tiles and the two-pass kernel)
+BF16_HGMMA_KERNELS = {"attn_bwd_bf16": (("attn_bwd_bf16_conv_kernel", 2),),
+                      "attn_bf16": (("attn_bf16_fwd_kernel", 12),),
+                      "gcn_bf16": (("gcn_bf16_fwd_kernel", 16),)}
 
 
 def build_report():
@@ -295,8 +301,8 @@ def build_report():
     kernels and the float32 attention forward at D = 64 must not spill;
     the bfloat16 libraries, each of the six D = 64 instantiations of the
     float32 attention forward (three flag sets, with and without DROP), K5
-    bf16's persistent conv kernel (D = 64, 128) and each of K4 bf16's
-    twelve instantiations must hold HGMMA (wgmma)."""
+    bf16's persistent conv kernel (D = 64, 128), each of K4 bf16's twelve
+    instantiations and each of K2 bf16's sixteen must hold HGMMA (wgmma)."""
     from paddlexde_tpu_torch.ops import _build
 
     for lib in ("gcn", "gcn_bwd", "attn", "attn_bwd", "gcn_bf16", "attn_bf16", "attn_bwd_bf16"):
@@ -333,7 +339,7 @@ def build_report():
             print(f"  {lib}: HGMMA of the weight-gradient kernels {sorted(dw.values())}",
                   flush=True)
             require(len(dw) == 2 and all(dw.values()), f"{lib}: a dw kernel has no HGMMA: {dw}")
-        for symbol, want in BF16_CONV_KERNELS.get(lib, ()):
+        for symbol, want in BF16_HGMMA_KERNELS.get(lib, ()):
             hg = hgmma_by_function(sass, symbol)
             regs = sorted(r for name, r, *_ in ptxas_report(log) if symbol in name)
             print(f"  {lib}: {symbol}: {len(hg)} instantiations, HGMMA {sorted(hg.values())}, "
@@ -594,11 +600,11 @@ def check_gcn_bf16(torch, dev, gen):
         plain = lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2, "bfloat16")  # noqa: E731
         err, ulp, share = check_bf16(torch, f"gcn bf16 kernel, x {x.dtype}", run, plain)
         work = gcn_work(b, n, t_len, d, x_bytes=x.element_size(), y_bytes=2)
-        res = dict(err=err, ulp=ulp, share=share, ms=device_ms(run, KERNEL_NAMES["gcn_fwd_bf16"][0]),
+        res = dict(err=err, ulp=ulp, share=share, ms=device_ms(run, "gcn_bf16_"),
                    wrapper_ms=time_ms(run), plain_ms=time_ms(plain), bound16=bound_bf16_ms(work))
         print(f"  gcn bf16 kernel, x {x.dtype}: kernel {res['ms']:.4f} ms (device), plain "
               f"{res['plain_ms']:.4f} ms, bfloat16 bound {res['bound16'][0]:.4f} ms by "
-              f"{res['bound16'][1]}", flush=True)
+              f"{res['bound16'][1]}, {res['bound16'][0] / res['ms']:.1%} of it", flush=True)
     res["shape"] = f"x [{b},{n},{t_len},{d}] float32, gate [{n},{n}] -> y bfloat16"
     return res
 

@@ -211,7 +211,9 @@ def gcn_spatial_mix_bwd_bf16_kernel(x, gate, g, scale2: float = 1.0):
 
 def gcn_spatial_mix_bf16_kernel(x, gate, scale2: float = 1.0):
     """The CUDA forward kernel in bfloat16 (no autograd): x float32 or
-    bfloat16, gate float32; returns y in bfloat16 (``csrc/gcn_bf16.cu``)."""
+    bfloat16, gate float32; returns y in bfloat16 (``csrc/gcn_bf16.cu``; at
+    128 < N <= 192 a small kernel first writes bf16(gate) into a scratch
+    tensor for the slice kernel; one call counts once)."""
     if not x.is_cuda:
         raise ValueError("gcn_spatial_mix_bf16_kernel needs a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16) or gate.dtype != torch.float32:
@@ -232,14 +234,19 @@ def gcn_spatial_mix_bf16_kernel(x, gate, scale2: float = 1.0):
     if x.numel() == 0:
         return y
     lib = _build.library("gcn_bf16")
+    lib.pxt_gcn_fwd_bf16_scratch.restype = ctypes.c_int64
+    lib.pxt_gcn_fwd_bf16_scratch.argtypes = [ctypes.c_int]
     fn = lib.pxt_gcn_fwd_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
+        # bf16(gate) for the slice kernel at three node tiles (csrc/gcn_bf16.cu)
+        scratch = torch.empty(lib.pxt_gcn_fwd_bf16_scratch(n), dtype=torch.bfloat16,
+                              device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), gate.data_ptr(), y.data_ptr(), b, n, t_len, d,
-                  int(x.dtype == torch.bfloat16), 1.0 / math.sqrt(d), float(scale2), stream)
+        code = fn(x.data_ptr(), gate.data_ptr(), scratch.data_ptr(), y.data_ptr(), b, n, t_len,
+                  d, int(x.dtype == torch.bfloat16), 1.0 / math.sqrt(d), float(scale2), stream)
     _build.check(lib, code, "gcn_bf16_fwd_kernel")
     _build.LAUNCHES["gcn_fwd_bf16"] += 1
     return y

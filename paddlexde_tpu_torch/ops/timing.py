@@ -33,9 +33,9 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOPS", "PEAK_TF32_FLOPS", "PEAK_BF16_FLOPS", "Work",
-           "LAUNCHES_PER_CALL", "time_ms", "device_ms", "device_ms_by_kernel", "device_ms_total",
-           "bound_ms", "bound_3xtf32_ms", "bound_bf16_ms", "gcn_work", "gcn_bwd_work",
-           "attn_work", "attn_bwd_work"]
+           "LAUNCHES_PER_CALL", "ProfilerMiss", "time_ms", "device_ms", "device_ms_by_kernel",
+           "device_ms_total", "bound_ms", "bound_3xtf32_ms", "bound_bf16_ms", "gcn_work",
+           "gcn_bwd_work", "attn_work", "attn_bwd_work"]
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
 # operations/s on the CUDA cores and TF32 and bfloat16 operations/s on the
@@ -92,6 +92,12 @@ _TRACES = 5
 LAUNCHES_PER_CALL = {"attn_bwd_bf16_conv_kernel": 2}
 
 
+class ProfilerMiss(RuntimeError):
+    """Every trace of :func:`device_ms_by_kernel` lost launch records that
+    its count needs: the kernel is not timed (its results are not in
+    question)."""
+
+
 def device_ms_by_kernel(fn, symbol: str, reps: int = 10) -> dict:
     """Median device time (ms) of each CUDA kernel whose name contains
     ``symbol`` in one call of ``fn``, from a profiler trace of ``reps``
@@ -129,7 +135,7 @@ def device_ms_by_kernel(fn, symbol: str, reps: int = 10) -> dict:
                 out[name] = statistics.median(
                     sum(times[i : i + k]) for i in range(0, len(times), k)) / 1e3
             return out
-    raise RuntimeError(f"profiler saw launches {counts} of {symbol}, expected {reps} calls "
+    raise ProfilerMiss(f"profiler saw launches {counts} of {symbol}, expected {reps} calls "
                        f"(launches per call: one, or {LAUNCHES_PER_CALL})")
 
 

@@ -196,14 +196,21 @@ def _bf16_close(got, want):
 
 
 # the bfloat16 K2 (csrc/gcn_bf16.cu): N within one node tile, across tiles
-# (HZME's 80, PEMS08's 170: the scores held in registers) and past 3 tiles
-# (200, PEMS04's 307: two passes), D = 64 and 128, x float32 (as D3STN passes
-# it) and bfloat16; against the plain bfloat16 version on the card, the same
-# bits twice
+# (HZME's 80, PEMS08's 170: the slice kernel, every node tile resident) and
+# past 3 tiles (200, PEMS04's 307, PEMS03's 358, PEMS07's 883: two passes),
+# the slice kernel's edges (an exact tile 64, a ragged one 65, the resident
+# limit 192 and one past it, 193), its persistent walk with fewer slices
+# than SMs (B T = 6) and several slices a CTA (B T = 384 at N = 170, 480 at
+# 100, 768 at 16 with three CTAs an SM), D = 64 and 128, x float32 (as
+# D3STN passes it) and bfloat16; against the plain bfloat16 version on the
+# card, the same bits twice
 @cases("x_dtype", [torch.float32, torch.bfloat16])
 @cases("shape", [(2, 16, 12, 64), (2, 16, 3, 128), (2, 80, 3, 64),
                                    (2, 80, 3, 128), (1, 170, 3, 64), (2, 170, 3, 128),
-                                   (1, 200, 2, 64), (1, 307, 2, 128)])
+                                   (1, 200, 2, 64), (1, 307, 2, 128), (2, 64, 3, 128),
+                                   (2, 65, 3, 64), (2, 192, 3, 128), (1, 193, 2, 128),
+                                   (1, 358, 2, 128), (1, 883, 1, 128), (32, 170, 12, 128),
+                                   (40, 100, 12, 64), (64, 16, 12, 64)])
 def test_gcn_bf16_kernel(dev, shape, x_dtype):
     g = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(*shape, generator=g, device=dev).to(x_dtype)
