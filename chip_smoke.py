@@ -10,7 +10,8 @@ It builds the eight hand-written Hopper kernel sources from
 and shared memory of the GCN and attention kernels and the count of
 tensor-core instructions in their libraries, with and without the
 attention kernels' dropout instantiations (it fails if one has none, if a
-GCN kernel spills, if a bfloat16 kernel spills or has no HGMMA, checked by
+spline or GCN kernel spills, if a float32 K2 or K3 tensor-core kernel has
+no HGMMA, if a bfloat16 kernel spills or has no HGMMA, checked by
 name for K5 bf16's conv kernel and each of K4 bf16's twelve
 instantiations, or if a D = 64 instantiation of the float32 attention
 forward, with or without dropout, spills or has no HGMMA), and runs six
@@ -20,6 +21,14 @@ float32 GCN and attention kernels run their products in 3xTF32, the
 bfloat16 ones in bfloat16):
 
 1. each kernel against its plain PyTorch version at the PEMS08 shapes: the
+   history lookup K1 (``check_spline``) on an edge-case query set and on the
+   main path's, ``init_lag_anchors``' decoder and encoder lags through the
+   pair kernel (one launch, the plain version's bits, the derivative basis
+   too), its lag gradient in float32 and float64 (one launch, the same bits
+   twice, within SPLINE_BWD_TOL of the plain version) and the pair's lag
+   backward traced as that one kernel, with the device time of each beside
+   its byte bound for each query set, the launch floor (one elementwise op
+   on one element) and the host time per wrapper call; the
    forward kernels against the float32 and float64 plain versions (GCN K2
    within 1e-5 of float64, run twice and required to give the same bits),
    the backward kernels (GCN K3, attention K5) against the float32 and
@@ -100,7 +109,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-TOL = {"spline": 1e-5, "gcn_fwd": 1e-4, "gcn_bwd": 1e-4, "attn_fwd": 1e-4, "attn_bwd": 1e-4}
+# the lag gradient against its plain version, per query, relative to the
+# sum of |g dH/dq| over its terms (the two sum in other orders)
+SPLINE_BWD_TOL = {"float32": 1e-5, "float64": 1e-12}
+TOL = {"gcn_fwd": 1e-4, "gcn_bwd": 1e-4, "attn_fwd": 1e-4, "attn_bwd": 1e-4}
 # the GCN forward and backward (3xTF32 on the tensor cores) against the
 # float64 plain versions
 GCN_FWD_TOL64 = 1e-5
@@ -130,26 +142,30 @@ DROPOUT = 0.1
 DROPOUT_STEPS = 4
 # further float32 train steps after the checked one at SYNTH (phase 6)
 TRAIN_STEPS = 4
-_ZERO = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
+_ZERO = {"spline": 0, "spline_bwd": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
          "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0, "gcn_bwd_bf16": 0, "attn_bwd_bf16": 0,
          "attn_fwd_dropout": 0, "attn_bwd_dropout": 0, "attn_fwd_bf16_dropout": 0,
          "attn_bwd_bf16_dropout": 0}
-LAUNCHES_PER_BATCH = {**_ZERO, "spline": 2, "gcn_fwd": 4, "attn_fwd": 6}
-LAUNCHES_PER_BATCH_BF16 = {**_ZERO, "spline": 2, "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6}
-LAUNCHES_PER_STEP = {**_ZERO, "spline": 4, "gcn_fwd": 4, "gcn_bwd": 4, "attn_fwd": 6,
-                     "attn_bwd": 6}
-LAUNCHES_PER_STEP_BF16 = {**_ZERO, "spline": 4, "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6,
-                          "gcn_bwd_bf16": 4, "attn_bwd_bf16": 6}
+# K1: one pair forward a batch or step (the decoder and encoder lags), one
+# lag gradient (both sets) a step: 1 launch a batch, 2 a step
+LAUNCHES_PER_BATCH = {**_ZERO, "spline": 1, "gcn_fwd": 4, "attn_fwd": 6}
+LAUNCHES_PER_BATCH_BF16 = {**_ZERO, "spline": 1, "gcn_fwd_bf16": 4, "attn_fwd_bf16": 6}
+LAUNCHES_PER_STEP = {**_ZERO, "spline": 1, "spline_bwd": 1, "gcn_fwd": 4, "gcn_bwd": 4,
+                     "attn_fwd": 6, "attn_bwd": 6}
+LAUNCHES_PER_STEP_BF16 = {**_ZERO, "spline": 1, "spline_bwd": 1, "gcn_fwd_bf16": 4,
+                          "attn_fwd_bf16": 6, "gcn_bwd_bf16": 4, "attn_bwd_bf16": 6}
 # with dropout the GCN runs the JAX model's XLA form: no K2, no K3
-LAUNCHES_PER_STEP_DROPOUT = {**_ZERO, "spline": 4, "attn_fwd_dropout": 6, "attn_bwd_dropout": 6}
-LAUNCHES_PER_STEP_DROPOUT_BF16 = {**_ZERO, "spline": 4, "attn_fwd_bf16_dropout": 6,
-                                  "attn_bwd_bf16_dropout": 6}
+LAUNCHES_PER_STEP_DROPOUT = {**_ZERO, "spline": 1, "spline_bwd": 1, "attn_fwd_dropout": 6,
+                             "attn_bwd_dropout": 6}
+LAUNCHES_PER_STEP_DROPOUT_BF16 = {**_ZERO, "spline": 1, "spline_bwd": 1,
+                                  "attn_fwd_bf16_dropout": 6, "attn_bwd_bf16_dropout": 6}
 # CUDA symbol substrings in a profiler trace; one wrapper call launches one
 # kernel of each symbol (ops/timing.py's LAUNCHES_PER_CALL: more). K3 on a
 # bfloat16 cotangent (counter gcn_bwd_bf16) launches the gcn_bwd kernels: a
 # trace counts it under gcn_bwd
 KERNEL_NAMES = {
-    "spline": ("hermite_gather_kernel",),
+    "spline": ("hermite_gather_kernel",),  # one query set or two
+    "spline_bwd": ("hermite_lag_grad_kernel",),
     "gcn_fwd": ("gcn_fwd_",),  # gcn_fwd_tc_kernel (D=64, 128) or gcn_fwd_kernel
     "gcn_bwd": ("gcn_bwd_row_tc_kernel", "gcn_bwd_col_tc_kernel", "gcn_bwd_dgate_kernel"),
     "attn_fwd": ("attn_fwd_wsplit_kernel", "attn_fwd_d3stn_kernel"),  # D3STN's shape
@@ -177,6 +193,10 @@ TRACED_AS = {"gcn_bwd_bf16": "gcn_bwd", "attn_fwd_dropout": "attn_fwd",
              "attn_bwd_bf16_dropout": "attn_bwd_bf16"}
 SOURCES = {
     "spline": ("paddlexde_tpu_torch/ops/csrc/spline.cu", "paddlexde_tpu/ops/spline_pallas.py:84"),
+    # the TPU kernel with the derivative basis (the backward of
+    # hermite_gather_eval), its product with g and sum folded in
+    "spline_bwd": ("paddlexde_tpu_torch/ops/csrc/spline.cu",
+                   "paddlexde_tpu/ops/spline_pallas.py:84"),
     "gcn_fwd": ("paddlexde_tpu_torch/ops/csrc/gcn.cu", "paddlexde_tpu/ops/gcn_pallas.py:54"),
     "gcn_bwd": ("paddlexde_tpu_torch/ops/csrc/gcn_bwd.cu", "paddlexde_tpu/ops/gcn_pallas.py:70"),
     "attn_fwd": ("paddlexde_tpu_torch/ops/csrc/attn.cu", "paddlexde_tpu/ops/attn_pallas.py:248"),
@@ -282,14 +302,18 @@ def hgmma_by_function(sass, symbol):
 
 # the mangled name of the float32 attention forward's D = 64 instantiations
 ATTN_FWD_D64 = "attn_fwd_d3stn_kernelILi64E"
-# the redesigned bfloat16 kernels by library, with their instantiations:
-# K5 bf16's persistent conv kernel (D = 64, 128) and K4 bf16 (3 flag sets x
-# D = 64, 128 x DROP), both on the bfloat16 temporal conv
-# (tc_bf16_conv.cuh), and K2 bf16 (D = 64, 128 x x float32, bfloat16 x the
-# slice kernel at 1, 2, 3 resident node tiles and the two-pass kernel)
-BF16_HGMMA_KERNELS = {"attn_bwd_bf16": (("attn_bwd_bf16_conv_kernel", 2),),
-                      "attn_bf16": (("attn_bf16_fwd_kernel", 12),),
-                      "gcn_bf16": (("gcn_bf16_fwd_kernel", 16),)}
+# kernels that must hold HGMMA in each instantiation, by library, with
+# their instantiation counts: K5 bf16's persistent conv kernel (D = 64, 128)
+# and K4 bf16 (3 flag sets x D = 64, 128 x DROP), both on the bfloat16
+# temporal conv (tc_bf16_conv.cuh); K2 bf16 (D = 64, 128 x x float32,
+# bfloat16 x the slice kernel at 1, 2, 3 resident node tiles and the
+# two-pass kernel); the float32 GCN's tensor-core kernels, K2 and K3's two
+# (D = 64, 128: gcn_tc.cuh's chains)
+HGMMA_KERNELS = {"attn_bwd_bf16": (("attn_bwd_bf16_conv_kernel", 2),),
+                 "attn_bf16": (("attn_bf16_fwd_kernel", 12),),
+                 "gcn_bf16": (("gcn_bf16_fwd_kernel", 16),),
+                 "gcn": (("gcn_fwd_tc_kernel", 2),),
+                 "gcn_bwd": (("gcn_bwd_row_tc_kernel", 2), ("gcn_bwd_col_tc_kernel", 2))}
 
 
 def build_report():
@@ -305,6 +329,10 @@ def build_report():
     instantiations and each of K2 bf16's sixteen must hold HGMMA (wgmma)."""
     from paddlexde_tpu_torch.ops import _build
 
+    for name, regs, stores, loads, stack in ptxas_report(_build.build_log("spline")):
+        print(f"  ptxas spline: {name}: {regs} registers, spill stores {stores} B, spill loads "
+              f"{loads} B, stack {stack} B", flush=True)
+        require(stores + loads == 0, f"spline: {name} spills")
     for lib in ("gcn", "gcn_bwd", "attn", "attn_bwd", "gcn_bf16", "attn_bf16", "attn_bwd_bf16"):
         log = _build.build_log(lib)
         for line in log.splitlines():
@@ -339,7 +367,7 @@ def build_report():
             print(f"  {lib}: HGMMA of the weight-gradient kernels {sorted(dw.values())}",
                   flush=True)
             require(len(dw) == 2 and all(dw.values()), f"{lib}: a dw kernel has no HGMMA: {dw}")
-        for symbol, want in BF16_HGMMA_KERNELS.get(lib, ()):
+        for symbol, want in HGMMA_KERNELS.get(lib, ()):
             hg = hgmma_by_function(sass, symbol)
             regs = sorted(r for name, r, *_ in ptxas_report(log) if symbol in name)
             print(f"  {lib}: {symbol}: {len(hg)} instantiations, HGMMA {sorted(hg.values())}, "
@@ -354,43 +382,153 @@ def build_report():
 
 
 def check_spline(torch, dev, gen):
-    from paddlexde_tpu_torch.ops import spline
-    from paddlexde_tpu_torch.ops.timing import Work, bound_3xtf32_ms, bound_ms, device_ms, time_ms
+    """K1 at PEMS08 (series [32, 170, 2016, 3]) on two query sets: an
+    edge-case set (knots, both ends, out of range) through the one-set
+    wrapper, and the main path's, ``init_lag_anchors``' decoder and encoder
+    lags, through the pair kernel. The forward and the derivative basis must
+    equal the plain version bit for bit, the pair in one launch; the lag
+    gradient (float32 and float64) must give the same bits twice in one
+    launch and be within SPLINE_BWD_TOL of the plain one per query, relative
+    to the sum of |g dH/dq|; the lag backward of the pair alone must trace as
+    one kernel. Times: device time of each kernel (profiler) beside its byte
+    bound for each query set, the launch floor, the plain versions (CUDA
+    events) and the host time per wrapper call."""
+    from paddlexde_tpu_torch.models.d3stn import load_config
+    from paddlexde_tpu_torch.models.d3stn.trainer import init_lag_anchors
+    from paddlexde_tpu_torch.ops import _build, spline
+    from paddlexde_tpu_torch.ops.timing import (
+        bound_ms,
+        device_ms,
+        host_ms_per_call,
+        launch_floor_ms,
+        spline_work,
+        time_ms,
+    )
 
-    b, n, t_len, d = 32, 170, 2016, 3
+    cfg = load_config(str(HERE / "examples" / "configs" / "PEMS08.json"))
+    b, n, t_len, d = 32, cfg.num_nodes, cfg.his_len, 3
     series = torch.randn(b, n, t_len, d, generator=gen, device=dev)
     t = torch.arange(t_len, dtype=torch.float32, device=dev)
     # on knots, fractional, in the last interval, at the last knot, out of range
-    q = torch.tensor([0.0, 1.0, 7.25, 1000.0, 1500.5, 2013.75, 2014.0, 2014.3,
-                      2014.9, 2015.0, -3.5, 2100.0], device=dev)
-    errs = []
+    edge = torch.tensor([0.0, 1.0, 7.25, 1000.0, 1500.5, 2013.75, 2014.0, 2014.3,
+                         2014.9, 2015.0, -3.5, 2100.0], device=dev)
+    enc, dec = (torch.tensor(v, device=dev) for v in init_lag_anchors(cfg))
+    plain = spline.gather_eval_plain
+
+    def pair(derivative=False):
+        before = _build.LAUNCHES["spline"]
+        out = spline.gather_pair_kernel(series, t, dec, enc, derivative)
+        require(_build.LAUNCHES["spline"] == before + 1, "the pair forward is not one launch")
+        return out
+
     for derivative in (False, True):
-        got = spline.gather_eval_kernel(series, t, q, derivative)
-        want = spline.gather_eval_plain(series, t, q, derivative)
+        got = spline.gather_eval_kernel(series, t, edge, derivative)
+        require(torch.equal(got, plain(series, t, edge, derivative)),
+                f"spline kernel (edge set, derivative={derivative}): not the plain version's bits")
+        out_a, out_b = pair(derivative)
+        require(torch.isfinite(out_a).all().item() and torch.isfinite(out_b).all().item(),
+                "spline pair kernel: non-finite output")
+        require(torch.equal(out_a, plain(series, t, dec, derivative))
+                and torch.equal(out_b, plain(series, t, enc, derivative)),
+                f"spline pair kernel (derivative={derivative}): not the plain version's bits")
+        again = pair(derivative)
+        require(torch.equal(out_a, again[0]) and torch.equal(out_b, again[1]),
+                "spline pair kernel: two runs on the same inputs differ")
+
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        x = series.to(dtype)
+        g_dec, g_enc, g_edge = (torch.randn(b, n, q.numel(), d, generator=gen, device=dev,
+                                            dtype=dtype) for q in (dec, enc, edge))
+        runs = []
+        for _ in range(2):
+            before = _build.LAUNCHES["spline_bwd"]
+            runs.append(spline.lag_grad_kernel(x, t, dec, g_dec, enc, g_enc))
+            require(_build.LAUNCHES["spline_bwd"] == before + 1,
+                    "the lag gradient is not one launch")
+        require(all(torch.equal(u, v) for u, v in zip(*runs)),
+                f"lag gradient ({dtype}): two runs on the same inputs differ")
+        single = spline.lag_grad_kernel(x, t, edge, g_edge)[0]
+        for q, g, gq in ((dec, g_dec, runs[0][0]), (enc, g_enc, runs[0][1]),
+                         (edge, g_edge, single)):
+            terms = g * plain(x, t, q, True)
+            scale = terms.abs().sum(dim=(0, 1, 3))
+            err = ((gq - terms.sum(dim=(0, 1, 3))).abs() / scale).max().item()
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+        tol = SPLINE_BWD_TOL[str(dtype)[6:]]
+        require(errs[dtype] <= tol, f"lag gradient ({dtype}) vs its plain version: "
+                f"{errs[dtype]:.3e} > {tol:g} of the sum of |g dH/dq|")
+        print(f"  spline lag gradient ({str(dtype)[6:]}): {errs[dtype]:.3e} of the sum of "
+              f"|g dH/dq| from the plain version (tol {tol:g}), the same bits twice, one launch",
+              flush=True)
+
+    # the lag backward of the pair alone: one kernel, no multiply or sum
+    dec_q, enc_q = dec.clone().requires_grad_(), enc.clone().requires_grad_()
+    outs = spline.hermite_gather_eval_pair(series, t, dec_q, enc_q)
+    cot = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    for _ in range(3):  # a trace can drop a launch record, never add one
+        kernels = traced_kernels(torch, lambda: torch.autograd.grad(outs, (dec_q, enc_q), cot,
+                                                                     retain_graph=True))
+        if kernels:
+            break
+    print(f"  the pair's lag backward (autograd) traced as {kernels}", flush=True)
+    require(len(kernels) == 1 and KERNEL_NAMES["spline_bwd"][0] in kernels[0],
+            f"the lag backward ran {kernels}, expected one {KERNEL_NAMES['spline_bwd'][0]}")
+
+    sym, bwd_sym = KERNEL_NAMES["spline"][0], KERNEL_NAMES["spline_bwd"][0]
+    g_dec, g_enc = cot
+    idx = {name: spline._prep(series, t, q)[0].tolist() for name, q in
+           (("edge", edge), ("decoder", dec), ("encoder", enc))}
+    bounds = {name: bound_ms(spline_work(b, n, t_len, d, i, len(i))) for name, i in idx.items()}
+    both = idx["decoder"] + idx["encoder"]
+    bounds["pair"] = bound_ms(spline_work(b, n, t_len, d, both, len(both)))
+    bwd_bound = bound_ms(spline_work(b, n, t_len, d, both, len(both), derivative=True))
+    edge_ms = device_ms(lambda: spline.gather_eval_kernel(series, t, edge), sym)
+    one_ms = {name: device_ms(lambda q=q: spline.gather_eval_kernel(series, t, q), sym)
+              for name, q in (("decoder", dec), ("encoder", enc))}
+    pair_ms = device_ms(lambda: spline.gather_pair_kernel(series, t, dec, enc), sym)
+    bwd_ms = device_ms(lambda: spline.lag_grad_kernel(series, t, dec, g_dec, enc, g_enc), bwd_sym)
+    floor_ms = launch_floor_ms(dev)
+    host = {"gather_pair_kernel": host_ms_per_call(
+                lambda: spline.gather_pair_kernel(series, t, dec, enc)),
+            "gather_eval_kernel": host_ms_per_call(
+                lambda: spline.gather_eval_kernel(series, t, dec)),
+            "lag_grad_kernel": host_ms_per_call(
+                lambda: spline.lag_grad_kernel(series, t, dec, g_dec, enc, g_enc))}
+    plain_ms = time_ms(lambda: (plain(series, t, dec), plain(series, t, enc)))
+    bwd_plain_ms = time_ms(lambda: (spline.lag_grad_plain(series, t, dec, g_dec),
+                                    spline.lag_grad_plain(series, t, enc, g_enc)))
+    for name, ms in (("edge", edge_ms), *one_ms.items()):
+        print(f"  spline kernel, {name} set alone: {ms:.4f} ms (device, profiler), bound "
+              f"{bounds[name][0]:.6f} ms by {bounds[name][1]}", flush=True)
+    print(f"  spline pair kernel, decoder + encoder sets: {pair_ms:.4f} ms (device, profiler), "
+          f"bound {bounds['pair'][0]:.6f} ms by {bounds['pair'][1]}; lag gradient kernel, both "
+          f"sets: {bwd_ms:.4f} ms, bound {bwd_bound[0]:.6f} ms by {bwd_bound[1]}; launch floor "
+          f"{floor_ms:.4f} ms (one elementwise op on one element, same profiler path)",
+          flush=True)
+    print("  host time per wrapper call (perf_counter over 200 calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in host.items()), flush=True)
+    shape = f"series [{b},{n},{t_len},{d}], decoder + encoder lags (12 + 12)"
+    return {"spline": dict(err=0.0, ms=pair_ms, plain_ms=plain_ms, bound_main=bounds["pair"],
+                           host_ms=host["gather_pair_kernel"], floor_ms=floor_ms,
+                           shape=shape + "; bitwise the plain version, one launch"),
+            "spline_bwd": dict(err=errs[torch.float32], ms=bwd_ms, plain_ms=bwd_plain_ms,
+                               bound_main=bwd_bound, host_ms=host["lag_grad_kernel"],
+                               floor_ms=floor_ms,
+                               shape=shape + "; the same bits twice, one launch")}
+
+
+def traced_kernels(torch, fn):
+    """The CUDA kernel names of one call of ``fn`` (after a warm-up call),
+    from a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        require(torch.isfinite(got).all().item(), "spline kernel: non-finite output")
-        errs.append(norm_err(got, want))
-    ms = device_ms(lambda: spline.gather_eval_kernel(series, t, q), KERNEL_NAMES["spline"][0])
-    wrapper_ms = time_ms(lambda: spline.gather_eval_kernel(series, t, q))
-    plain_ms = time_ms(lambda: spline.gather_eval_plain(series, t, q))
-    # the lag backward: the same kernel with the derivative basis
-    deriv_ms = device_ms(lambda: spline.gather_eval_kernel(series, t, q, True),
-                         KERNEL_NAMES["spline"][0])
-    deriv_plain_ms = time_ms(lambda: spline.gather_eval_plain(series, t, q, True))
-    idx, _, _ = spline._prep(series, t, q)
-    rows_read = set()
-    for i in idx.tolist():
-        rows_read.update({i, i + 1, min(i + 2, t_len - 1)})
-    n_bytes = 4 * (b * n * d * len(rows_read) + b * n * q.numel() * d + t_len + q.numel())
-    n_flops = 11 * b * n * q.numel() * d
-    work = Work(n_bytes, 0, n_flops)
-    bound = bound_ms(work)
-    print(f"  spline derivative basis (the lag backward): kernel {deriv_ms:.4f} ms (device, "
-          f"profiler), plain {deriv_plain_ms:.4f} ms (CUDA events), bound {bound[0]:.6f} ms by "
-          f"{bound[1]}, launches per train step 2", flush=True)
-    return dict(err=max(errs), ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                bound=bound, bound3=bound_3xtf32_ms(work), deriv_ms=deriv_ms, deriv_plain_ms=deriv_plain_ms,
-                shape=f"series [{b},{n},{t_len},{d}], L={q.numel()}")
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def check_gcn(torch, dev, gen):
@@ -981,8 +1119,15 @@ def check_attn_d64(torch, dev, gen):
 
 def kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
-    results = {}
-    for name, fn in (("spline", check_spline), ("gcn_fwd", check_gcn), ("gcn_bwd", check_gcn_bwd),
+    results = check_spline(torch, dev, gen)
+    for name, res in results.items():
+        print(f"kernel {name} ({res['shape']}): max_abs_err={res['err']:.3e} kernel "
+              f"{res['ms']:.4f} ms (device, profiler; launch floor {res['floor_ms']:.4f} ms), "
+              f"host {res['host_ms']:.4f} ms a wrapper call, plain {res['plain_ms']:.4f} ms (CUDA "
+              f"events), bound {res['bound_main'][0]:.6f} ms by {res['bound_main'][1]}, "
+              f"launches per Predictor batch {LAUNCHES_PER_BATCH[name]}, per train step "
+              f"{LAUNCHES_PER_STEP[name]}", flush=True)
+    for name, fn in (("gcn_fwd", check_gcn), ("gcn_bwd", check_gcn_bwd),
                      ("attn_fwd", check_attn), ("attn_bwd", check_attn_bwd)):
         res = fn(torch, dev, gen)
         print(f"kernel {name} ({res['shape']}): max_abs_err(normalised)={res['err']:.3e} "
@@ -1224,12 +1369,12 @@ def bf16_witness_and_controls(torch, np, plain, cpu, batch, plain_out, f32_out, 
 def with_plain_history(cls):
     """``cls`` (Predictor or Trainer) with the spline class in place of the
     spline kernel: with ``*_impl="xla"`` the plain reference path."""
-    from paddlexde_tpu_torch import history_index
+    from paddlexde_tpu_torch import history_index_pair
 
     class Plain(cls):
-        def _history(self, lags, src):
-            return history_index(lags, src, self.his_span, interpolation="cubic",
-                                 use_kernel=False)
+        def _history(self, lags_a, lags_b, src):
+            return history_index_pair(lags_a, lags_b, src, self.his_span, interpolation="cubic",
+                                      use_kernel=False)
 
     return Plain
 

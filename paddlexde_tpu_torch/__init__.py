@@ -22,6 +22,13 @@ from .interpolation import (  # noqa: F401
     LinearInterpolation,
 )
 from .solver.registry import RK4, Euler, Midpoint, SolverSpec, resolve_solver  # noqa: F401
-from .xde import HistoryIndex, XDETerm, dde_term, history_index, ode_term  # noqa: F401
+from .xde import (  # noqa: F401
+    HistoryIndex,
+    XDETerm,
+    dde_term,
+    history_index,
+    history_index_pair,
+    ode_term,
+)
 
 __version__ = "0.1.0"

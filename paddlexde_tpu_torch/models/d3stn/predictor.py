@@ -6,8 +6,9 @@ arrays + ``.enidx/.deidx`` lag npys) without JAX, builds the model once on
 the device, and serves ``[B, N, his_len, 3]`` histories as de-scaled
 ``[B, N, tgt_len]`` forecasts. One request batch runs
 
-    history_index(dec_idx)  -> spline kernel        (decoder input y0)
-    history_index(enc_idx)  -> spline kernel        (encoder input y_lags)
+    history_index_pair(dec_idx, enc_idx)
+                            -> spline kernel, once  (decoder input y0,
+                                                     encoder input y_lags)
     ddeint(euler, t=[0, 1], his_processed=True)
                             -> D3STN once: 6 attention + 4 GCN kernel launches
 
@@ -27,7 +28,7 @@ import torch
 
 from ..._device import resolve_device
 from ...functional.ddeint import ddeint
-from ...xde.history import history_index
+from ...xde.history import history_index_pair
 from .config import D3STNConfig
 from .graph import norm_adj_matrix
 from .model import D3STN
@@ -104,15 +105,14 @@ class Predictor:
                    scaler=scaler, batch_size=batch_size, device=device)
 
     # ----------------------------------------------------------------- serve
-    def _history(self, lags: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-        """The history at the lags: the spline kernel on the card."""
-        return history_index(lags, src, self.his_span, interpolation="cubic")
+    def _history(self, lags_a: torch.Tensor, lags_b: torch.Tensor, src: torch.Tensor):
+        """The history at two lag sets: one spline kernel launch on the card."""
+        return history_index_pair(lags_a, lags_b, src, self.his_span, interpolation="cubic")
 
     @torch.no_grad()
     def forward(self, src: torch.Tensor) -> torch.Tensor:
         """``src [B, N, his_len, 3]`` on the device -> ``[B, N, tgt_len]``."""
-        y0 = self._history(self.dec_idx, src)
-        enc_in = self._history(self.enc_idx, src)
+        y0, enc_in = self._history(self.dec_idx, self.enc_idx, src)
         sol, _ = ddeint(
             lambda y_lags, y: self.model(y_lags, y), y0, self.t_span, enc_in,
             src, self.his_span, self.cfg.solver, his_processed=True,

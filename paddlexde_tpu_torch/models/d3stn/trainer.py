@@ -6,14 +6,15 @@ The full transformed series lives on the device and every step gathers its
 windows from int start indices (the JAX ``device_gather`` path). One train
 step at batch B:
 
-    history_index(dec_idx)  -> spline kernel       (decoder input y0)
-    history_index(enc_idx)  -> spline kernel       (encoder input: the delay)
+    history_index_pair(dec_idx, enc_idx)
+                            -> spline kernel, once (decoder input y0,
+                                                    encoder input: the delay)
     ddeint(euler, t=[0, 1], his_processed=True)
                             -> D3STN once: 6 attention + 4 GCN forward kernels
     loss = criterion + kl_weight * (KL(delay) + KL(preds)), softmax over the
            horizon axis
-    backward                -> 2 spline (derivative basis), 4 GCN and 6
-                               attention backward kernel calls
+    backward                -> 1 lag-gradient kernel (both lag sets), 4 GCN
+                               and 6 attention backward kernel calls
     Adam (optax add_decayed_weights -> scale_by_adam: b1 0.9, b2 0.999,
     eps 1e-8) with a learning rate per group (net, lags) and epoch, the lags
     clipped to [0, his_len - 1], and the non-finite guard: when the loss,
@@ -56,7 +57,7 @@ import torch.nn.functional as F
 
 from ..._device import resolve_device
 from ...functional.ddeint import ddeint
-from ...xde.history import history_index
+from ...xde.history import history_index_pair
 from .config import D3STNConfig
 from .dataset import TrafficFlowDataset
 from .graph import get_adjacency_matrix_2direction, norm_adj_matrix
@@ -234,14 +235,13 @@ class Trainer:
         return self._lr_cache[1]
 
     # ---------------------------------------------------------------- steps
-    def _history(self, lags, src):
-        """The history at the lags: the spline kernel on the card."""
-        return history_index(lags, src, self.his_span, interpolation="cubic")
+    def _history(self, lags_a, lags_b, src):
+        """The history at two lag sets: one spline kernel launch on the card."""
+        return history_index_pair(lags_a, lags_b, src, self.his_span, interpolation="cubic")
 
     def _forward(self, src):
         """The delay-DE forward: reference ``train_one_step`` §3.4 call stack."""
-        y0 = self._history(self.decoder_idx, src)
-        y_lags = self._history(self.encoder_idx, src)
+        y0, y_lags = self._history(self.decoder_idx, self.encoder_idx, src)
         sol, delay = ddeint(
             lambda yl, y: self.model(yl, y), y0, self.t_span, y_lags, src, self.his_span,
             self.cfg.solver, his_processed=True, fixed_solver_interp="", time_axis=0,

@@ -16,9 +16,11 @@ Python wrappers raise on a non-zero code (:func:`check`).
 
 ``LAUNCHES`` counts kernel launches per kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels. The backward wrappers (``gcn_bwd``,
-``attn_bwd``) and the attention forwards launch several CUDA kernels per
-call and count the call once. The bfloat16 forms count under keys of
+main path went through the kernels. The history lookup's forward counts
+under ``spline`` (one launch for one query set or two) and its lag gradient
+under ``spline_bwd``. The backward wrappers (``gcn_bwd``, ``attn_bwd``)
+and the attention forwards launch several CUDA kernels per call and count
+the call once. The bfloat16 forms count under keys of
 their own (``gcn_fwd_bf16``, ``attn_fwd_bf16``, ``attn_bwd_bf16``, and
 ``gcn_bwd_bf16`` for the GCN backward kernels on a bfloat16 cotangent), and
 so do the dropout forms of the attention kernels (``attn_fwd_dropout``,
@@ -50,10 +52,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
-LAUNCHES: Dict[str, int] = {"spline": 0, "gcn_fwd": 0, "gcn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
-                            "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0, "gcn_bwd_bf16": 0,
-                            "attn_bwd_bf16": 0, "attn_fwd_dropout": 0, "attn_bwd_dropout": 0,
-                            "attn_fwd_bf16_dropout": 0, "attn_bwd_bf16_dropout": 0}
+LAUNCHES: Dict[str, int] = {"spline": 0, "spline_bwd": 0, "gcn_fwd": 0, "gcn_bwd": 0,
+                            "attn_fwd": 0, "attn_bwd": 0, "gcn_fwd_bf16": 0, "attn_fwd_bf16": 0,
+                            "gcn_bwd_bf16": 0, "attn_bwd_bf16": 0, "attn_fwd_dropout": 0,
+                            "attn_bwd_dropout": 0, "attn_fwd_bf16_dropout": 0,
+                            "attn_bwd_bf16_dropout": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -175,6 +175,14 @@ __device__ __forceinline__ void chain(float (&parts)[NP][32], Frag frag, BTile b
       }
     }
     frag(j, ab[buf], as[buf]);
+    if (j == 0) {
+      // the first product overwrites (scale-d 0), but its "+f" operands are
+      // read: never hand it a register that was never written
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) parts[p][i] = 0.f;
+    }
     tc::wgmma_fence();
 #pragma unroll
     for (int p = 0; p < NP; ++p) {

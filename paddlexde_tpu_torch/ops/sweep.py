@@ -34,6 +34,16 @@ at PEMS08 the bfloat16 ``Trainer.train_step``'s and ``Predictor.forward``'s
 device time (``bf16_model``). To run a parent tree under the same harness,
 copy this file and ``ops/timing.py`` into it.
 
+The float32 GCN kernels K2 and K3 give a digest of their outputs too
+(``bits``). The history lookup K1 runs as the Predictor and the Trainer run
+it (``_spline``: the pair kernel and the lag gradient, or, in a tree
+without ``history_index_pair``, two lookups and autograd's backward), at
+each configuration's ``init_lag_anchors`` over a float32 series [32, N,
+his_len, 3]: device time and launches of the forward and of the lag
+backward, the host time of one ``gather_eval_kernel`` call, the launch
+floor, the byte bounds, and digests of the outputs and of the lag
+gradients.
+
 All seven shipped configurations run (HZME_INFLOW and HZME_OUTFLOW share a
 shape; each draws its own inputs). A kernel whose launch records the
 profiler keeps losing (``timing.ProfilerMiss``; seen at PEMS07) is reported
@@ -70,8 +80,12 @@ from .timing import (
     device_ms,
     device_ms_by_kernel,
     device_ms_total,
+    device_profile,
     gcn_bwd_work,
     gcn_work,
+    host_ms_per_call,
+    launch_floor_ms,
+    spline_work,
     time_ms,
 )
 
@@ -104,10 +118,23 @@ def _timed(fn, *args):
 
 
 def _fmt(name, r):
+    bits = f", bits {r['bits']}" if "bits" in r else ""
     if "untimed" in r:
-        return f"{name} not timed"
+        return f"{name} not timed{bits}"
     return (f"{name} {r['ms']:.4f} ms (err {r['err']:.2e}), plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} / 3xTF32 {r['bound3_ms']:.4f} ms")
+            f"bound {r['bound_ms']:.4f} / 3xTF32 {r['bound3_ms']:.4f} ms{bits}")
+
+
+def _untimed(name, kernel, res, timing):
+    """``res`` updated with ``timing()``, or with ``{"untimed": reason}``
+    where the profiler kept losing launch records (the checks and the
+    digest in ``res`` stand)."""
+    try:
+        res.update(timing())
+    except ProfilerMiss as exc:
+        print(f"{name}: {kernel} not timed: {exc}", file=sys.stderr, flush=True)
+        res["untimed"] = str(exc)
+    return res
 
 
 def _gcn(name, n, d, gen, dev):
@@ -116,13 +143,15 @@ def _gcn(name, n, d, gen, dev):
     scale2 = 1.0 / math.sqrt(d)
     want = gcn.gcn_spatial_mix_plain(x, gate, scale2)
     run = lambda: gcn.gcn_spatial_mix_kernel(x, gate, scale2)  # noqa: E731
-    res = {"err": _norm_err(run(), want), "ms": device_ms(run, "gcn_fwd_"),
-           "plain_ms": time_ms(lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2)),
-           **_bounds(gcn_work(BATCH, n, T_LEN, d)),
+    got = run()
+    res = {"err": _norm_err(got, want), "bits": _digest([got]),
            "kernel": "tc" if d in (64, 128) else "generic"}
     if res["err"] > TOL:
         raise RuntimeError(f"{name}: GCN error {res['err']:.3e} > {TOL:g}")
-    return res
+    return _untimed(name, "gcn", res, lambda: {
+        "ms": device_ms(run, "gcn_fwd_"),
+        "plain_ms": time_ms(lambda: gcn.gcn_spatial_mix_plain(x, gate, scale2)),
+        **_bounds(gcn_work(BATCH, n, T_LEN, d))})
 
 
 def _bf16_check(name, kernel, got, want):
@@ -228,11 +257,13 @@ def _gcn_bwd(name, n, d, gen, dev):
     scale2 = 1.0 / math.sqrt(d)
     plain = lambda: gcn.gcn_spatial_mix_bwd_plain(x, gate, g, scale2)  # noqa: E731
     run = lambda: gcn.gcn_spatial_mix_bwd_kernel(x, gate, g, scale2)  # noqa: E731
-    err = max(_norm_err(a, w) for a, w in zip(run(), plain()))
+    got = run()
+    err = max(_norm_err(a, w) for a, w in zip(got, plain()))
     if err > TOL:
         raise RuntimeError(f"{name}: GCN backward error {err:.3e} > {TOL:g}")
-    return {"err": err, "ms": device_ms(run, "gcn_bwd_"), "plain_ms": time_ms(plain, reps=5),
-            **_bounds(gcn_bwd_work(BATCH, n, T_LEN, d))}
+    return _untimed(name, "gcn_bwd", {"err": err, "bits": _digest(got)}, lambda: {
+        "ms": device_ms(run, "gcn_bwd_"), "plain_ms": time_ms(plain, reps=5),
+        **_bounds(gcn_bwd_work(BATCH, n, T_LEN, d))})
 
 
 def _attn_bwd(name, n, d, heads, ks, gen, dev):
@@ -336,6 +367,69 @@ def _attn(name, n, d, heads, ks, gen, dev):
                         "plain_ms": sum(res["drop_plain_ms"]) / 3, **drop_bounds}}
 
 
+def _spline(name, cfg, gen, dev):
+    """The history lookup K1 as the Predictor and the Trainer run it, at
+    ``init_lag_anchors(cfg)``'s decoder and encoder lags over a float32
+    series [BATCH, N, his_len, 3]: the forward (both sets) and the backward
+    to both lag sets, each as its device time and CUDA launches per call
+    over every kernel it runs; the host time of one ``gather_eval_kernel``
+    call; the launch floor; and digests of the outputs (``bits``) and of
+    the lag gradients (``grad_bits``). The forward must equal the plain
+    version bit for bit and each lag gradient be within 1e-5 of the sum of
+    |g dH/dq| of the plain one. A tree without ``history_index_pair`` runs two ``history_index``
+    calls, as its Predictor and Trainer do."""
+    from ..models.d3stn.trainer import init_lag_anchors
+    from ..xde import history
+    from . import spline
+
+    n, t_len = cfg.num_nodes, cfg.his_len
+    series = torch.randn(BATCH, n, t_len, 3, generator=gen, device=dev)
+    t = torch.arange(t_len, dtype=torch.float32, device=dev)
+    enc, dec = (torch.tensor(v, device=dev, requires_grad=True) for v in init_lag_anchors(cfg))
+    pair = getattr(history, "history_index_pair", None)
+
+    def lookup():
+        if pair is not None:
+            return pair(dec, enc, series, t)
+        return history.history_index(dec, series, t), history.history_index(enc, series, t)
+
+    outs = lookup()
+    cot = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    grads = torch.autograd.grad(outs, (dec, enc), cot, retain_graph=True)
+    for q, out, g, gq in zip((dec, enc), outs, cot, grads):
+        q = q.detach()
+        if not torch.equal(out, spline.gather_eval_plain(series, t, q)):
+            raise RuntimeError(f"{name}: spline forward differs from its plain version")
+        terms = g * spline.gather_eval_plain(series, t, q, True)
+        scale = terms.abs().sum(dim=(0, 1, 3))
+        err = ((gq - terms.sum(dim=(0, 1, 3))).abs() / scale).max().item()
+        if err > 1e-5:
+            raise RuntimeError(f"{name}: lag gradient error {err:.3e} > 1e-5")
+    with torch.no_grad():
+        fwd_ms, fwd_launches, _ = device_profile(lookup)
+    bwd = lambda: torch.autograd.grad(outs, (dec, enc), cot, retain_graph=True)  # noqa: E731
+    bwd_ms, bwd_launches, bwd_names = device_profile(bwd)
+    q_sets = [spline._prep(series, t, q.detach())[0].tolist() for q in (dec, enc)]
+    both = [i for qs in q_sets for i in qs]
+    return {
+        "bits": _digest(outs), "grad_bits": _digest(grads), "fwd_ms": fwd_ms,
+        "fwd_launches": fwd_launches, "bwd_ms": bwd_ms,
+        "bwd_launches": bwd_launches, "bwd_kernels": bwd_names,
+        "host_ms": host_ms_per_call(lambda: spline.gather_eval_kernel(series, t, dec.detach())),
+        "floor_ms": launch_floor_ms(dev),
+        "bound_ms": bound_ms(spline_work(BATCH, n, t_len, 3, both, len(both)))[0],
+        "bwd_bound_ms": bound_ms(spline_work(BATCH, n, t_len, 3, both, len(both), True))[0],
+    }
+
+
+def _fmt_spline(r):
+    return (f"spline: forward {r['fwd_ms']:.4f} ms in {r['fwd_launches']:g} launches (bound "
+            f"{r['bound_ms']:.6f} ms), lag backward {r['bwd_ms']:.4f} ms in "
+            f"{r['bwd_launches']:g} launches (bound {r['bwd_bound_ms']:.6f} ms), host "
+            f"{r['host_ms']:.4f} ms a wrapper call, launch floor {r['floor_ms']:.4f} ms, bits "
+            f"{r['bits']}, lag gradient bits {r['grad_bits']}")
+
+
 def _bf16_model(cfg_path, dev):
     """Device ms of one bfloat16 ``Trainer.train_step`` and one
     ``Predictor.forward`` at batch 32 on seeded synthetic traffic."""
@@ -388,9 +482,9 @@ def main():
     for name in CONFIGS:
         cfg = load_config(str(root / "examples" / "configs" / f"{name}.json"))
         n, d, heads, ks = cfg.num_nodes, cfg.d_model, cfg.head, cfg.kernel_size
-        g = _timed(_gcn, name, n, d, gen, dev)
+        g = _gcn(name, n, d, gen, dev)
         a = _timed(_attn, name, n, d, heads, ks, gen, dev)
-        gb = _timed(_gcn_bwd, name, n, d, gen, dev)
+        gb = _gcn_bwd(name, n, d, gen, dev)
         torch.cuda.empty_cache()
         ab = _timed(_attn_bwd, name, n, d, heads, ks, gen, dev)
         torch.cuda.empty_cache()
@@ -399,16 +493,18 @@ def main():
         gb16 = _timed(_gcn_bwd_bf16, name, n, d, gen, dev)
         torch.cuda.empty_cache()
         ab16 = _timed(_attn_bwd_bf16, name, n, d, heads, ks, gen, dev)
+        torch.cuda.empty_cache()
+        sp = _spline(name, cfg, gen, dev)
         print(f"{name} [B={BATCH}, N={n}, T={T_LEN}, D={d}, H={heads}]: "
               + "; ".join((_fmt(f"gcn {g.get('kernel', '')}", g),
                            _fmt(f"attn {a.get('kernel', '')}", a),
                            _fmt(f"attn {a.get('kernel', '')} dropout", a.get("dropout", a)),
                            _fmt("gcn_bwd", gb), _fmt("attn_bwd", ab), _fmt16("gcn_bf16", g16),
                            _fmt16("attn_bf16", a16), _fmt16("gcn_bwd_bf16", gb16),
-                           _fmt16("attn_bwd_bf16", ab16))), flush=True)
+                           _fmt16("attn_bwd_bf16", ab16), _fmt_spline(sp))), flush=True)
         rows.append({"config": name, "n": n, "d": d, "heads": heads, "gcn": g, "attn": a,
                      "gcn_bwd": gb, "attn_bwd": ab, "gcn_bf16": g16, "attn_bf16": a16,
-                     "gcn_bwd_bf16": gb16, "attn_bwd_bf16": ab16})
+                     "gcn_bwd_bf16": gb16, "attn_bwd_bf16": ab16, "spline": sp})
         torch.cuda.empty_cache()
         if name == "PEMS08":
             rows[-1]["bf16_model"] = _bf16_model(str(root / "examples" / "configs" / "PEMS08.json"),

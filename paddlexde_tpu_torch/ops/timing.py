@@ -34,7 +34,8 @@ import torch
 
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOPS", "PEAK_TF32_FLOPS", "PEAK_BF16_FLOPS", "Work",
            "LAUNCHES_PER_CALL", "ProfilerMiss", "time_ms", "device_ms", "device_ms_by_kernel",
-           "device_ms_total", "bound_ms", "bound_3xtf32_ms", "bound_bf16_ms", "gcn_work",
+           "device_ms_total", "device_profile", "launch_floor_ms", "host_ms_per_call",
+           "spline_work", "bound_ms", "bound_3xtf32_ms", "bound_bf16_ms", "gcn_work",
            "gcn_bwd_work", "attn_work", "attn_bwd_work"]
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
@@ -152,16 +153,52 @@ def device_ms_total(fn, reps: int = 10) -> float:
     (a train step, a served batch): the trace's sum over ``reps`` calls,
     divided by ``reps``. A launch record that the trace dropped reads as
     time not spent, so this can read low, never high."""
+    return device_profile(fn, reps, traces=1)[0]
+
+
+def device_profile(fn, reps: int = 10, traces: int = 3):
+    """``(ms, launches, names)`` of one call of ``fn`` from a profiler trace
+    of ``reps`` calls: device time as :func:`device_ms_total`, CUDA kernel
+    launches per call and the kernels' names. A trace can drop launch
+    records, never add one: of ``traces`` traces the one that kept the most
+    is taken (a fractional count says that each of them lost some)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+    best = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(events) > len(best):
+            best = events
+    return (sum(e.device_time for e in best) / reps / 1e3, len(best) / reps,
+            sorted({e.name for e in best}))
+
+
+def launch_floor_ms(device, reps: int = 10) -> float:
+    """Device time (ms) of a minimal launch: one PyTorch elementwise op on a
+    single element, through :func:`device_ms_by_kernel`."""
+    one = torch.zeros(1, device=device)
+    return device_ms(lambda: one.add_(1.0), "elementwise_kernel", reps)
+
+
+def host_ms_per_call(fn, calls: int = 200) -> float:
+    """Host time (ms) per call of ``fn``: ``perf_counter`` over ``calls``
+    calls after a synchronize, then one synchronize (not timed)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return secs / calls * 1e3
 
 
 def _bound(t_bytes: float, t_ops: float):
@@ -252,3 +289,21 @@ def attn_bwd_work(b: int, n: int, t_len: int, d: int, heads: int, ks: int, in_by
     act = b * n * t_len * d
     return Work((6 * in_bytes + g_bytes) * act + 4 * 8 * (ks * d * d + d)
                 + _mask_bytes(b, n, t_len, heads, dropout), b * n * conv, b * n * core)
+
+
+def spline_work(b: int, n: int, t_len: int, d: int, segments, n_q: int, derivative=False,
+                elem: int = 4) -> Work:
+    """One history lookup of ``x [b, n, t_len, d]`` at ``n_q`` queries whose
+    segments are ``segments`` (each query's i): the rows the queries need
+    (i, i+1 and i+2 where it exists, each row read once) and the knots and
+    queries read, the output written; 11 operations an output element (the
+    basis and slopes once per query are not counted). ``derivative``: the
+    lag gradient, which reads g [b, n, n_q, d] and writes n_q values, with
+    two more operations an element (the product and the sum)."""
+    rows = set()
+    for i in segments:
+        rows.update({i, i + 1, min(i + 2, t_len - 1)})
+    per_elem = b * n * n_q * d
+    read = b * n * d * len(rows) + t_len + n_q + (per_elem if derivative else 0)
+    written = n_q if derivative else per_elem
+    return Work(elem * (read + written), 0, (13 if derivative else 11) * per_elem)

@@ -7,7 +7,9 @@ lets D3STN learn where in a long history to look.
 
 The cubic path on a CUDA tensor runs the fused gather+Hermite kernel
 (``ops/spline.py``, whose backward gives the lag gradient); everything else
-is the interpolation classes under autograd.
+is the interpolation classes under autograd. ``history_index_pair`` looks
+one history up at two lag sets (D3STN's decoder and encoder lags): one
+kernel launch on the card, and one for both lag gradients.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..interpolation.interpolate import (
     LinearInterpolation,
 )
 
-__all__ = ["history_index", "HistoryIndex"]
+__all__ = ["history_index", "history_index_pair", "HistoryIndex"]
 
 _INTERPS = {
     "linear": LinearInterpolation,
@@ -60,27 +62,63 @@ def history_index(
         his = his.detach()
     lags = torch.as_tensor(lags, device=his.device)
 
-    if interpolation in ("cubic", "cubic_hermite"):
-        if use_kernel is None:
-            use_kernel = stop_his_gradient and his.is_cuda
-        if use_kernel:
-            if not his.is_cuda:
-                raise ValueError("use_kernel=True needs a CUDA history tensor")
-            if not stop_his_gradient:
-                raise ValueError("the spline kernel gives no gradient to the history")
-            from ..ops.spline import hermite_gather_eval
+    if _kernel_route(his, interpolation, stop_his_gradient, use_kernel):
+        from ..ops.spline import hermite_gather_eval
 
-            span = (
-                torch.arange(his.shape[-2], dtype=his.dtype, device=his.device)
-                if his_span is None
-                else his_span
-            )
-            return hermite_gather_eval(his, span, lags)
-    elif use_kernel:
-        raise ValueError(f"the spline kernel is cubic only, not {interpolation!r}")
+        return hermite_gather_eval(his, _span(his, his_span), lags)
 
     cls = _INTERPS[interpolation] if isinstance(interpolation, str) else interpolation
     return cls(his, his_span).evaluate(lags)
+
+
+def history_index_pair(
+    lags_a,
+    lags_b,
+    his,
+    his_span=None,
+    *,
+    interpolation: Union[str, type] = "cubic",
+    stop_his_gradient: bool = True,
+    use_kernel: Optional[bool] = None,
+):
+    """:func:`history_index` of one history at two lag sets: ``(y_a [..., La,
+    D], y_b [..., Lb, D])``, with the same arguments and routing rules. On
+    the kernel route one launch computes both (and one launch both lag
+    gradients); otherwise two :func:`history_index` calls."""
+    his = place(his, input_device(his, lags_a))
+    if stop_his_gradient:
+        his = his.detach()
+    if _kernel_route(his, interpolation, stop_his_gradient, use_kernel):
+        from ..ops.spline import hermite_gather_eval_pair
+
+        return hermite_gather_eval_pair(his, _span(his, his_span), lags_a, lags_b)
+    kw = dict(interpolation=interpolation, stop_his_gradient=stop_his_gradient,
+              use_kernel=use_kernel)
+    return (history_index(lags_a, his, his_span, **kw),
+            history_index(lags_b, his, his_span, **kw))
+
+
+def _kernel_route(his, interpolation, stop_his_gradient, use_kernel) -> bool:
+    """Whether the lookup takes the spline kernel (``use_kernel`` as in
+    :func:`history_index`)."""
+    if interpolation not in ("cubic", "cubic_hermite"):
+        if use_kernel:
+            raise ValueError(f"the spline kernel is cubic only, not {interpolation!r}")
+        return False
+    if use_kernel is None:
+        return stop_his_gradient and his.is_cuda
+    if use_kernel:
+        if not his.is_cuda:
+            raise ValueError("use_kernel=True needs a CUDA history tensor")
+        if not stop_his_gradient:
+            raise ValueError("the spline kernel gives no gradient to the history")
+    return use_kernel
+
+
+def _span(his, his_span):
+    if his_span is None:
+        return torch.arange(his.shape[-2], dtype=his.dtype, device=his.device)
+    return his_span
 
 
 class HistoryIndex:

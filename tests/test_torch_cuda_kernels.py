@@ -64,15 +64,80 @@ def _norm_err(got, want):
 
 @cases("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @cases("derivative", [False, True])
-def test_spline_kernel(dev, dtype, tol, derivative):
+@cases("t_len,knots", [(50, "even"), (50, "repeat"), (2, "even"), (33, "repeat"),
+                       (1100, "repeat"), (1100, "square"), (5000, "sqrt")])
+def test_spline_kernel(dev, dtype, tol, derivative, t_len, knots):
+    """One query set: bit for bit the plain version, on evenly spaced knots,
+    knots with a repeat and knots spaced as squares or square roots (where
+    the kernel's guessed window misses and its search takes over, past the
+    window or before it), at lengths from 2 to past 64^2, in one launch."""
     g = torch.Generator(device=dev).manual_seed(0)
-    series = torch.randn(3, 5, 50, 3, generator=g, device=dev, dtype=dtype)
-    t = torch.arange(50, dtype=dtype, device=dev)
+    series = torch.randn(3, 5, t_len, 3, generator=g, device=dev, dtype=dtype)
+    t = torch.arange(t_len, dtype=dtype, device=dev)
+    if knots == "repeat":
+        t[t_len // 2] = t[t_len // 2 - 1]
+    elif knots == "square":
+        t = t * t / t_len
+    elif knots == "sqrt":
+        t = t.sqrt() * t_len ** 0.5
     q = torch.tensor([0.0, 2.5, 47.9, 48.2, 49.0, -2.0, 60.0], dtype=dtype, device=dev)
+    q = torch.cat([q, t[t_len // 2].reshape(1), t[-1] * torch.rand(9, generator=g, device=dev,
+                                                                     dtype=dtype)])
     before = _build.LAUNCHES["spline"]
     got = spline.gather_eval_kernel(series, t, q, derivative)
     assert _build.LAUNCHES["spline"] == before + 1
-    assert _norm_err(got, spline.gather_eval_plain(series, t, q, derivative)) <= tol
+    want = spline.gather_eval_plain(series, t, q, derivative)
+    if knots != "repeat":  # a zero-width interval gives infinite slopes
+        assert _norm_err(got, want) <= tol
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _lag_err(gq, series, t, q, g):
+    """|kernel - plain| per query over the sum of |g dH/dq| (its largest)."""
+    terms = g * spline.gather_eval_plain(series, t, q, True)
+    dims = tuple(range(terms.dim() - 2)) + (terms.dim() - 1,)
+    return ((gq - terms.sum(dim=dims)).abs() / terms.abs().sum(dim=dims)).max().item()
+
+
+@cases("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@cases("lead,t_len,la,lb", [((32, 170), 2016, 12, 12), ((3, 5), 50, 5, 9), ((7,), 300, 70, 3),
+                            ((40000,), 24, 4, 4), ((2, 3), 33, 12, 0)])
+def test_spline_pair_kernel(dev, dtype, tol, lead, t_len, la, lb):
+    """Two query sets in one launch, bit for bit two plain calls (forward
+    and derivative basis); both lag gradients in one launch, the same bits
+    twice, within tol of the plain version per query relative to the sum of
+    |g dH/dq|. Shapes: D3STN's (decoder lags at the last knot, encoder lags
+    0-11), more queries than a CTA locates at once (70 + 3), more row blocks
+    than CTAs (40000 rows), one set (lb = 0)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    series = torch.randn(*lead, t_len, 3, generator=g, device=dev, dtype=dtype)
+    t = torch.arange(t_len, dtype=dtype, device=dev)
+    if t_len == 2016:
+        qa = torch.full((la,), t_len - 1.0, dtype=dtype, device=dev)
+        qb = torch.arange(lb, dtype=dtype, device=dev)
+    else:
+        qa = (t_len + 4) * torch.rand(la, generator=g, device=dev, dtype=dtype) - 2
+        qb = (t_len + 4) * torch.rand(lb, generator=g, device=dev, dtype=dtype) - 2
+    qb_arg = qb if lb else None
+    for derivative in (False, True):
+        before = _build.LAUNCHES["spline"]
+        out_a, out_b = spline.gather_pair_kernel(series, t, qa, qb_arg, derivative)
+        assert _build.LAUNCHES["spline"] == before + 1
+        assert torch.equal(out_a, spline.gather_eval_plain(series, t, qa, derivative))
+        assert (out_b is None) if not lb else torch.equal(
+            out_b, spline.gather_eval_plain(series, t, qb, derivative))
+    ga = torch.randn(*lead, la, 3, generator=g, device=dev, dtype=dtype)
+    gb = torch.randn(*lead, lb, 3, generator=g, device=dev, dtype=dtype) if lb else None
+    runs = []
+    for _ in range(2):
+        before = _build.LAUNCHES["spline_bwd"]
+        runs.append(spline.lag_grad_kernel(series, t, qa, ga, qb_arg, gb))
+        assert _build.LAUNCHES["spline_bwd"] == before + 1
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert _lag_err(runs[0][0], series, t, qa, ga) <= tol
+    if lb:
+        assert torch.equal(runs[0][1], runs[1][1])
+        assert _lag_err(runs[0][1], series, t, qb, gb) <= tol
 
 
 # D=64 and D=128 take the tensor-core kernel (3xTF32, node tiles of 64 with
