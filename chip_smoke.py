@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of D3STN serving and training on one CUDA card.
+"""Drive the PyTorch port on one CUDA card: D3STN serving and training, and
+the adaptive ODE solvers on bench.py's spiral neural ODE.
 
 Run from the repository root with no arguments::
 
@@ -14,7 +15,7 @@ spline or GCN kernel spills, if a float32 K2 or K3 tensor-core kernel has
 no HGMMA, if a bfloat16 kernel spills or has no HGMMA, checked by
 name for K5 bf16's conv kernel and each of K4 bf16's twelve
 instantiations, or if a D = 64 instantiation of the float32 attention
-forward, with or without dropout, spills or has no HGMMA), and runs six
+forward, with or without dropout, spills or has no HGMMA), and runs seven
 phases (PyTorch's
 TF32 off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
 float32 GCN and attention kernels run their products in 3xTF32, the
@@ -77,7 +78,22 @@ bfloat16 ones in bfloat16):
    (as phase 3) and TRAIN_STEPS more, and the dropout-0.1 steps of phase 5
    in float32 and bfloat16 (the bfloat16 gradients also beside a witness,
    the plain step on the CPU with the same masks); the profiler must show
-   the float32 attention forward as ``attn_fwd_d3stn_kernel<64, ...>``.
+   the float32 attention forward as ``attn_fwd_d3stn_kernel<64, ...>``;
+7. bench.py's spiral neural ODE (``spiral_phase``; no kernel of its own,
+   and it must launch none of the port's): ``odeint`` with dopri5 at rtol
+   1e-6 / atol 1e-8 over [0, 25] at 1000 outputs in float32, on the
+   buffered-dense and the per-output engine, against the port's float64
+   solve on the CPU (SPIRAL_FWD_TOL), with one host read per attempted step
+   (the engine's counter); in float64 on the card the CPU's step counts and
+   values (SPIRAL_F64_TOL); the 4096-trajectory batch on every 64th row
+   (SPIRAL_BATCH_TOL); the gradient of sum |y(t1)| through the dense
+   engine and by ``odeint_adjoint`` over [0, 25] with the mixed norm and
+   the seminorm, in float32 and float64 against the CPU's float64 gradient
+   (SPIRAL_GRAD_TOL), the seminorm backward with fewer field evaluations;
+   then the host-clock and CUDA-event time of a solve, dopri5 steps/s, host
+   reads per step, the idle share and the adjoint's backward/forward ratio
+   with each norm, beside the card's name and power limit and the JAX
+   package's TPU figures from ``BENCH_r05.json`` (labelled as such).
 
 Launch counts are checked by the wrappers' counters and by ``torch.profiler``
 traces. It prints:
@@ -2217,6 +2233,253 @@ def train_dropout_phase(torch, dev, config="PEMS08"):
     return results
 
 
+# --------------------------------------------------------------------------
+# phase 7: bench.py's spiral neural ODE -- adaptive odeint and odeint_adjoint
+# on the card (no kernel of its own: PyTorch's ops under a host loop)
+# --------------------------------------------------------------------------
+
+# bench.py's problem (BENCH_CONFIG, bench.py:26-33 and :83-103)
+SPIRAL = {"rtol": 1e-6, "atol": 1e-8, "t1": 25.0, "n_points": 1000, "max_steps": 512,
+          "batch": 4096}
+# the card's float32 solve against the port's float64 solve on the CPU with
+# the same tolerances, max |diff| over the solution's max |value|: the two
+# take different step sequences (float32 rounding moves the step control),
+# each with a global error of a few rtol over 25 time units (the CPU's own
+# float32 solve: 7.7e-6, its error against an rtol 1e-11 solve 9.3e-6)
+SPIRAL_FWD_TOL = 2e-5
+# bench.py's 4096 trajectories share one step control (RMS over 8192
+# values), so a single row may sit further from its own reference than the
+# RMS controls; every 64th row against the float64 solve of those rows with
+# the same tolerances (CPU float32: 1.5e-5 of the rows' scale from an rtol
+# 1e-10 solve)
+SPIRAL_BATCH_TOL = 5e-5
+# gradients of sum |y(t1)|, per tensor, max |diff| over its max |value|: in
+# float32 against the CPU's float64 gradient (other grids: on the CPU the
+# float32 gradient differs from the float64 one by up to 3.5e-2, the
+# adjoint's from the direct one by as much); in float64 the card's
+# gradient against the CPU's on the same step sequence, where the two sum
+# in other orders (the card's stage sums are a product and a sum, the
+# CPU's a tensordot; cuBLAS against the CPU's matmul) and 25 time units of
+# the spiral amplify those roundings (4.1e-9 on the first card run)
+SPIRAL_GRAD_TOL = {"float32": 0.1, "float64": 1e-7}
+# the card's float64 forward against the CPU's on the same step sequence,
+# for the same reason (9.2e-13 on the first card run)
+SPIRAL_F64_TOL = 2e-11
+# the JAX package on a TPU (BENCH_r05.json, float32), printed for reference:
+# not a figure of the port
+BENCH_R05_TPU = {"nfe": 277, "solver_steps": 46, "adjoint_bwd_fwd_ratio": 95.28,
+                 "adjoint_bwd_fwd_ratio_seminorm": 8.588}
+
+
+def spiral_problem(torch, dtype, device, requires_grad=False):
+    """bench.py's parameters and 4096 initial states, from one
+    ``np.random.RandomState(0)`` in its order (w1, w2, the batch)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    w1 = rng.randn(2, 50).astype(np.float32) * 0.1
+    w2 = rng.randn(50, 2).astype(np.float32) * 0.1
+    big = rng.randn(SPIRAL["batch"], 2).astype(np.float32) * 0.5
+    params = {"w1": w1, "b1": np.zeros(50, np.float32), "w2": w2, "b2": np.zeros(2, np.float32)}
+    params = {k: torch.tensor(v, dtype=dtype, device=device, requires_grad=requires_grad)
+              for k, v in params.items()}
+    return params, torch.tensor(big, dtype=dtype, device=device)
+
+
+def spiral_field(torch, p):
+    return lambda t, y: torch.tanh((y**3) @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def spiral_solve(torch, dtype, device, y0=None, dense=True, params=None):
+    from paddlexde_tpu_torch import odeint
+
+    p = params if params is not None else spiral_problem(torch, dtype, device)[0]
+    if y0 is None:
+        y0 = torch.tensor([[2.0, 0.0]], dtype=dtype, device=device)
+    t = torch.linspace(0.0, SPIRAL["t1"], SPIRAL["n_points"], dtype=dtype, device=device)
+    options = {"return_stats": True}
+    if dense:
+        options["max_steps"] = SPIRAL["max_steps"]
+    return odeint(spiral_field(torch, p), y0, t, "dopri5", rtol=SPIRAL["rtol"],
+                  atol=SPIRAL["atol"], options=options, time_axis=0)
+
+
+def spiral_loss_grads(torch, dtype, device, adjoint_norm=None):
+    """Gradients of sum |y(t1)| to (w1, b1, w2, b2, y0): through the
+    buffered-dense engine (``adjoint_norm`` None) or by ``odeint_adjoint``
+    over [0, t1] with that norm ("mixed" or "seminorm")."""
+    from paddlexde_tpu_torch import odeint, odeint_adjoint
+
+    p, _ = spiral_problem(torch, dtype, device, requires_grad=True)
+    y0 = torch.tensor([[2.0, 0.0]], dtype=dtype, device=device, requires_grad=True)
+    f = spiral_field(torch, p)
+    kw = {"rtol": SPIRAL["rtol"], "atol": SPIRAL["atol"], "time_axis": 0}
+    if adjoint_norm is None:
+        t = torch.linspace(0.0, SPIRAL["t1"], SPIRAL["n_points"], dtype=dtype, device=device)
+        ys = odeint(f, y0, t, "dopri5", options={"max_steps": SPIRAL["max_steps"]}, **kw)
+    else:
+        t = torch.tensor([0.0, SPIRAL["t1"]], dtype=dtype, device=device)
+        ys = odeint_adjoint(f, y0, t, "dopri5", adjoint_params=tuple(p.values()),
+                            adjoint_options={"norm": adjoint_norm}, **kw)
+    ys[-1].abs().sum().backward()
+    return [p[k].grad for k in ("w1", "b1", "w2", "b2")] + [y0.grad]
+
+
+def spiral_grad_errors(got, want):
+    return [norm_err(g.double().cpu(), w.double()) for g, w in zip(got, want)]
+
+
+def host_clock_ms(torch, fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def spiral_phase(torch, dev):
+    """Phase 7 (module docstring): the forward on both adaptive engines, the
+    batch, the direct and adjoint gradients against the port's float64 solve
+    on the CPU; float64 on the card against the CPU on the same steps; times
+    and host reads per step. Returns the summary figures."""
+    from paddlexde_tpu_torch.functional.odeint_adjoint import BACKWARD_STATS
+    from paddlexde_tpu_torch.ops import _build
+    from paddlexde_tpu_torch.ops.timing import device_profile, time_ms
+    from paddlexde_tpu_torch.solver import adaptive
+
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    _build.reset_launches()
+    out = {}
+    print("phase 7: the spiral neural ODE of bench.py (dopri5, rtol 1e-6, atol 1e-8, "
+          "t in [0, 25] at 1000 outputs; TF32 off)", flush=True)
+
+    # 1. forward: both engines on the card in float32 against the CPU's
+    # float64 solve; float64 on the card against the CPU's, stats equal
+    for dense in (True, False):
+        engine = "buffered-dense (max_steps 512)" if dense else "per-output"
+        ref, ref_stats = spiral_solve(torch, f64, cpu, dense=dense)
+        cpu32, cpu32_stats = spiral_solve(torch, f32, cpu, dense=dense)
+        adaptive.reset_host_reads()
+        got, stats = spiral_solve(torch, f32, dev, dense=dense)
+        reads = dict(adaptive.HOST_READS)
+        err = norm_err(got.double().cpu(), ref)
+        require(got.shape == (SPIRAL["n_points"], 1, 2) and bool(torch.isfinite(got).all()),
+                f"spiral {engine}: shape {tuple(got.shape)} or non-finite values")
+        require(stats.status == 0, f"spiral {engine}: status {stats.status}")
+        require(err <= SPIRAL_FWD_TOL, f"spiral {engine}: float32 on the card is {err:.3e} from "
+                f"the CPU float64 solve, limit {SPIRAL_FWD_TOL}")
+        attempted = stats.n_accept + stats.n_reject
+        require(reads["step"] == attempted and reads["setup"] <= 1,
+                f"spiral {engine}: {reads} host reads for {attempted} attempted steps")
+        got64, stats64 = spiral_solve(torch, f64, dev, dense=dense)
+        err64 = norm_err(got64.cpu(), ref)
+        require(tuple(stats64) == tuple(ref_stats) and err64 <= SPIRAL_F64_TOL,
+                f"spiral {engine} float64: card stats {tuple(stats64)}, CPU {tuple(ref_stats)}, "
+                f"values {err64:.3e} apart (limit {SPIRAL_F64_TOL})")
+        print(f"  forward, {engine}: float32 on the card (nfe, accepted, rejected, status) "
+              f"{tuple(stats)}, {err:.3e} of the solution's scale from the CPU float64 solve "
+              f"(limit {SPIRAL_FWD_TOL}); the port's float32 on the CPU {tuple(cpu32_stats)}; "
+              f"float64 on the card {tuple(stats64)} = CPU float64 {tuple(ref_stats)}, "
+              f"{err64:.3e} apart; host reads {reads['step']} in the loop for {attempted} "
+              f"attempted steps + {reads['setup']} of t_span", flush=True)
+        if dense:
+            out.update(stats=stats, cpu32_stats=cpu32_stats, stats64=stats64, fwd_err=err)
+    print(f"  for reference, the JAX package on a TPU (BENCH_r05.json, float32): nfe "
+          f"{BENCH_R05_TPU['nfe']}, {BENCH_R05_TPU['solver_steps']} steps", flush=True)
+
+    # 2. the batch of 4096 trajectories (one shared step control)
+    p32, big = spiral_problem(torch, f32, dev)
+    p64, big64 = spiral_problem(torch, f64, cpu)
+    yb, stats_b = spiral_solve(torch, f32, dev, y0=big, params=p32)
+    rows = torch.arange(0, SPIRAL["batch"], 64)
+    ref_b, _ = spiral_solve(torch, f64, cpu, y0=big64[rows], params=p64)
+    err_b = norm_err(yb[:, rows.to(dev)].double().cpu(), ref_b)
+    require(yb.shape == (SPIRAL["n_points"], SPIRAL["batch"], 2) and bool(torch.isfinite(yb).all())
+            and stats_b.status == 0, f"spiral batch: shape {tuple(yb.shape)}, stats {stats_b}")
+    require(err_b <= SPIRAL_BATCH_TOL, f"spiral batch: rows {err_b:.3e} from their CPU float64 "
+            f"solve, limit {SPIRAL_BATCH_TOL}")
+    print(f"  batch of {SPIRAL['batch']}: stats {tuple(stats_b)}, every 64th row {err_b:.3e} of "
+          f"the rows' scale from their CPU float64 solve (limit {SPIRAL_BATCH_TOL})", flush=True)
+
+    # 3. the direct gradient through the buffered-dense engine, 4. the
+    # adjoint with the mixed norm and the seminorm
+    names = ("w1", "b1", "w2", "b2", "y0")
+    nfe_bwd = {}
+    for label, norm in (("direct", None), ("adjoint, mixed norm", "mixed"),
+                        ("adjoint, seminorm", "seminorm")):
+        want = spiral_loss_grads(torch, f64, cpu, norm)
+        want_stats = dict(BACKWARD_STATS)
+        for dtype in (f32, f64):
+            key = str(dtype).split(".")[-1]
+            errs = spiral_grad_errors(spiral_loss_grads(torch, dtype, dev, norm), want)
+            tol = SPIRAL_GRAD_TOL[key]
+            require(all(e <= tol for e in errs), f"spiral {label} gradient, {key} on the card: "
+                    f"{dict(zip(names, errs))} from the CPU float64 gradient, limit {tol}")
+            if norm is not None and dtype == f32:
+                nfe_bwd[norm] = dict(BACKWARD_STATS)
+            print(f"  {label} gradient, {key} on the card: max error per tensor "
+                  f"{max(errs):.3e} (limit {tol}; "
+                  + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, errs)) + ")"
+                  + (f"; backward {dict(BACKWARD_STATS)}, the CPU's float64 backward "
+                     f"{want_stats}" if norm is not None else ""), flush=True)
+    require(nfe_bwd["seminorm"]["nfe"] < nfe_bwd["mixed"]["nfe"],
+            f"spiral adjoint: the seminorm backward took {nfe_bwd['seminorm']['nfe']} field "
+            f"evaluations, the mixed norm's {nfe_bwd['mixed']['nfe']}")
+    out["nfe_bwd"] = nfe_bwd
+
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(not launched, f"phase 7 launched port kernels: {launched}")
+
+    # 5. times (figures, not limits)
+    if dev.type == "cuda":
+        def solve():
+            spiral_solve(torch, f32, dev)
+
+        host_ms = host_clock_ms(torch, solve)
+        event_ms = time_ms(solve, reps=5, warmup=1)
+        device_ms, kernels_per_solve, _ = device_profile(solve, reps=3, traces=1)
+        attempted = out["stats"].n_accept + out["stats"].n_reject
+        adaptive.reset_host_reads()
+        solve()
+        reads = adaptive.HOST_READS["step"] + adaptive.HOST_READS["setup"]
+        ratio = {}
+        for norm in ("mixed", "seminorm"):
+            from paddlexde_tpu_torch import odeint_adjoint
+
+            p, _ = spiral_problem(torch, f32, dev, requires_grad=True)
+            y0 = torch.tensor([[2.0, 0.0]], device=dev, requires_grad=True)
+            t = torch.tensor([0.0, SPIRAL["t1"]], device=dev)
+
+            def fwd(backward=False, p=p, y0=y0, t=t, norm=norm):
+                ys = odeint_adjoint(spiral_field(torch, p), y0, t, "dopri5", rtol=SPIRAL["rtol"],
+                                    atol=SPIRAL["atol"], adjoint_params=tuple(p.values()),
+                                    adjoint_options={"norm": norm}, time_axis=0)
+                if backward:
+                    ys[-1].abs().sum().backward()
+
+            fwd_ms = host_clock_ms(torch, fwd, reps=3)
+            fb_ms = host_clock_ms(torch, lambda: fwd(True), reps=3)
+            ratio[norm] = (fb_ms - fwd_ms) / fwd_ms
+            print(f"  adjoint ({norm}): forward {fwd_ms:.2f} ms, forward + backward {fb_ms:.2f} ms "
+                  f"(host clock, median of 3): backward/forward {ratio[norm]:.2f}", flush=True)
+        out.update(host_ms=host_ms, event_ms=event_ms, device_ms=device_ms,
+                   steps_per_s=attempted / (host_ms / 1e3), reads_per_step=reads / attempted,
+                   idle=1 - device_ms / event_ms, ratio=ratio)
+        print(f"  one float32 solve (buffered-dense, 1000 outputs, {attempted} attempted steps): "
+              f"host clock {host_ms:.2f} ms, CUDA events {event_ms:.2f} ms, device time "
+              f"{device_ms:.3f} ms in {kernels_per_solve:.0f} kernel launches (idle share "
+              f"{out['idle']:.1%}); {out['steps_per_s']:.0f} dopri5 steps/s; {reads} host reads, "
+              f"{out['reads_per_step']:.3f} per attempted step; card {card_line()}", flush=True)
+        print(f"  for reference, the JAX package on a TPU (BENCH_r05.json): adjoint "
+              f"backward/forward {BENCH_R05_TPU['adjoint_bwd_fwd_ratio']} (mixed), "
+              f"{BENCH_R05_TPU['adjoint_bwd_fwd_ratio_seminorm']} (seminorm)", flush=True)
+    return out
+
+
 def main():
     if not (HERE / "paddlexde_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"paddlexde_tpu_torch/ not found beside {Path(__file__).name}")
@@ -2255,6 +2518,7 @@ def main():
           f"{synth_step_ms:.3f} ms, dropout train step "
           + ", ".join(f"{dtype} {ms:.3f} ms" for dtype, (_, ms) in synth_dropout.items()),
           flush=True)
+    spiral_phase(torch, dev)
     pems = [serve_launches, bf16_launches, train_launches, bf16_train_launches,
             *(d[0] for d in dropout.values())]
     synth = [synth_serve, synth_train, *(d[0] for d in synth_dropout.values())]

@@ -9,19 +9,48 @@ with a plain PyTorch version beside it for CPU tensors.
 Ported so far: D3STN serving (``models.d3stn.Predictor``) and training
 (``models.d3stn.Trainer``) and what they run: ``ddeint`` on the fixed-grid
 solvers, ``history_index`` and the splines, and five kernels (spline
-gather; spatial GCN and temporal attention, forward and backward).
+gather; spatial GCN and temporal attention, forward and backward); and the
+ODE entry points ``odeint`` (fixed-grid and the explicit adaptive solvers
+adaptive_heun, fehlberg2, bosh3, dopri5, dopri8, tsit5, with autograd
+through the solve), ``odeint_dense`` and ``odeint_adjoint``, which run no
+kernel of their own.
 """
 
 from . import ops  # noqa: F401
 from ._device import resolve_device  # noqa: F401
-from .functional import ddeint, format_solution, integrate_term  # noqa: F401
+from .functional import (  # noqa: F401
+    ddeint,
+    format_solution,
+    integrate_term,
+    odeint,
+    odeint_adjoint,
+    odeint_dense,
+)
 from .interpolation import (  # noqa: F401
     BezierSpline,
     CubicHermiteSpline,
     InterpolationBase,
     LinearInterpolation,
 )
-from .solver.registry import RK4, Euler, Midpoint, SolverSpec, resolve_solver  # noqa: F401
+from .solver import (  # noqa: F401
+    RK4,
+    TABLEAUS,
+    AdaptiveHeun,
+    AdaptiveStats,
+    Bosh3,
+    ButcherTableau,
+    DenseSolution,
+    Dopri5,
+    Dopri8,
+    Euler,
+    Fehlberg2,
+    Midpoint,
+    SolverSpec,
+    Tsit5,
+    resolve_solver,
+    solve_adaptive,
+    solve_adaptive_dense,
+)
 from .xde import (  # noqa: F401
     HistoryIndex,
     XDETerm,

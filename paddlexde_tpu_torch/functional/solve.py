@@ -1,11 +1,13 @@
 """Dispatch from the functional API into the solver engines.
 
-Counterpart of ``paddlexde_tpu/functional/solve.py`` for the fixed-grid
-path: solver resolution and ``options`` validation (the JAX package's whole
-option vocabulary is known, so a typo raises ``ValueError``), reverse-time
-canonicalisation (a decreasing span is integrated in ``s = -t`` with a
-negated field, and the time-valued options follow), and the output layout
-(time moved from axis 0 to ``time_axis``).
+Counterpart of ``paddlexde_tpu/functional/solve.py``: solver resolution and
+``options`` validation (the JAX package's whole option vocabulary is known,
+so a typo raises ``ValueError``), reverse-time canonicalisation (a
+decreasing span is integrated in ``s = -t`` with a negated field, and the
+time-valued options follow), the dispatch into the fixed-grid engine, the
+adaptive engine or, with ``options["max_steps"]``, the buffered-dense
+adaptive engine (``solve.py:221-262``), and the output layout (time moved
+from axis 0 to ``time_axis``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from .._device import input_device, place
+from ..solver.adaptive import host_times, solve_adaptive
+from ..solver.adaptive_dense import solve_adaptive_dense
 from ..solver.fixed import solve_fixed
 from ..solver.registry import SolverSpec, require_ported, resolve_solver
 from ..utils.norms import rms_norm
@@ -53,10 +57,12 @@ def _reversed_term(term: XDETerm) -> XDETerm:
 
 
 def _negate_time_options(options: dict) -> dict:
-    """Options that name points in the original time follow t = -s."""
+    """Options that name points in the original time follow t = -s
+    (durations -- step_size, first_step, min/max_step -- do not)."""
     options = dict(options)
-    if options.get("grid") is not None:
-        options["grid"] = -torch.as_tensor(options["grid"])
+    for key in ("grid", "step_t", "jump_t"):
+        if options.get(key) is not None:
+            options[key] = -torch.as_tensor(options[key])
     gc = options.get("grid_constructor")
     if gc is not None:
         options["grid_constructor"] = lambda ts: -torch.as_tensor(gc(-ts))
@@ -83,10 +89,6 @@ def format_solution(solution, time_axis: int = -2):
 
 
 def _solve(term, y0, t_span, method, options, time_axis):
-    if options.get("checkpoint"):
-        raise NotImplementedError(
-            "options['checkpoint'] (per-step rematerialisation) is not ported yet (ROADMAP.md)"
-        )
     # time stays where the caller put it: numpy/list times become host
     # tensors (the grid is read on the host; a 0-dim host time mixes freely
     # with device states); the state goes to the device of its first tensor
@@ -95,8 +97,34 @@ def _solve(term, y0, t_span, method, options, time_axis):
     device = input_device(*tree_leaves(y0))
     y0 = tree_map(lambda a: place(a, device), y0)
     term, t_span, options = _canonicalize_direction(term, t_span, options)
-    kw = {k: v for k, v in options.items() if k in _FIXED_KEYS - {"checkpoint"}}
+    kw = {k: v for k, v in options.items() if k in _FIXED_KEYS}
     return format_solution(solve_fixed(term, y0, t_span, method=method, **kw), time_axis)
+
+
+def _solve_adaptive(term, y0, t_span, method, options, time_axis, rtol, atol):
+    """The adaptive dispatch: the span's values are read to the host once
+    (none when it lies on the CPU) and serve both the direction and the
+    engine's loop."""
+    t_span = torch.as_tensor(t_span)
+    device = input_device(*tree_leaves(y0))
+    y0 = tree_map(lambda a: place(a, device), y0)
+    t_host = host_times(t_span)
+    if t_host.size >= 2 and t_host[-1] < t_host[0]:
+        term, t_span, t_host = _reversed_term(term), -t_span, -t_host
+        options = _negate_time_options(options)
+    if "max_steps" in options:
+        # buffered-dense engine: one integration pass + vectorised output
+        keys = _ADAPTIVE_KEYS - {"step_t", "jump_t", "max_num_steps"}
+        engine = solve_adaptive_dense
+    else:
+        keys = _ADAPTIVE_KEYS - {"max_steps"}
+        engine = solve_adaptive
+    kw = {k: v for k, v in options.items() if k in keys}
+    out = engine(term, y0, t_span, method=method, rtol=rtol, atol=atol, _t_host=t_host, **kw)
+    if options.get("return_stats"):
+        sol, stats = out
+        return format_solution(sol, time_axis), stats
+    return format_solution(out, time_axis)
 
 
 def integrate_term(
@@ -111,13 +139,14 @@ def integrate_term(
     time_axis: int = -2,
     interp: Optional[str] = None,
 ):
-    """Dispatch one integration; returns the formatted solution.
+    """Dispatch one integration; returns the formatted solution (with
+    :class:`~paddlexde_tpu_torch.solver.adaptive.AdaptiveStats` when an
+    adaptive solver runs with ``options["return_stats"]``).
 
     ``solver`` is a name, a :class:`SolverSpec`, or a custom fixed-step
     function ``step(term, t0, t1, y0) -> (y1, dy0)``. ``rtol``/``atol`` are
-    accepted for signature parity; the fixed-grid solvers do not read them.
+    read by the adaptive solvers only.
     """
-    del rtol, atol
     if callable(solver) and not isinstance(solver, SolverSpec):
         options = dict(options or {})
         unknown = set(options) - _FIXED_KEYS - {"norm"}
@@ -141,4 +170,6 @@ def integrate_term(
             f"unknown solver option(s) {sorted(unknown)}; known options: {sorted(known)}"
         )
     require_ported(spec)
+    if spec.kind == "adaptive":
+        return _solve_adaptive(term, y0, t_span, spec.name, options, time_axis, rtol, atol)
     return _solve(term, y0, t_span, spec.name, options, time_axis)

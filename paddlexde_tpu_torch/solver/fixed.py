@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch.utils._pytree import tree_map
 
 from ..xde.term import XDETerm
@@ -106,13 +107,25 @@ def solve_fixed(
     grid_constructor: Optional[Callable] = None,
     grid=None,
     time_dtype=None,
+    checkpoint: bool = False,
 ):
     """Integrate over a fixed grid; return a ``[T, ...]`` time-first state.
 
     ``interp``: "linear" | "cubic" | "" -- how requested output times that
     fall strictly inside grid intervals are reconstructed.
+
+    ``checkpoint``: run each step under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` per step, ``solver/fixed.py:204-224``):
+    backprop recomputes a step's stages instead of keeping them.
     """
     step_fn = FIXED_STEP_FNS[method][0] if isinstance(method, str) else method
+    if checkpoint:
+        inner_step = step_fn
+
+        def step_fn(term_, t0, t1, y):
+            return torch.utils.checkpoint.checkpoint(
+                lambda a, b, c: inner_step(term_, a, b, c), t0, t1, y, use_reentrant=False)
+
     t_span = torch.as_tensor(t_span)
     if time_dtype is not None:
         t_span = t_span.to(time_dtype)

@@ -2,9 +2,10 @@
 
 Counterpart of ``paddlexde_tpu/solver/registry.py``. Every name of the JAX
 package resolves to its :class:`SolverSpec`, so a typo still raises
-``ValueError``; only the explicit fixed-grid solvers euler, midpoint and rk4
-are ported so far, and :func:`require_ported` raises ``NotImplementedError``
-for the rest (ROADMAP.md lists them).
+``ValueError``. Ported: the explicit fixed-grid solvers euler, midpoint and
+rk4 and the explicit adaptive ones adaptive_heun, fehlberg2, bosh3, dopri5,
+dopri8 and tsit5; :func:`require_ported` raises ``NotImplementedError`` for
+the rest (ROADMAP.md lists them).
 """
 
 from __future__ import annotations
@@ -18,6 +19,12 @@ __all__ = [
     "Euler",
     "Midpoint",
     "RK4",
+    "AdaptiveHeun",
+    "Fehlberg2",
+    "Bosh3",
+    "Dopri5",
+    "Dopri8",
+    "Tsit5",
     "SOLVERS",
     "PORTED",
 ]
@@ -34,6 +41,12 @@ class SolverSpec:
 Euler = SolverSpec("euler", "fixed", 1)
 Midpoint = SolverSpec("midpoint", "fixed", 2)
 RK4 = SolverSpec("rk4", "fixed", 4)
+AdaptiveHeun = SolverSpec("adaptive_heun", "adaptive", 2)
+Fehlberg2 = SolverSpec("fehlberg2", "adaptive", 2)
+Bosh3 = SolverSpec("bosh3", "adaptive", 3)
+Dopri5 = SolverSpec("dopri5", "adaptive", 5)
+Dopri8 = SolverSpec("dopri8", "adaptive", 8)
+Tsit5 = SolverSpec("tsit5", "adaptive", 5)
 
 _Leapfrog = SolverSpec("leapfrog", "fixed", 2)
 _Adams = SolverSpec("adams", "adams", 4)
@@ -54,12 +67,12 @@ SOLVERS = {
     "explicit_adams": _Adams,
     "implicit_adams": dataclasses.replace(_Adams, name="implicit_adams"),
     "adams_bashforth_moulton": _Adams,
-    "adaptive_heun": SolverSpec("adaptive_heun", "adaptive", 2),
-    "fehlberg2": SolverSpec("fehlberg2", "adaptive", 2),
-    "bosh3": SolverSpec("bosh3", "adaptive", 3),
-    "dopri5": SolverSpec("dopri5", "adaptive", 5),
-    "dopri8": SolverSpec("dopri8", "adaptive", 8),
-    "tsit5": SolverSpec("tsit5", "adaptive", 5),
+    "adaptive_heun": AdaptiveHeun,
+    "fehlberg2": Fehlberg2,
+    "bosh3": Bosh3,
+    "dopri5": Dopri5,
+    "dopri8": Dopri8,
+    "tsit5": Tsit5,
     "implicit_euler": _ImplicitEuler,
     "implicit_midpoint": _ImplicitMidpoint,
     "gauss_legendre1": dataclasses.replace(_ImplicitMidpoint, name="gauss_legendre1"),
@@ -76,7 +89,8 @@ SOLVERS = {
     "scipy_solver": SolverSpec("scipy_solver", "scipy", 0),
 }
 
-PORTED = frozenset({"euler", "midpoint", "rk4"})
+PORTED = frozenset({"euler", "midpoint", "rk4", "adaptive_heun", "fehlberg2", "bosh3",
+                    "dopri5", "dopri8", "tsit5"})
 
 
 def resolve_solver(solver) -> SolverSpec:

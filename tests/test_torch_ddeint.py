@@ -110,6 +110,6 @@ def test_solver_options_are_validated():
     with pytest.raises(ValueError, match="unknown solver"):
         integrate_term(term, y0, ts, "eulr")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        integrate_term(term, y0, ts, "dopri5")
+        integrate_term(term, y0, ts, "kvaerno3")
     with pytest.raises(ValueError, match="mutually exclusive"):
         integrate_term(term, y0, ts, "euler", options={"step_size": 0.1, "grid": ts})
