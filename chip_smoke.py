@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA card: D3STN serving and training, and
-the adaptive ODE solvers on bench.py's spiral neural ODE.
+"""Drive the PyTorch port on one CUDA card: D3STN serving and training, the
+adaptive ODE solvers on bench.py's spiral neural ODE, and the rest of D3STN
+and the DDE extras (a reference checkpoint, the training CLI,
+``ddeint_adjoint``, ``ddeint_mos``, ``prefetch``).
 
 Run from the repository root with no arguments::
 
@@ -15,7 +17,7 @@ spline or GCN kernel spills, if a float32 K2 or K3 tensor-core kernel has
 no HGMMA, if a bfloat16 kernel spills or has no HGMMA, checked by
 name for K5 bf16's conv kernel and each of K4 bf16's twelve
 instantiations, or if a D = 64 instantiation of the float32 attention
-forward, with or without dropout, spills or has no HGMMA), and runs seven
+forward, with or without dropout, spills or has no HGMMA), and runs eight
 phases (PyTorch's
 TF32 off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
 float32 GCN and attention kernels run their products in 3xTF32, the
@@ -93,7 +95,28 @@ bfloat16 ones in bfloat16):
    then the host-clock and CUDA-event time of a solve, dopri5 steps/s, host
    reads per step, the idle share and the adjoint's backward/forward ratio
    with each norm, beside the card's name and power limit and the JAX
-   package's TPU figures from ``BENCH_r05.json`` (labelled as such).
+   package's TPU figures from ``BENCH_r05.json`` (labelled as such);
+8. the rest of D3STN and the DDE extras (``dde_extras_phase``): (a) a
+   reference-format (PaddleXDE) PEMS08 state dict made from a seed,
+   converted by ``convert_reference_state_dict`` with nothing unmatched,
+   served through ``Predictor`` on the kernels against the same weights
+   through the plain versions on the card and the CPU forward
+   (PREDICTOR_TOL); (b) the training CLI
+   (``paddlexde_tpu_torch.examples.train_d3stn``, ``--synthetic``, one
+   main and one finetune epoch): finite test metrics, K1-K5 launched,
+   each epoch's time; (c) ``ddeint_adjoint`` through D3STN's field at
+   PEMS08 width and depth, batch 32, euler on [0, 1] and rk4 at step 0.25:
+   the gradients to every parameter and both lag sets on the kernels
+   against the plain versions (TRAIN_TOL), K1's lag gradient, K3 and K5 in
+   a profiler trace, the peak memory (below direct autograd's at rk4) and
+   time of forward + backward against ``ddeint``, and the adjoint-direct
+   gradient gap; (d) ``ddeint_mos`` on MOS_BATCH trajectories: the closed
+   form of y' = -y(t - 1) in float32 and float64, Mackey-Glass with a
+   tensor and a callable lag and its gradients against the CPU's float64
+   solve, at most one host sync a solve (CUDA's sync debug mode), launches
+   a step and steps/s; (e) ``prefetch`` from a pinned host buffer that is
+   refilled: every item equals its snapshot, an early close stops the
+   producer. It prints phase 8's launches by kernel.
 
 Launch counts are checked by the wrappers' counters and by ``torch.profiler``
 traces. It prints:
@@ -101,7 +124,8 @@ traces. It prints:
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
   main paths (serving in float32 and in bfloat16, the two-epoch train, the
-  bfloat16 train steps and the dropout train steps, and phase 6's; the
+  bfloat16 train steps and the dropout train steps, phase 6's and phase
+  8's (the CLI's with phase 6's, at D = 64); the
   float32 attention forward and its dropout form at D = 64 are rows of
   their own, with phase 6's launches), error, time, bound
   (the 3xTF32 bound of ``ops/timing.py``, the bfloat16 bound for the
@@ -2480,6 +2504,479 @@ def spiral_phase(torch, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: the rest of D3STN (a reference checkpoint served, the training
+# CLI) and the DDE extras (ddeint_adjoint through D3STN's field,
+# ddeint_mos), and prefetch onto the card
+# --------------------------------------------------------------------------
+
+# ddeint_mos on MOS_BATCH trajectories (phase 8 d)
+MOS_BATCH = 4096
+# y' = -y(t - 1), phi == c, rk4 on a lag-aligned grid against the closed
+# form, max |diff| over max |value| (the port's CPU solve: 1.7e-7 in
+# float32, 3.3e-16 in float64)
+MOS_CLOSED_TOL = {"float32": 2e-6, "float64": 1e-12}
+# Mackey-Glass at tau = 2 on the card against the port's float64 solve on
+# the CPU: the solution as above, each gradient relative (the CPU's float32
+# solve: 3.0e-7; its lag gradient 9.6e-6, a sum with cancellation)
+MOS_CPU_TOL = {"float32": 5e-6, "float64": 1e-12}
+MOS_GRAD_TOL = {"float32": 1e-3, "float64": 1e-9}
+# Mackey-Glass outputs and step (20 / 0.3 tiles as 67 steps of 0.2985: the
+# lag of 2 falls between the knots, so its gradient is two-sided)
+MG_T = (0.0, 20.0, 21)
+MG_STEP = 0.3
+
+
+def reference_state(np, cfg, rng):
+    """A reference-format (PaddleXDE) D3STN state dict with random weights at
+    ``cfg``'s shapes: every key that ``REFERENCE_KEY_RULES`` and the layer
+    rules of ``convert_reference_state_dict`` name (the layout of
+    tests/models/test_d3stn_golden.py's ``make_reference_state``)."""
+    d, dp, ds = cfg.d_model, cfg.d_proj, cfg.d_sect
+
+    def r(*shape):
+        return (rng.randn(*shape) * 0.2).astype(np.float32)
+
+    state = {
+        "encoder_dense.weight": r(1, dp), "encoder_dense.bias": r(dp),
+        "decoder_dense.weight": r(1, dp), "decoder_dense.bias": r(dp),
+        "temporal_section_week.embedding.weight": r(7, ds),
+        "temporal_section_day.embedding.weight": r(288, ds),
+        "generator.weight": r(d, 1), "generator.bias": r(1),
+        "encoder.norm.weight": 1.0 + r(d), "encoder.norm.bias": r(d),
+        "decoder.norm.weight": 1.0 + r(d), "decoder.norm.bias": r(d),
+    }
+    if cfg.d_adaptive > 0:
+        state["adaptive_embedding_encoder.embedding"] = r(cfg.num_nodes, cfg.tgt_len,
+                                                          cfg.d_adaptive)
+    stacks = (("encoder", cfg.encoder_num_layers, ("self_attn",), 2),
+              ("decoder", cfg.decoder_num_layers, ("self_attn", "src_attn"), 3))
+    for stack, n_layers, subs, n_norms in stacks:
+        for i in range(n_layers):
+            prefix = f"{stack}.layers.{i}"
+            for s in subs:
+                for c in ("query_conv", "key_conv", "value_conv", "out_conv"):
+                    state[f"{prefix}.{s}.{c}.weight"] = r(d, d, 1, cfg.kernel_size)
+                    state[f"{prefix}.{s}.{c}.bias"] = r(d)
+            state[f"{prefix}.feed_forward_gcn.linear.weight"] = r(d, d)
+            state[f"{prefix}.feed_forward_gcn.alpha"] = np.asarray([0.6], np.float32)
+            state[f"{prefix}.feed_forward_gcn.beta"] = np.asarray([0.4], np.float32)
+            for s in range(n_norms):
+                state[f"{prefix}.sublayer.{s}.norm.weight"] = 1.0 + r(d)
+                state[f"{prefix}.sublayer.{s}.norm.bias"] = r(d)
+    return state
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def serve_reference_checkpoint(torch, dev, config="PEMS08", batch=32):
+    """(a) A reference-format checkpoint at ``config``'s shapes converted by
+    ``convert_reference_state_dict`` (nothing unmatched; ``load_flax_params``
+    raises unless the tree covers every parameter) and served: two batches
+    through ``Predictor`` on the kernels, against the same weights through
+    the plain versions on the card and the port's CPU forward (PREDICTOR_TOL).
+    Returns the launches of the served batches."""
+    import dataclasses
+
+    import numpy as np
+
+    from paddlexde_tpu_torch.models.d3stn import Predictor, convert_reference_state_dict, load_config
+    from paddlexde_tpu_torch.ops import _build
+
+    PlainPredictor = with_plain_history(Predictor)
+    cfg = load_config(str(HERE / "examples" / "configs" / f"{config}.json"))
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla")
+    n, his = cfg.num_nodes, cfg.his_len
+    rng = np.random.RandomState(0)
+    state = reference_state(np, cfg, rng)
+    params, unmatched = convert_reference_state_dict(state, cfg)
+    require(unmatched == [], f"reference checkpoint: unmatched keys {unmatched}")
+    a = rng.rand(n, n)
+    sc = ((a + a.T) / 2).astype(np.float32)
+    adj = (rng.rand(n, n) < 0.03).astype(np.float32)
+    adj = np.maximum(adj, adj.T)
+    enc = (np.arange(12) + rng.rand(12)).astype(np.float32)
+    dec = (his - 1 - 1.5 * rng.rand(cfg.tgt_len)).astype(np.float32)
+    pred = Predictor(cfg, params, enc, dec, adj, sc, batch_size=batch, device=dev)
+    plain = PlainPredictor(plain_cfg, params, enc, dec, adj, sc, batch_size=batch, device=dev)
+    cpu = PlainPredictor(plain_cfg, params, enc, dec, adj, sc, batch_size=batch, device="cpu")
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    series = make_series(np, n, his + 2 * batch, seed=4)
+    windows = np.stack([series[:, s : s + his] for s in range(2 * batch)])
+    pred.warmup()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = pred(windows)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    plain_out, cpu_out = plain(windows), cpu(windows[:batch])
+    shape = (2 * batch, n, cfg.tgt_len)
+    require(out.shape == shape and np.isfinite(out).all(),
+            f"reference checkpoint served {out.shape}, expected {shape}, or non-finite values")
+    err_plain = np.abs(out - plain_out).max() / np.abs(plain_out).max()
+    err_cpu = np.abs(out[:batch] - cpu_out).max() / np.abs(cpu_out).max()
+    print(f"  (a) a reference-format {config} checkpoint ({len(state)} arrays, {n_params} "
+          f"parameters, seed 0) converted with nothing unmatched and served: {shape} in "
+          f"{secs:.3f} s (host clock, 2 batches of {batch}); kernels vs plain versions on the "
+          f"card {err_plain:.3e}, vs the CPU forward {err_cpu:.3e} (normalised max-abs, tol "
+          f"{PREDICTOR_TOL:g}); launches {nonzero(launches)}", flush=True)
+    require(err_plain <= PREDICTOR_TOL and err_cpu <= PREDICTOR_TOL,
+            f"the served reference checkpoint disagrees: {err_plain:.3e} from the plain versions, "
+            f"{err_cpu:.3e} from the CPU forward")
+    if dev.type == "cuda":
+        want = {k: 2 * v for k, v in LAUNCHES_PER_BATCH.items()}
+        require(launches == want, f"the served checkpoint launched {launches}, expected {want}")
+    return launches
+
+
+def train_cli(torch, dev):
+    """(b) ``python -m paddlexde_tpu_torch.examples.train_d3stn --synthetic
+    --train_epochs 1 --finetune_epochs 1`` through its ``main``: finite test
+    metrics, K1-K5 launched, each epoch's time from the Trainer's log.
+    Returns the launches."""
+    import re
+    import shutil
+
+    import numpy as np
+
+    from paddlexde_tpu_torch.examples.train_d3stn import main as train_main
+    from paddlexde_tpu_torch.ops import _build
+
+    save_dir = HERE / "experiments" / "chip_smoke_cli"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = ["--synthetic", "--train_epochs", "1", "--finetune_epochs", "1",
+            "--save_dir", str(save_dir)]
+    if dev.type != "cuda":  # a CPU rehearsal: the shortest data
+        argv += ["--device", str(dev), "--seq_days", "2", "--batch_size", "64"]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    results = train_main(argv)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log = next(save_dir.glob("*/*/log.txt")).read_text()
+    epoch_s = [float(s) for s in re.findall(r"epoch: \d+, lr .*?, time ([\d.]+)s", log)]
+    metrics = {k: results[k] for k in ("mae", "rmse", "mape", "smis")}
+    print(f"  (b) the training CLI, {' '.join(argv)}: test {metrics}; epoch times (host clock) "
+          f"{epoch_s} s, {secs:.1f} s in all with the Trainer's set-up, eval and test; "
+          f"launches {launches}", flush=True)
+    require(len(epoch_s) == 2, f"the CLI's log holds {len(epoch_s)} epochs, expected 2")
+    require(all(np.isfinite(v) for v in metrics.values()), f"the CLI's test metrics {metrics}")
+    if dev.type == "cuda":
+        for key in ("spline", "spline_bwd", "gcn_fwd", "gcn_bwd", "attn_fwd", "attn_bwd"):
+            require(launches[key] > 0, f"the CLI's train launched no {key}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return launches
+
+
+def dde_adjoint_phase(torch, dev, config="PEMS08", batch=32):
+    """(c) ``ddeint_adjoint`` through D3STN's field (``Predictor.forward``'s
+    ``lambda y_lags, y: model(y_lags, y)``) at ``config``'s width and depth,
+    ``his_processed=False``: the gradients of an MSE loss to every parameter
+    and both lag sets on the kernels against the plain versions on the card
+    (TRAIN_TOL per tensor), the lag gradients nonzero, with euler on [0, 1]
+    (``cfg.solver``) and rk4 at step 0.25; K1's lag gradient, K3 and K5 in a
+    profiler trace; the peak memory and time of forward + backward against
+    ``ddeint`` with autograd (the adjoint's peak below at rk4) and the gap
+    between the two gradients. Returns the launches of the runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from paddlexde_tpu_torch import CubicHermiteSpline, ddeint, ddeint_adjoint, history_index
+    from paddlexde_tpu_torch.models.d3stn import D3STN, load_config, norm_adj_matrix
+    from paddlexde_tpu_torch.ops import _build
+
+    cfg = load_config(str(HERE / "examples" / "configs" / f"{config}.json"))
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla", gcn_impl="xla")
+    n, his, tl = cfg.num_nodes, cfg.his_len, cfg.tgt_len
+    rng = np.random.default_rng(5)
+    a = rng.random((n, n))
+    sc = norm_adj_matrix(((a + a.T) / 2).astype(np.float32)).astype(np.float32)
+    adj = (rng.random((n, n)) < 0.03).astype(np.float32)
+    adj = norm_adj_matrix(np.maximum(adj, adj.T)).astype(np.float32)
+    model = D3STN(cfg, adj, sc, device=dev, generator=torch.Generator().manual_seed(0))
+    plain = D3STN(plain_cfg, adj, sc, device=dev, generator=torch.Generator().manual_seed(0))
+    plain.load_state_dict(model.state_dict())
+    series = make_series(np, n, his + batch + tl, seed=5)
+    win = torch.as_tensor(np.stack([series[:, s : s + his + tl] for s in range(batch)])).to(dev)
+    src, tgt = win[:, :, :his].contiguous(), win[:, :, his:, :1].contiguous()
+    his_span = torch.arange(his, dtype=torch.float32, device=dev)
+    enc0 = (np.arange(his - 288, his - 276) + rng.random(12)).astype(np.float32)
+    dec0 = (his - 1 - 1.5 * rng.random(tl)).astype(np.float32)
+    t_span = torch.arange(2.0)
+    names = [k for k, _ in model.named_parameters()] + ["enc_idx", "dec_idx"]
+
+    def grads(m, solver, adjoint, interp="cubic"):
+        enc = torch.tensor(enc0, device=dev, requires_grad=True)
+        dec = torch.tensor(dec0, device=dev, requires_grad=True)
+        y0 = history_index(dec, src, his_span, interpolation=interp)
+        args = (lambda y_lags, y: m(y_lags, y), y0, t_span, enc, src, his_span, solver)
+        kw = dict(options={"step_size": 0.25} if solver == "rk4" else None, time_axis=0,
+                  interpolation=interp)
+        if adjoint:
+            sol, _ = ddeint_adjoint(*args, **kw, adjoint_params=tuple(m.parameters()))
+        else:
+            sol, _ = ddeint(*args, **kw)
+        loss = ((sol[-1][..., :1] - tgt) ** 2).mean()
+        # materialised as the Trainer does: PEMS08's gate (with_adj 0) leaves
+        # the GCN's alpha out of the graph
+        return loss.detach(), torch.autograd.grad(loss, [*m.parameters(), enc, dec],
+                                                  materialize_grads=True)
+
+    def peak_mb(fn):
+        if dev.type != "cuda":
+            return float("nan")
+        sync(torch, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        sync(torch, dev)
+        return torch.cuda.max_memory_allocated(dev) / 2**20
+
+    _build.reset_launches()
+    peaks = {}
+    for solver in ("euler", "rk4"):
+        before = dict(_build.LAUNCHES)
+        loss, got = grads(model, solver, True)
+        sync(torch, dev)
+        run = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+        loss_p, want = grads(plain, solver, True, CubicHermiteSpline)
+        errs = grad_errors(names, got, want)
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        loss_err = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+        lag_g = [got[-2].abs().max().item(), got[-1].abs().max().item()]
+        _, direct = grads(model, solver, False)
+        gap = max(grad_errors(names, got, direct).values())
+        peaks[solver] = (peak_mb(lambda: grads(model, solver, True)),
+                         peak_mb(lambda: grads(model, solver, False)))
+        timing = ""
+        if dev.type == "cuda":
+            adj_ms = host_clock_ms(torch, lambda: grads(model, solver, True), reps=3)
+            dir_ms = host_clock_ms(torch, lambda: grads(model, solver, False), reps=3)
+            timing = (f"; forward + backward (host clock, median of 3) adjoint {adj_ms:.2f} ms, "
+                      f"direct {dir_ms:.2f} ms, ratio {adj_ms / dir_ms:.2f}")
+        print(f"  (c) ddeint_adjoint through D3STN ({config}, batch {batch}), {solver}"
+              + (" step 0.25" if solver == "rk4" else "") + f" on [0, 1]: loss {loss.item():.6f}, "
+              f"kernels vs plain versions on the card: loss {loss_err:.3e}, {len(errs)} gradient "
+              f"tensors, max normalised err {worst[0][1]:.3e} (tol {TRAIN_TOL:g}; "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst) + f"); max |lag gradient| enc "
+              f"{lag_g[0]:.3e}, dec {lag_g[1]:.3e}; the adjoint's gradients vs direct autograd's "
+              f"(no limit) {gap:.3e}; peak memory (max_memory_allocated) adjoint "
+              f"{peaks[solver][0]:.0f} MiB, direct {peaks[solver][1]:.0f} MiB{timing}; "
+              f"launches {nonzero(run)}", flush=True)
+        require(loss_err <= TRAIN_TOL and worst[0][1] <= TRAIN_TOL,
+                f"ddeint_adjoint {solver}: the kernels' loss ({loss_err:.3e}) or gradient "
+                f"{worst[0][0]} ({worst[0][1]:.3e}) differs from the plain versions'")
+        require(all(g > 0 and math.isfinite(g) for g in lag_g),
+                f"ddeint_adjoint {solver}: lag gradients {lag_g}")
+        if dev.type == "cuda":
+            for key in ("spline", "spline_bwd", "gcn_fwd", "gcn_bwd", "attn_fwd", "attn_bwd"):
+                require(run[key] > 0, f"ddeint_adjoint {solver} launched no {key}")
+    launches = dict(_build.LAUNCHES)
+    if dev.type == "cuda":
+        require(peaks["rk4"][0] < peaks["rk4"][1],
+                f"ddeint_adjoint rk4: peak {peaks['rk4'][0]:.0f} MiB, not below direct "
+                f"autograd's {peaks['rk4'][1]:.0f} MiB")
+        counts, device_us, _ = trace(torch, lambda: grads(model, "euler", True))
+        seen = {k: sum(counts[k]) for k in ("spline_bwd", "gcn_bwd", "attn_bwd")}
+        print(f"  profiler, ddeint_adjoint euler forward + backward: {seen} launches of K1's "
+              f"lag gradient, K3 and K5, device time {device_us / 1e3:.3f} ms", flush=True)
+        require(all(seen.values()), f"the adjoint backward's trace misses a kernel: {seen}")
+    return launches
+
+
+@contextlib.contextmanager
+def device_syncs(torch):
+    """The host-device synchronisations in the block (CUDA's sync debug
+    mode, one warning each; the mode does not see every kind): ``where``
+    holds the file:line of each after the block."""
+    import warnings
+
+    where = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield where
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's own notice on being switched on ("a prototype feature and
+    # does not yet detect all synchronizing operations") is not a sync
+    where.extend(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message))
+
+
+def mos_closed(t):
+    """y' = -y(t - 1), phi == 1: y(t) = sum (-1)^k (t - (k - 1))^k / k!
+    (tests/functional/test_ddeint_mos.py:21-27)."""
+    return sum((-1) ** k * max(t - (k - 1), 0.0) ** k / math.factorial(k)
+               for k in range(int(math.floor(t)) + 2))
+
+
+def mackey_glass(torch, dtype, device, kind, grad=False):
+    """Mackey-Glass, y' = beta y(t - tau) / (1 + y(t - tau)^10) - 0.1 y at
+    beta 0.2, tau 2 (non-chaotic), phi == c for MOS_BATCH values of c in
+    [0.5, 1.5], by rk4: the lag a tensor, or (``kind`` "callable") the
+    state-dependent 2 + 0.5 tanh(mean y - 1). Returns the solution and, with
+    ``grad``, the gradients of mean y^2 to beta (and the tensor lag)."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import ddeint_mos
+
+    c = torch.linspace(0.5, 1.5, MOS_BATCH, dtype=dtype, device=device)
+    his = c[:, None, None].expand(-1, 9, 1).contiguous()
+    span = torch.linspace(-4.0, 0.0, 9, dtype=dtype, device=device)
+    # made on the device (a fill, not a copy from the host: no sync)
+    beta = torch.full((), 0.2, dtype=dtype, device=device, requires_grad=grad)
+    tau = torch.full((1,), 2.0, dtype=dtype, device=device, requires_grad=grad)
+    if kind == "tensor":
+        lags = tau
+    else:
+        def lags(t, y):
+            return torch.atleast_1d(2.0 + 0.5 * torch.tanh(y.mean() - 1.0))
+
+    def field(t, y, y_lags):
+        yl = y_lags[..., 0, :]
+        return beta * yl / (1 + yl**10) - 0.1 * y
+
+    sol = ddeint_mos(field, c[:, None], np.linspace(*MG_T), lags, his, span, solver="rk4",
+                     step_size=MG_STEP, time_axis=0)
+    if not grad:
+        return sol, ()
+    return sol, torch.autograd.grad((sol**2).mean(), [beta, tau] if kind == "tensor" else [beta])
+
+
+def mos_phase(torch, dev):
+    """(d) ``ddeint_mos`` on MOS_BATCH trajectories: the closed form of
+    y' = -y(t - 1) in float32 and float64 (rk4 on a lag-aligned grid, exact
+    to rounding); Mackey-Glass with a tensor and a callable lag against the
+    port's float64 solve on the CPU, values and the gradients to the lag and
+    a field parameter; host syncs per solve (at most one), launches per step
+    and steps/s."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import ddeint_mos
+    from paddlexde_tpu_torch.ops.timing import device_profile
+
+    cpu, f64 = torch.device("cpu"), torch.float64
+    on_card = dev.type == "cuda"
+    ts = np.linspace(0.0, 3.0, 13)
+    truth = torch.tensor([mos_closed(t) for t in ts], dtype=f64)
+    for dtype in (torch.float32, f64):
+        key = str(dtype).split(".")[-1]
+        c = torch.linspace(0.5, 2.0, MOS_BATCH, dtype=dtype, device=dev)
+        his = c[:, None, None].expand(-1, 9, 1).contiguous()
+        span = torch.linspace(-2.0, 0.0, 9, dtype=dtype, device=dev)
+        lag = torch.full((1,), 1.0, dtype=dtype, device=dev)
+
+        def solve():
+            return ddeint_mos(lambda t, y, y_lags: -y_lags[..., 0, :], c[:, None], ts, lag, his,
+                              span, solver="rk4", step_size=0.25, time_axis=0)
+
+        with device_syncs(torch) if on_card else contextlib.nullcontext([]) as syncs:
+            sol = solve()
+        want = truth[:, None] * c.double().cpu()[None]
+        err = norm_err(sol[..., 0].double().cpu(), want)
+        print(f"  (d) ddeint_mos, y' = -y(t - 1), phi == c for {MOS_BATCH} values of c, rk4 step "
+              f"0.25 on [0, 3], {key} on the card: {err:.3e} of the scale from c times the closed "
+              f"form (limit {MOS_CLOSED_TOL[key]:g}); {len(syncs)} host syncs in the solve {syncs}",
+              flush=True)
+        require(sol.shape == (13, MOS_BATCH, 1) and err <= MOS_CLOSED_TOL[key],
+                f"ddeint_mos {key}: shape {tuple(sol.shape)}, {err:.3e} from the closed form")
+        require(len(syncs) <= 1, f"ddeint_mos {key}: host syncs in one solve at {syncs}")
+    for kind in ("tensor", "callable"):
+        ref, ref_g = mackey_glass(torch, f64, cpu, kind, grad=True)
+        for dtype in (torch.float32, f64):
+            key = str(dtype).split(".")[-1]
+            sol, g = mackey_glass(torch, dtype, dev, kind, grad=True)
+            err = norm_err(sol.double().cpu(), ref)
+            g_err = [abs(a.item() - b.item()) / abs(b.item()) for a, b in zip(g, ref_g)]
+            print(f"  (d) Mackey-Glass (tau 2, beta 0.2, {MOS_BATCH} histories), {kind} lag, "
+                  f"rk4 step {MG_STEP} on [0, 20], {key} on the card against the CPU's float64 "
+                  f"solve: values {err:.3e} (limit {MOS_CPU_TOL[key]:g}); gradients of mean y^2 "
+                  f"to beta" + (" and the lag" if kind == "tensor" else "") + " "
+                  + ", ".join(f"{a.item():.6e}" for a in g) + f", relative errors "
+                  + ", ".join(f"{e:.2e}" for e in g_err) + f" (limit {MOS_GRAD_TOL[key]:g})",
+                  flush=True)
+            require(bool(torch.isfinite(sol).all()) and err <= MOS_CPU_TOL[key],
+                    f"Mackey-Glass {kind} {key}: {err:.3e} from the CPU float64 solve")
+            require(all(e <= MOS_GRAD_TOL[key] for e in g_err),
+                    f"Mackey-Glass {kind} {key}: gradient errors {g_err}")
+    if on_card:
+        n_steps = math.ceil((MG_T[1] - MG_T[0]) / MG_STEP - 1e-9)
+
+        def solve():
+            mackey_glass(torch, torch.float32, dev, "tensor")
+
+        with device_syncs(torch) as syncs:
+            solve()
+        host_ms = host_clock_ms(torch, solve, reps=3)
+        device_ms, per_solve, _ = device_profile(solve, reps=1, traces=1)
+        print(f"  (d) Mackey-Glass float32, tensor lag, {n_steps} rk4 steps a solve: host clock "
+              f"{host_ms:.2f} ms ({n_steps / host_ms * 1e3:.0f} steps/s), device time "
+              f"{device_ms:.3f} ms (idle share {1 - device_ms / host_ms:.1%}), "
+              f"{per_solve / n_steps:.1f} kernel launches a step, {len(syncs)} host syncs a solve; "
+              f"card {card_line()}", flush=True)
+        require(len(syncs) <= 1, f"ddeint_mos: host syncs in one solve at {syncs}")
+
+
+def prefetch_check(torch, dev):
+    """(e) ``prefetch`` onto the card from one pinned host buffer that the
+    generator refills: every item equals the snapshot taken when it was
+    produced; an early close leaves no producer thread."""
+    import threading
+
+    from paddlexde_tpu_torch.utils import prefetch
+
+    buf = torch.empty((1024, 1024), pin_memory=dev.type == "cuda")
+    gen = torch.Generator().manual_seed(0)
+    snaps = []
+
+    def batches(count):
+        for _ in range(count):
+            buf.uniform_(generator=gen)
+            snaps.append(buf.clone())
+            yield {"x": buf}
+
+    got = [item["x"] for item in prefetch(batches(16), depth=2, device=dev)]
+    same = [x.device == dev and torch.equal(x.cpu(), s) for x, s in zip(got, snaps)]
+    before = threading.active_count()
+    it = prefetch(batches(10**6), depth=2, device=dev)
+    next(it)
+    it.close()
+    deadline = time.time() + 5
+    while threading.active_count() > before and time.time() < deadline:
+        time.sleep(0.05)
+    print(f"  (e) prefetch, 16 refills of one {'pinned ' if dev.type == 'cuda' else ''}4 MiB host "
+          f"buffer onto {dev}: {sum(same)} of {len(got)} items equal their snapshots; after an "
+          f"early close {threading.active_count()} threads ({before} before)", flush=True)
+    require(len(got) == 16 and all(same), "prefetch: an item differs from its snapshot")
+    require(threading.active_count() <= before, "prefetch: the producer outlived an early close")
+
+
+def dde_extras_phase(torch, dev, config="PEMS08", batch=32):
+    """Phase 8 (module docstring). Returns the launches of (a), (b) and (c)."""
+    card = card_line() if dev.type == "cuda" else str(dev)
+    print("phase 8: a reference checkpoint served, the training CLI, ddeint_adjoint through "
+          f"D3STN, ddeint_mos, prefetch; every figure below on {card}", flush=True)
+    served = serve_reference_checkpoint(torch, dev, config, batch)
+    cli = train_cli(torch, dev)
+    dde = dde_adjoint_phase(torch, dev, config, batch)
+    mos_phase(torch, dev)
+    prefetch_check(torch, dev)
+    total = {k: served[k] + cli[k] + dde[k] for k in served}
+    print(f"phase 8 launches by kernel: {nonzero(total)}", flush=True)
+    return served, cli, dde
+
+
 def main():
     if not (HERE / "paddlexde_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"paddlexde_tpu_torch/ not found beside {Path(__file__).name}")
@@ -2519,9 +3016,11 @@ def main():
           + ", ".join(f"{dtype} {ms:.3f} ms" for dtype, (_, ms) in synth_dropout.items()),
           flush=True)
     spiral_phase(torch, dev)
+    ref_served, cli_train, dde_adjoint = dde_extras_phase(torch, dev)
     pems = [serve_launches, bf16_launches, train_launches, bf16_train_launches,
-            *(d[0] for d in dropout.values())]
-    synth = [synth_serve, synth_train, *(d[0] for d in synth_dropout.values())]
+            *(d[0] for d in dropout.values()), ref_served, dde_adjoint]
+    # the CLI's synthetic configuration has SYNTH's widths (D = 64)
+    synth = [synth_serve, synth_train, *(d[0] for d in synth_dropout.values()), cli_train]
     launches = {}
     for name in kernels:
         if name.endswith("_d64"):  # the float32 attention forward at SYNTH's D = 64

@@ -7,19 +7,26 @@ is a hand-written CUDA kernel for Hopper (``ops/csrc``), built at first use,
 with a plain PyTorch version beside it for CPU tensors.
 
 Ported so far: D3STN serving (``models.d3stn.Predictor``) and training
-(``models.d3stn.Trainer``) and what they run: ``ddeint`` on the fixed-grid
+(``models.d3stn.Trainer``, which also resumes from the JAX Trainer's
+optimizer sidecar) and what they run: ``ddeint`` on the fixed-grid
 solvers, ``history_index`` and the splines, and five kernels (spline
-gather; spatial GCN and temporal attention, forward and backward); and the
-ODE entry points ``odeint`` (fixed-grid and the explicit adaptive solvers
-adaptive_heun, fehlberg2, bosh3, dopri5, dopri8, tsit5, with autograd
-through the solve), ``odeint_dense`` and ``odeint_adjoint``, which run no
-kernel of their own.
+gather; spatial GCN and temporal attention, forward and backward); the
+reference checkpoint converter (``models.d3stn.convert_reference_state_dict``),
+the training CLI (``python -m paddlexde_tpu_torch.examples.train_d3stn``)
+and ``utils.prefetch``; the ODE entry points ``odeint`` (fixed-grid and the
+explicit adaptive solvers adaptive_heun, fehlberg2, bosh3, dopri5, dopri8,
+tsit5, with autograd through the solve), ``odeint_dense`` and
+``odeint_adjoint``, which run no kernel of their own; and the DDE extras
+``ddeint_adjoint`` (adjoint gradients of ``ddeint``, the lag gradient
+included) and ``ddeint_mos`` (true DDEs by the method of steps).
 """
 
 from . import ops  # noqa: F401
 from ._device import resolve_device  # noqa: F401
 from .functional import (  # noqa: F401
     ddeint,
+    ddeint_adjoint,
+    ddeint_mos,
     format_solution,
     integrate_term,
     odeint,

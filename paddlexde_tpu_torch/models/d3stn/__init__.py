@@ -1,4 +1,5 @@
 from .config import D3STNConfig, load_config  # noqa: F401
+from .convert import REFERENCE_KEY_RULES, convert_reference_state_dict  # noqa: F401
 from .dataset import (  # noqa: F401
     ScalerMinMax,
     ScalerStd,

@@ -31,8 +31,9 @@ eval, test metrics, early stopping, ``metrics.jsonl`` and the checkpoint
 files follow the JAX Trainer. Checkpoints use its layout
 (``epoch_*.params`` pickle of the flax tree, ``.enidx.npy``, ``.deidx.npy``),
 so either package loads what the other wrote; the port's full-state sidecar
-is ``epoch_*.params.torch_opt.npz`` (the JAX sidecar pickles optax objects
-and is not read here).
+is ``epoch_*.params.torch_opt.npz``, and :meth:`Trainer.load` also resumes
+from the JAX Trainer's ``epoch_*.params.opt`` (``jax_sidecar.py``: its
+optax pickle read without optax, the Adam moments mapped by name).
 
 With ``dropout > 0`` each train step draws the model's keep masks
 (``model.DropoutMasks``) from the step seed ``numpy.random.SeedSequence(
@@ -61,12 +62,13 @@ from ...xde.history import history_index_pair
 from .config import D3STNConfig
 from .dataset import TrafficFlowDataset
 from .graph import get_adjacency_matrix_2direction, norm_adj_matrix
+from .jax_sidecar import read_jax_sidecar
 from .metrics import MAE, MAPE, RMSE, smis
 from .model import D3STN
 from .train_utils import EarlyStopping, Logger, cosine_annealing_with_warmup, kl_div
 from .weights import load_flax_params, to_flax_params
 
-__all__ = ["Trainer", "init_lag_anchors"]
+__all__ = ["Trainer", "init_lag_anchors", "scale_by_adam"]
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -83,6 +85,19 @@ def init_lag_anchors(cfg: D3STNConfig):
         enc = np.arange(cfg.his_len - 12, cfg.his_len)
     dec = np.ones(cfg.tgt_len) * (cfg.his_len - 1)
     return enc.astype(np.float32), dec.astype(np.float32)
+
+
+def scale_by_adam(u, count, mu, nu):
+    """``optax.scale_by_adam()``'s update on flat vectors (b1 0.9, b2 0.999,
+    eps 1e-8, eps_root 0): ``(direction, count + 1, mu, nu)``, the
+    direction the bias-corrected ``mu_hat / (sqrt(nu_hat) + eps)``."""
+    count = count + 1
+    mu = (1 - ADAM_B1) * u + ADAM_B1 * mu
+    nu = (1 - ADAM_B2) * (u * u) + ADAM_B2 * nu
+    steps = count.to(torch.float32)
+    mu_hat = mu / (1 - torch.pow(ADAM_B1, steps))
+    nu_hat = nu / (1 - torch.pow(ADAM_B2, steps))
+    return mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS), count, mu, nu
 
 
 def _criterion(name: str):
@@ -294,13 +309,8 @@ class Trainer:
         u = torch.cat([g.reshape(-1) for g in grads])
         if cfg.weight_decay:
             u = u + cfg.weight_decay * p
-        count = opt["count"] + 1
-        mu = (1 - ADAM_B1) * u + ADAM_B1 * opt["mu"]
-        nu = (1 - ADAM_B2) * (u * u) + ADAM_B2 * opt["nu"]
-        steps = count.to(torch.float32)
-        mu_hat = mu / (1 - torch.pow(ADAM_B1, steps))
-        nu_hat = nu / (1 - torch.pow(ADAM_B2, steps))
-        new = p + -self._lr_vector(lr_net, lr_lags) * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+        direction, count, mu, nu = scale_by_adam(u, opt["count"], opt["mu"], opt["nu"])
+        new = p + -self._lr_vector(lr_net, lr_lags) * direction
         # projected step: the learned lags stay inside the interpolation
         # domain [0, his_len-1] (the JAX Trainer's deliberate deviation from
         # the reference, which never clamps)
@@ -525,10 +535,12 @@ class Trainer:
         self.logger.info(f"save parameters to file: {pf}")
 
     def load(self, epoch=None):
-        """Load ``epoch_best`` (or ``epoch``) written by either package; the
-        port's full-state sidecar, where present, restores the optimizer.
-        The params file is a pickle: load only checkpoints this project's
-        trainers wrote."""
+        """Load ``epoch_best`` (or ``epoch``) written by either package. A
+        full-state sidecar restores the optimizer, the phase, the KL weight
+        and the epoch to resume from: the port's ``.torch_opt.npz`` first,
+        else the JAX Trainer's ``.opt`` (as the JAX ``load`` does,
+        ``paddlexde_tpu/models/d3stn/trainer.py:744-751``). The params file
+        is a pickle: load only checkpoints this project's trainers wrote."""
         pf, ef, df = self._ckpt_files(epoch)
         if not os.path.exists(pf):
             raise FileNotFoundError(pf)
@@ -552,8 +564,11 @@ class Trainer:
                 if int(extra["epoch"]) >= 0:
                     self.resume_epoch = int(extra["epoch"]) + 1
         elif os.path.exists(pf + ".opt"):
-            self.logger.warning(
-                f"{pf}.opt holds the JAX package's optimizer state, which the port "
-                "does not read: parameters and lags loaded, Adam moments kept"
-            )
+            extra = read_jax_sidecar(pf + ".opt", self.state_names, self._sizes)
+            self.opt_state = {k: torch.as_tensor(extra[k]).to(self.device)
+                              for k in ("count", "mu", "nu")}
+            self.finetune = extra["finetune"]
+            self.kl_loss_weight = extra["kl_loss_weight"]
+            if extra["epoch"] is not None:
+                self.resume_epoch = int(extra["epoch"]) + 1
         self.logger.info(f"load weight from: {pf}")

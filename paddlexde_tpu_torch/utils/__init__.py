@@ -9,3 +9,4 @@ from .ode_utils import (  # noqa: F401
     select_initial_step,
     sort_tvals,
 )
+from .data import prefetch  # noqa: F401

@@ -14,6 +14,8 @@ import torch
 from paddlexde_tpu_torch import (
     CubicHermiteSpline,
     ddeint,
+    ddeint_adjoint,
+    ddeint_mos,
     history_index,
     integrate_term,
     ode_term,
@@ -50,7 +52,7 @@ def test_import_loads_no_jax():
         "paddlexde_tpu_torch.ops.attn, paddlexde_tpu_torch.ops.timing, "
         "paddlexde_tpu_torch.models.d3stn.trainer, paddlexde_tpu_torch.models.d3stn.dataset, "
         "paddlexde_tpu_torch.models.d3stn.metrics, paddlexde_tpu_torch.models.d3stn.train_utils, "
-        "paddlexde_tpu_torch.models.d3stn.weights\n"
+        "paddlexde_tpu_torch.models.d3stn.weights, paddlexde_tpu_torch.examples.train_d3stn\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -115,6 +117,11 @@ def _field(y_lags, y):
 _NUMPY_CALLS = {
     "history_index": lambda his, lags, y0: history_index(lags, his),
     "ddeint": lambda his, lags, y0: ddeint(_field, y0, [0.0, 1.0], lags, his, None),
+    "ddeint_adjoint": lambda his, lags, y0: ddeint_adjoint(
+        _field, y0, [0.0, 1.0], lags, his, None, "rk4"),
+    "ddeint_mos": lambda his, lags, y0: ddeint_mos(
+        lambda t, y, y_lags: -y_lags.mean(dim=-2), y0[:, 0], [0.0, 0.5, 1.0], lags, his,
+        np.arange(16.0) - 15.0),
     "integrate_term": lambda his, lags, y0: integrate_term(
         ode_term(lambda t, y: -y), y0, [0.0, 0.5, 1.0], "euler"),
     "CubicHermiteSpline": lambda his, lags, y0: CubicHermiteSpline(his).evaluate(lags),
