@@ -103,11 +103,13 @@ bfloat16 ones in bfloat16):
    through the plain versions on the card and the CPU forward
    (PREDICTOR_TOL); (b) the training CLI
    (``paddlexde_tpu_torch.examples.train_d3stn``, ``--synthetic``, one
-   main and one finetune epoch): finite test metrics, K1-K5 launched,
-   each epoch's time; (c) ``ddeint_adjoint`` through D3STN's field at
-   PEMS08 width and depth, batch 32, euler on [0, 1] and rk4 at step 0.25:
-   the gradients to every parameter and both lag sets on the kernels
-   against the plain versions (TRAIN_TOL), K1's lag gradient, K3 and K5 in
+   main and one finetune epoch): finite test metrics, the launches of
+   K1-K5 equal to the epochs' steps and eval and test batches, each
+   epoch's time; (c) ``ddeint_adjoint`` through D3STN's field at PEMS08
+   width and depth, batch 32, euler on [0, 1] and rk4 at step 0.25: the
+   gradients to every parameter and both lag sets on the kernels against
+   the plain versions (TRAIN_TOL), each checked call's launches equal to
+   its field calls' (``adjoint_launches``), K1's lag gradient, K3 and K5 in
    a profiler trace, the peak memory (below direct autograd's at rk4) and
    time of forward + backward against ``ddeint``, and the adjoint-direct
    gradient gap; (d) ``ddeint_mos`` on MOS_BATCH trajectories: the closed
@@ -2510,6 +2512,25 @@ def spiral_phase(torch, dev):
 # ddeint_mos), and prefetch onto the card
 # --------------------------------------------------------------------------
 
+# ddeint_adjoint through D3STN (phase 8 c): one call of the field is a
+# Predictor batch's forward without its lookup, one VJP of it a train step's
+# backward without the lag gradient; the two lookups (y0 at the decoder
+# lags, y_lags at the encoder lags) are one K1 launch and one lag-gradient
+# launch each
+FIELD_FWD = {**LAUNCHES_PER_BATCH, "spline": 0}
+FIELD_BWD = {**{k: LAUNCHES_PER_STEP[k] - LAUNCHES_PER_BATCH[k] for k in _ZERO}, "spline_bwd": 0}
+ADJOINT_LOOKUPS = {**_ZERO, "spline": 2, "spline_bwd": 2}
+
+
+def adjoint_launches(evals, n_out=2):
+    """The launches of one ddeint_adjoint forward + backward with a fixed
+    solver of ``evals`` field calls over the span: the forward's, one call
+    per later output for the t_span cotangent, and the backward's VJPs (a
+    call and its backward each, on the forward's grid)."""
+    return {k: ADJOINT_LOOKUPS[k] + (2 * evals + n_out - 1) * FIELD_FWD[k] + evals * FIELD_BWD[k]
+            for k in _ZERO}
+
+
 # ddeint_mos on MOS_BATCH trajectories (phase 8 d)
 MOS_BATCH = 4096
 # y' = -y(t - 1), phi == c, rk4 on a lag-aligned grid against the closed
@@ -2567,11 +2588,6 @@ def reference_state(np, cfg, rng):
     return state
 
 
-def sync(torch, dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def nonzero(launches):
     return {k: v for k, v in launches.items() if v}
 
@@ -2614,7 +2630,7 @@ def serve_reference_checkpoint(torch, dev, config="PEMS08", batch=32):
     _build.reset_launches()
     t0 = time.perf_counter()
     out = pred(windows)
-    sync(torch, dev)
+    torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     plain_out, cpu_out = plain(windows), cpu(windows[:batch])
@@ -2631,35 +2647,43 @@ def serve_reference_checkpoint(torch, dev, config="PEMS08", batch=32):
     require(err_plain <= PREDICTOR_TOL and err_cpu <= PREDICTOR_TOL,
             f"the served reference checkpoint disagrees: {err_plain:.3e} from the plain versions, "
             f"{err_cpu:.3e} from the CPU forward")
-    if dev.type == "cuda":
-        want = {k: 2 * v for k, v in LAUNCHES_PER_BATCH.items()}
-        require(launches == want, f"the served checkpoint launched {launches}, expected {want}")
+    want = {k: 2 * v for k, v in LAUNCHES_PER_BATCH.items()}
+    require(launches == want, f"the served checkpoint launched {launches}, expected {want}")
     return launches
 
 
 def train_cli(torch, dev):
     """(b) ``python -m paddlexde_tpu_torch.examples.train_d3stn --synthetic
     --train_epochs 1 --finetune_epochs 1`` through its ``main``: finite test
-    metrics, K1-K5 launched, each epoch's time from the Trainer's log.
-    Returns the launches."""
+    metrics, the launches of K1-K5 equal to two epochs' steps and the eval
+    and test batches (as ``train_phase``'s), each epoch's time from the
+    Trainer's log. Returns the launches."""
     import re
     import shutil
 
     import numpy as np
 
     from paddlexde_tpu_torch.examples.train_d3stn import main as train_main
+    from paddlexde_tpu_torch.examples.train_d3stn import parse_args, setup
+    from paddlexde_tpu_torch.models.d3stn import TrafficFlowDataset
     from paddlexde_tpu_torch.ops import _build
 
     save_dir = HERE / "experiments" / "chip_smoke_cli"
     shutil.rmtree(save_dir, ignore_errors=True)
     argv = ["--synthetic", "--train_epochs", "1", "--finetune_epochs", "1",
             "--save_dir", str(save_dir)]
-    if dev.type != "cuda":  # a CPU rehearsal: the shortest data
-        argv += ["--device", str(dev), "--seq_days", "2", "--batch_size", "64"]
+    cfg, data, _, _ = setup(parse_args(argv))
+    splits = {k: TrafficFlowDataset(cfg, k, data=data) for k in ("train", "val", "test")}
+    n_steps = sum(1 for _ in splits["train"].batch_starts(cfg.batch_size, drop_last=True))
+    n_val = -(-len(splits["val"]) // cfg.batch_size)
+    n_test = -(-len(splits["test"]) // cfg.batch_size)
+    fwd_batches = 2 * n_val + n_test
+    expected = {k: 2 * n_steps * LAUNCHES_PER_STEP[k] + fwd_batches * LAUNCHES_PER_BATCH[k]
+                for k in LAUNCHES_PER_STEP}
     _build.reset_launches()
     t0 = time.perf_counter()
     results = train_main(argv)
-    sync(torch, dev)
+    torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     log = next(save_dir.glob("*/*/log.txt")).read_text()
@@ -2667,12 +2691,11 @@ def train_cli(torch, dev):
     metrics = {k: results[k] for k in ("mae", "rmse", "mape", "smis")}
     print(f"  (b) the training CLI, {' '.join(argv)}: test {metrics}; epoch times (host clock) "
           f"{epoch_s} s, {secs:.1f} s in all with the Trainer's set-up, eval and test; "
-          f"launches {launches}", flush=True)
+          f"1 + 1 epochs of {n_steps} steps, {n_val} eval and {n_test} test batches; launches "
+          f"{nonzero(launches)}", flush=True)
     require(len(epoch_s) == 2, f"the CLI's log holds {len(epoch_s)} epochs, expected 2")
     require(all(np.isfinite(v) for v in metrics.values()), f"the CLI's test metrics {metrics}")
-    if dev.type == "cuda":
-        for key in ("spline", "spline_bwd", "gcn_fwd", "gcn_bwd", "attn_fwd", "attn_bwd"):
-            require(launches[key] > 0, f"the CLI's train launched no {key}")
+    require(launches == expected, f"the CLI launched {launches}, expected {expected}")
     shutil.rmtree(save_dir, ignore_errors=True)
     return launches
 
@@ -2686,7 +2709,8 @@ def dde_adjoint_phase(torch, dev, config="PEMS08", batch=32):
     (``cfg.solver``) and rk4 at step 0.25; K1's lag gradient, K3 and K5 in a
     profiler trace; the peak memory and time of forward + backward against
     ``ddeint`` with autograd (the adjoint's peak below at rk4) and the gap
-    between the two gradients. Returns the launches of the runs."""
+    between the two gradients. Each checked call's launches must equal
+    ``adjoint_launches``; returns their sum over the two solvers."""
     import dataclasses
 
     import numpy as np
@@ -2733,21 +2757,19 @@ def dde_adjoint_phase(torch, dev, config="PEMS08", batch=32):
                                                   materialize_grads=True)
 
     def peak_mb(fn):
-        if dev.type != "cuda":
-            return float("nan")
-        sync(torch, dev)
+        torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         fn()
-        sync(torch, dev)
+        torch.cuda.synchronize(dev)
         return torch.cuda.max_memory_allocated(dev) / 2**20
 
-    _build.reset_launches()
-    peaks = {}
-    for solver in ("euler", "rk4"):
-        before = dict(_build.LAUNCHES)
+    launches, peaks = dict(_ZERO), {}
+    for solver, evals in (("euler", 1), ("rk4", 4 * 4)):  # rk4: 4 steps of 4 stages
+        _build.reset_launches()
         loss, got = grads(model, solver, True)
-        sync(torch, dev)
-        run = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+        torch.cuda.synchronize(dev)
+        run = dict(_build.LAUNCHES)
+        want_run = adjoint_launches(evals)
         loss_p, want = grads(plain, solver, True, CubicHermiteSpline)
         errs = grad_errors(names, got, want)
         worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
@@ -2757,12 +2779,8 @@ def dde_adjoint_phase(torch, dev, config="PEMS08", batch=32):
         gap = max(grad_errors(names, got, direct).values())
         peaks[solver] = (peak_mb(lambda: grads(model, solver, True)),
                          peak_mb(lambda: grads(model, solver, False)))
-        timing = ""
-        if dev.type == "cuda":
-            adj_ms = host_clock_ms(torch, lambda: grads(model, solver, True), reps=3)
-            dir_ms = host_clock_ms(torch, lambda: grads(model, solver, False), reps=3)
-            timing = (f"; forward + backward (host clock, median of 3) adjoint {adj_ms:.2f} ms, "
-                      f"direct {dir_ms:.2f} ms, ratio {adj_ms / dir_ms:.2f}")
+        adj_ms = host_clock_ms(torch, lambda: grads(model, solver, True), reps=3)
+        dir_ms = host_clock_ms(torch, lambda: grads(model, solver, False), reps=3)
         print(f"  (c) ddeint_adjoint through D3STN ({config}, batch {batch}), {solver}"
               + (" step 0.25" if solver == "rk4" else "") + f" on [0, 1]: loss {loss.item():.6f}, "
               f"kernels vs plain versions on the card: loss {loss_err:.3e}, {len(errs)} gradient "
@@ -2770,26 +2788,25 @@ def dde_adjoint_phase(torch, dev, config="PEMS08", batch=32):
               + ", ".join(f"{k} {v:.2e}" for k, v in worst) + f"); max |lag gradient| enc "
               f"{lag_g[0]:.3e}, dec {lag_g[1]:.3e}; the adjoint's gradients vs direct autograd's "
               f"(no limit) {gap:.3e}; peak memory (max_memory_allocated) adjoint "
-              f"{peaks[solver][0]:.0f} MiB, direct {peaks[solver][1]:.0f} MiB{timing}; "
-              f"launches {nonzero(run)}", flush=True)
+              f"{peaks[solver][0]:.0f} MiB, direct {peaks[solver][1]:.0f} MiB; forward + backward "
+              f"(host clock, median of 3) adjoint {adj_ms:.2f} ms, direct {dir_ms:.2f} ms, ratio "
+              f"{adj_ms / dir_ms:.2f}; launches of the checked call {nonzero(run)} ({evals} field "
+              f"calls a pass)", flush=True)
         require(loss_err <= TRAIN_TOL and worst[0][1] <= TRAIN_TOL,
                 f"ddeint_adjoint {solver}: the kernels' loss ({loss_err:.3e}) or gradient "
                 f"{worst[0][0]} ({worst[0][1]:.3e}) differs from the plain versions'")
         require(all(g > 0 and math.isfinite(g) for g in lag_g),
                 f"ddeint_adjoint {solver}: lag gradients {lag_g}")
-        if dev.type == "cuda":
-            for key in ("spline", "spline_bwd", "gcn_fwd", "gcn_bwd", "attn_fwd", "attn_bwd"):
-                require(run[key] > 0, f"ddeint_adjoint {solver} launched no {key}")
-    launches = dict(_build.LAUNCHES)
-    if dev.type == "cuda":
-        require(peaks["rk4"][0] < peaks["rk4"][1],
-                f"ddeint_adjoint rk4: peak {peaks['rk4'][0]:.0f} MiB, not below direct "
-                f"autograd's {peaks['rk4'][1]:.0f} MiB")
-        counts, device_us, _ = trace(torch, lambda: grads(model, "euler", True))
-        seen = {k: sum(counts[k]) for k in ("spline_bwd", "gcn_bwd", "attn_bwd")}
-        print(f"  profiler, ddeint_adjoint euler forward + backward: {seen} launches of K1's "
-              f"lag gradient, K3 and K5, device time {device_us / 1e3:.3f} ms", flush=True)
-        require(all(seen.values()), f"the adjoint backward's trace misses a kernel: {seen}")
+        require(run == want_run, f"ddeint_adjoint {solver} launched {run}, expected {want_run}")
+        launches = {k: launches[k] + run[k] for k in launches}
+    require(peaks["rk4"][0] < peaks["rk4"][1],
+            f"ddeint_adjoint rk4: peak {peaks['rk4'][0]:.0f} MiB, not below direct "
+            f"autograd's {peaks['rk4'][1]:.0f} MiB")
+    counts, device_us, _ = trace(torch, lambda: grads(model, "euler", True))
+    seen = {k: sum(counts[k]) for k in ("spline_bwd", "gcn_bwd", "attn_bwd")}
+    print(f"  profiler, ddeint_adjoint euler forward + backward: {seen} launches of K1's "
+          f"lag gradient, K3 and K5, device time {device_us / 1e3:.3f} ms", flush=True)
+    require(all(seen.values()), f"the adjoint backward's trace misses a kernel: {seen}")
     return launches
 
 
@@ -2867,7 +2884,6 @@ def mos_phase(torch, dev):
     from paddlexde_tpu_torch.ops.timing import device_profile
 
     cpu, f64 = torch.device("cpu"), torch.float64
-    on_card = dev.type == "cuda"
     ts = np.linspace(0.0, 3.0, 13)
     truth = torch.tensor([mos_closed(t) for t in ts], dtype=f64)
     for dtype in (torch.float32, f64):
@@ -2881,7 +2897,7 @@ def mos_phase(torch, dev):
             return ddeint_mos(lambda t, y, y_lags: -y_lags[..., 0, :], c[:, None], ts, lag, his,
                               span, solver="rk4", step_size=0.25, time_axis=0)
 
-        with device_syncs(torch) if on_card else contextlib.nullcontext([]) as syncs:
+        with device_syncs(torch) as syncs:
             sol = solve()
         want = truth[:, None] * c.double().cpu()[None]
         err = norm_err(sol[..., 0].double().cpu(), want)
@@ -2910,22 +2926,21 @@ def mos_phase(torch, dev):
                     f"Mackey-Glass {kind} {key}: {err:.3e} from the CPU float64 solve")
             require(all(e <= MOS_GRAD_TOL[key] for e in g_err),
                     f"Mackey-Glass {kind} {key}: gradient errors {g_err}")
-    if on_card:
-        n_steps = math.ceil((MG_T[1] - MG_T[0]) / MG_STEP - 1e-9)
+    n_steps = math.ceil((MG_T[1] - MG_T[0]) / MG_STEP - 1e-9)
 
-        def solve():
-            mackey_glass(torch, torch.float32, dev, "tensor")
+    def solve():
+        mackey_glass(torch, torch.float32, dev, "tensor")
 
-        with device_syncs(torch) as syncs:
-            solve()
-        host_ms = host_clock_ms(torch, solve, reps=3)
-        device_ms, per_solve, _ = device_profile(solve, reps=1, traces=1)
-        print(f"  (d) Mackey-Glass float32, tensor lag, {n_steps} rk4 steps a solve: host clock "
-              f"{host_ms:.2f} ms ({n_steps / host_ms * 1e3:.0f} steps/s), device time "
-              f"{device_ms:.3f} ms (idle share {1 - device_ms / host_ms:.1%}), "
-              f"{per_solve / n_steps:.1f} kernel launches a step, {len(syncs)} host syncs a solve; "
-              f"card {card_line()}", flush=True)
-        require(len(syncs) <= 1, f"ddeint_mos: host syncs in one solve at {syncs}")
+    with device_syncs(torch) as syncs:
+        solve()
+    host_ms = host_clock_ms(torch, solve, reps=3)
+    device_ms, per_solve, _ = device_profile(solve, reps=1, traces=1)
+    print(f"  (d) Mackey-Glass float32, tensor lag, {n_steps} rk4 steps a solve: host clock "
+          f"{host_ms:.2f} ms ({n_steps / host_ms * 1e3:.0f} steps/s), device time "
+          f"{device_ms:.3f} ms (idle share {1 - device_ms / host_ms:.1%}), "
+          f"{per_solve / n_steps:.1f} kernel launches a step, {len(syncs)} host syncs a solve; "
+          f"card {card_line()}", flush=True)
+    require(len(syncs) <= 1, f"ddeint_mos: host syncs in one solve at {syncs}")
 
 
 def prefetch_check(torch, dev):
@@ -2936,7 +2951,7 @@ def prefetch_check(torch, dev):
 
     from paddlexde_tpu_torch.utils import prefetch
 
-    buf = torch.empty((1024, 1024), pin_memory=dev.type == "cuda")
+    buf = torch.empty((1024, 1024), pin_memory=True)
     gen = torch.Generator().manual_seed(0)
     snaps = []
 
@@ -2955,7 +2970,7 @@ def prefetch_check(torch, dev):
     deadline = time.time() + 5
     while threading.active_count() > before and time.time() < deadline:
         time.sleep(0.05)
-    print(f"  (e) prefetch, 16 refills of one {'pinned ' if dev.type == 'cuda' else ''}4 MiB host "
+    print(f"  (e) prefetch, 16 refills of one pinned 4 MiB host "
           f"buffer onto {dev}: {sum(same)} of {len(got)} items equal their snapshots; after an "
           f"early close {threading.active_count()} threads ({before} before)", flush=True)
     require(len(got) == 16 and all(same), "prefetch: an item differs from its snapshot")
@@ -2964,7 +2979,7 @@ def prefetch_check(torch, dev):
 
 def dde_extras_phase(torch, dev, config="PEMS08", batch=32):
     """Phase 8 (module docstring). Returns the launches of (a), (b) and (c)."""
-    card = card_line() if dev.type == "cuda" else str(dev)
+    card = card_line()
     print("phase 8: a reference checkpoint served, the training CLI, ddeint_adjoint through "
           f"D3STN, ddeint_mos, prefetch; every figure below on {card}", flush=True)
     served = serve_reference_checkpoint(torch, dev, config, batch)

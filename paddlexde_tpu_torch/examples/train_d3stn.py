@@ -45,32 +45,38 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> dict:
-    """Train and test; returns the test metrics (``Trainer.train()``'s)."""
-    cli = parse_args(argv)
+def setup(cli):
+    """The config and the ``(data, adj, sc)`` (``None``: the config's files)
+    that ``main`` trains on, from the parsed flags."""
     if cli.distribute:
         raise NotImplementedError(
             "--distribute (multi-device data parallelism) is not ported (ROADMAP.md, queue 1 "
             "item 10); the port trains on one card"
         )
-    from paddlexde_tpu_torch.models.d3stn import Trainer, load_config, synthetic_traffic_npz
+    from paddlexde_tpu_torch.models.d3stn import load_config, synthetic_traffic_npz
 
     overrides = {k: v for k, v in vars(cli).items()
                  if k in ("train_epochs", "finetune_epochs", "batch_size", "save_dir")
                  and v is not None}
-    data = adj = sc = None
-    if cli.synthetic:
-        for key, value in SYNTHETIC.items():
-            overrides.setdefault(key, value)
-        cfg = load_config(cli.config_json or None, **overrides)
-        rng = np.random.RandomState(cfg.seed)
-        data = synthetic_traffic_npz(cfg.num_nodes, seq_len=288 * cli.seq_days, seed=cfg.seed)
-        adj = (rng.rand(cfg.num_nodes, cfg.num_nodes) < 0.3).astype(np.float32)
-        adj = np.maximum(adj, adj.T)
-        sc = rng.rand(cfg.num_nodes, cfg.num_nodes).astype(np.float32)
-    else:
-        cfg = load_config(cli.config_json or None, **overrides)
+    if not cli.synthetic:
+        return load_config(cli.config_json or None, **overrides), None, None, None
+    for key, value in SYNTHETIC.items():
+        overrides.setdefault(key, value)
+    cfg = load_config(cli.config_json or None, **overrides)
+    rng = np.random.RandomState(cfg.seed)
+    data = synthetic_traffic_npz(cfg.num_nodes, seq_len=288 * cli.seq_days, seed=cfg.seed)
+    adj = (rng.rand(cfg.num_nodes, cfg.num_nodes) < 0.3).astype(np.float32)
+    adj = np.maximum(adj, adj.T)
+    sc = rng.rand(cfg.num_nodes, cfg.num_nodes).astype(np.float32)
+    return cfg, data, adj, sc
 
+
+def main(argv=None) -> dict:
+    """Train and test; returns the test metrics (``Trainer.train()``'s)."""
+    from paddlexde_tpu_torch.models.d3stn import Trainer
+
+    cli = parse_args(argv)
+    cfg, data, adj, sc = setup(cli)
     trainer = Trainer(cfg, data=data, adj_matrix=adj, sc_matrix=sc, device=cli.device)
     results = trainer.train()
     print("final test:", {k: v for k, v in results.items() if k != "per_horizon"})

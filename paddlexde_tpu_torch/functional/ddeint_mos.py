@@ -16,8 +16,11 @@ The port's form of the JAX scan:
 
 - the knots live in two lists, stacked once per step for the lookups, not
   written in place into a buffer that autograd has already read, so the
-  gradients reach the field's parameters, the lags and the history (a
-  solve of n steps moves O(n^2) knot values);
+  gradients reach the field's parameters, the lags and the history; with
+  constant or tensor lags a step stacks only the newest
+  ``ceil(max(lags) / h) + 2`` knots that its lookups can reach (a solve of
+  n steps moves O(n max(lags) / h) knot values), with a callable lag all
+  of them (O(n^2));
 - the grid and the output times are float64 on the host (``:207, :234``);
   the lookups' segment index and offset are computed on the device, so the
   loop makes no device-to-host read; the solve makes at most one, of the
@@ -150,52 +153,62 @@ def ddeint_mos(
 
     hist = CubicHermiteSpline(his, span_in)
 
-    def lagged(knots_y, knots_f, k, t_q):
+    # the knots a step's lookups can reach: the query t - tau of step k lies
+    # at or above knot k - ceil(max_lag / h) (one more for the rounding of
+    # its segment index); a callable lag may reach any
+    window = None if lags_callable else int(np.ceil(float(np.max(lag_host[0])) / h)) + 2
+
+    def lagged(knots_y, knots_f, base, k, t_q):
         """y at the query times ``t_q [L]``: the history spline at or below
-        t0, above it the Hermite segment of the knots 0..k (``:148``)."""
+        t0, above it the Hermite segment of the knots 0..k (``:148``), of
+        which ``knots_y``/``knots_f`` hold ``base``..k."""
         from_hist = hist.evaluate(torch.clamp(t_q, max=t0))  # [..., L, D]
         pos = (t_q - t0) / h
-        i = torch.floor(pos).long().clamp(0, max(k - 1, 0))
+        # a query below the window is at or below t0: torch.where drops it
+        i = torch.floor(pos).long().clamp(base, max(k - 1, 0))
         s = torch.clamp(pos - i.to(pos.dtype), 0.0, 1.0)
         if k == 0:
             s = torch.zeros_like(s)
-        i1 = (i + 1).clamp(max=k)
+        if base:
+            i = i - base  # into the window
+        i1 = (i + 1).clamp(max=k - base)
         s = s.to(y0.dtype).reshape((-1,) + (1,) * (knots_y.dim() - 1))
         from_buf = _hermite(knots_y.index_select(0, i), knots_y.index_select(0, i1),
                             knots_f.index_select(0, i), knots_f.index_select(0, i1), h, s)
         from_buf = torch.movedim(from_buf, 0, -2)  # [..., L, D]
         return torch.where((t_q <= t0)[:, None], from_hist, from_buf)
 
-    def f_eval(knots_y, knots_f, k, t, y):
+    def f_eval(knots, k, t, y):
         t_t = torch.tensor(t, dtype=torch.float64)
         taus = torch.atleast_1d(torch.as_tensor(lags(t_t, y))) if lags_callable else lags_arr
-        return func(t_t, y, lagged(knots_y, knots_f, k, t_t - taus))
+        return func(t_t, y, lagged(*knots, k, t_t - taus))
 
     if solver not in ("euler", "midpoint", "rk4"):
         raise ValueError(f"ddeint_mos supports euler/midpoint/rk4, got {solver!r}")
 
-    def step(knots_y, knots_f, k, t, y, f_t):
+    def step(knots, k, t, y, f_t):
         if solver == "euler":
             return y + h * f_t
         if solver == "midpoint":
-            k2 = f_eval(knots_y, knots_f, k, t + 0.5 * h, y + 0.5 * h * f_t)
+            k2 = f_eval(knots, k, t + 0.5 * h, y + 0.5 * h * f_t)
             return y + h * k2
         k1 = f_t
-        k2 = f_eval(knots_y, knots_f, k, t + 0.5 * h, y + 0.5 * h * k1)
-        k3 = f_eval(knots_y, knots_f, k, t + 0.5 * h, y + 0.5 * h * k2)
-        k4 = f_eval(knots_y, knots_f, k, t + h, y + h * k3)
+        k2 = f_eval(knots, k, t + 0.5 * h, y + 0.5 * h * k1)
+        k3 = f_eval(knots, k, t + 0.5 * h, y + 0.5 * h * k2)
+        k4 = f_eval(knots, k, t + h, y + h * k3)
         return y + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
 
     # f_0 sees an all-zero derivative buffer, as the JAX scan's first call
     ys = [y0]
-    fs = [f_eval(y0[None], torch.zeros_like(y0)[None], 0, t0, y0)]
+    fs = [f_eval((y0[None], torch.zeros_like(y0)[None], 0), 0, t0, y0)]
     for k in range(n_steps):
         t = t0 + k * h
-        knots_y, knots_f = torch.stack(ys), torch.stack(fs)
-        y1 = step(knots_y, knots_f, k, t, ys[-1], fs[-1])
+        base = 0 if window is None else max(0, k + 1 - window)
+        knots = (torch.stack(ys[base:]), torch.stack(fs[base:]), base)
+        y1 = step(knots, k, t, ys[-1], fs[-1])
         # f_{k+1} still sees knots 0..k (``:193-202``): a violated lag reads
         # the newest knot whose derivative is written
-        fs.append(f_eval(knots_y, knots_f, k, t + h, y1))
+        fs.append(f_eval(knots, k, t + h, y1))
         ys.append(y1)
 
     # sample the knots at the output times (``:227-234``)

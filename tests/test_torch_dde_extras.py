@@ -140,6 +140,19 @@ def test_ddeint_mos_matches_jax():
                      np.linspace(0.0, 2.0, 5), [1.0], torch.ones(9, 1, dtype=torch.float64),
                      his_span, solver="rk4", step_size=0.05, time_axis=0)
     assert abs(sol[-1, 0].item() + 0.5) < 1e-10
+    # a tensor lag's steps stack only the newest knots (24 steps, a window of
+    # 8): the same values and gradients as the full stack of a callable lag
+    outs = []
+    for kind in ("tensor", "callable"):
+        w = torch.tensor(1.3, dtype=torch.float64, requires_grad=True)
+        tau = torch.tensor(taus, dtype=torch.float64, requires_grad=True)
+        lags = tau if kind == "tensor" else (lambda t, y: tau)
+        sol = ddeint_mos(lambda t, y, yl: w * _field(torch)(t, y, yl), torch.tensor(y0),
+                         np.linspace(0.0, 6.0, 7), lags, torch.tensor(his), his_span,
+                         solver="rk4", step_size=0.25, time_axis=0)
+        outs.append([sol.detach(), *torch.autograd.grad((sol**2).sum(), [w, tau])])
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=1e-14)
 
 
 def test_ddeint_mos_validation_errors():

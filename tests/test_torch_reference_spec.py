@@ -1,9 +1,15 @@
-"""The port's D3STN against the reference model itself: the independent
-numpy spec of the reference forward in ``tests/models/test_d3stn_golden.py``
-(``reference_forward``, ``make_reference_state``), its reference-format
-state dict pushed through the port's ``convert_reference_state_dict`` and
-``load_flax_params``, within the JAX test's rtol 2e-4 / atol 2e-5. Numpy on
-the reference side, the port's plain versions on the CPU."""
+"""The port's reference-checkpoint path against the reference model's numpy
+spec in ``tests/models/test_d3stn_golden.py`` (``reference_forward``,
+``make_reference_state``):
+
+- the port's ``convert_reference_state_dict`` against the JAX package's on
+  the same random reference-format state dict: the same flax paths, the
+  same arrays, the same unmatched keys (numpy on both sides);
+- the port's D3STN against the reference model itself: the spec's state
+  dict pushed through the port's ``convert_reference_state_dict`` and
+  ``load_flax_params``, within the JAX test's rtol 2e-4 / atol 2e-5 (numpy
+  on the reference side, the port's plain versions on the CPU).
+"""
 
 import importlib.util
 import pathlib
@@ -12,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from paddlexde_tpu.models.d3stn import convert_reference_state_dict as jax_convert
 from paddlexde_tpu_torch.models.d3stn import (
     D3STN,
+    REFERENCE_KEY_RULES,
     convert_reference_state_dict,
     load_config,
     load_flax_params,
@@ -39,6 +47,37 @@ def _golden():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _leaves(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield "/".join(prefix + (key,)), value
+
+
+def test_convert_matches_jax_array_for_array():
+    golden = _golden()
+    for layers, adaptive in ((1, 4), (2, 0)):
+        jax_cfg = golden.golden_cfg(encoder_num_layers=layers, decoder_num_layers=layers,
+                                    d_adaptive=adaptive, d_proj=6 + 4 - adaptive)
+        cfg = load_config(**{f: getattr(jax_cfg, f) for f in vars(jax_cfg)})
+        state = golden.make_reference_state(jax_cfg, np.random.RandomState(layers))
+        state["encoder.layers.0.unknown.weight"] = np.ones(3, np.float32)
+        got, got_unmatched = convert_reference_state_dict(state, cfg)
+        want, want_unmatched = jax_convert(state, jax_cfg)
+        assert got_unmatched == want_unmatched == ["encoder.layers.0.unknown.weight"]
+        got, want = dict(_leaves(got)), dict(_leaves(want))
+        assert sorted(got) == sorted(want)
+        for path, value in want.items():
+            assert got[path].dtype == value.dtype and got[path].shape == value.shape, path
+            np.testing.assert_array_equal(got[path], value, err_msg=path)
+        # every rule outside the stacks is used, and the convs are transposed
+        assert {ref for ref, _, _ in REFERENCE_KEY_RULES} <= set(state)
+        w = state["decoder.layers.0.src_attn.key_conv.weight"]
+        np.testing.assert_array_equal(got["dec_0/src_attn/key_conv/Conv_0/kernel"],
+                                      np.transpose(w, (2, 3, 1, 0)))
 
 
 @pytest.mark.parametrize("attention", ["Corr", "Vanilla"])
