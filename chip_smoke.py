@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: D3STN serving and training, the
-adaptive ODE solvers on bench.py's spiral neural ODE, and the rest of D3STN
+adaptive ODE solvers on bench.py's spiral neural ODE, the rest of D3STN
 and the DDE extras (a reference checkpoint, the training CLI,
-``ddeint_adjoint``, ``ddeint_mos``, ``prefetch``).
+``ddeint_adjoint``, ``ddeint_mos``, ``prefetch``), and the rest of the ODE
+solver zoo (stiff, event, symplectic, Adams, per-element and CNF
+workloads).
 
 Run from the repository root with no arguments::
 
@@ -17,7 +19,7 @@ spline or GCN kernel spills, if a float32 K2 or K3 tensor-core kernel has
 no HGMMA, if a bfloat16 kernel spills or has no HGMMA, checked by
 name for K5 bf16's conv kernel and each of K4 bf16's twelve
 instantiations, or if a D = 64 instantiation of the float32 attention
-forward, with or without dropout, spills or has no HGMMA), and runs eight
+forward, with or without dropout, spills or has no HGMMA), and runs nine
 phases (PyTorch's
 TF32 off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
 float32 GCN and attention kernels run their products in 3xTF32, the
@@ -118,7 +120,30 @@ bfloat16 ones in bfloat16):
    solve, at most one host sync a solve (CUDA's sync debug mode), launches
    a step and steps/s; (e) ``prefetch`` from a pinned host buffer that is
    refilled: every item equals its snapshot, an early close stops the
-   producer. It prints phase 8's launches by kernel.
+   producer. It prints phase 8's launches by kernel;
+9. the rest of the ODE solver zoo (``ode_zoo_phase``; no kernel of its own,
+   and it must launch none of the port's), the JAX package's own workloads
+   at full size, in float32 unless marked, each against the port's float64
+   solve on the CPU: (a) Robertson's kinetics on the demo's grid with
+   sdirk2, kvaerno3, sdirk4 and trbdf2 and SciPy's LSODA from a float64
+   card state (mass drift below 1e-5, species against an LSODA solve at
+   rtol 1e-10, one host read per attempted step), and the kvaerno3
+   ``odeint_adjoint`` gradient to the rate constants against direct
+   autograd (float64); (b) Fisher-KPP fronts, D = 256 by unpreconditioned
+   implicit-Euler Newton-Krylov against the CPU, D = 8191 by implicit Euler
+   and SDIRK2 Newton-Krylov with the Dirichlet heat preconditioner (front
+   coverage advancing, the preconditioned Newton residual); (c) the
+   bouncing ball's event time and ``odeint_event_grad``'s dt*/dh0 against
+   the closed forms; (d) yoshida4, leapfrog and rk4 on the pendulum over
+   1e4 steps (yoshida4's energy error bounded, rk4's growing past it) and
+   the Adams solvers on bench.py's spiral; (e) ``odeint_per_element`` on
+   4096 elements with a stiffness spread of 1..160 (nfe spread, one host
+   read per controller step and no other sync), the exact-divergence CNF
+   over 2048 samples with rk4, and ``torch.func.jvp`` through dopri5
+   against a central difference. Each run prints its host-clock time
+   (under the profiler), steps/s, host syncs with their lines, device time,
+   launches per step and the idle share (the pendulum's from its first 200
+   steps, the Krylov fronts' from their first step, scaled).
 
 Launch counts are checked by the wrappers' counters and by ``torch.profiler``
 traces. It prints:
@@ -2992,6 +3017,513 @@ def dde_extras_phase(torch, dev, config="PEMS08", batch=32):
     return served, cli, dde
 
 
+# --------------------------------------------------------------------------
+# phase 9: the rest of the ODE solver zoo (no kernel of its own): the JAX
+# package's stiff, event, Hamiltonian, multistep, per-element and CNF
+# workloads at full size in float32 on the card, each against the port's
+# float64 solve on the CPU (the CPU tests tie that solve to the JAX package)
+# --------------------------------------------------------------------------
+
+# the limits, each from the port's float32 solve on the CPU against the same
+# float64 reference (its measure in the comment): Robertson, max over the
+# three species of max |diff| / max |reference|, against an LSODA solve at
+# rtol 1e-10 (sdirk2 on the demo's 40-point grid 4.2e-3; kvaerno3 7.4e-5,
+# sdirk4 1.6e-4, trbdf2 5.5e-4; LSODA from a float64 card state 7.1e-6)
+ROBERTSON = {"sdirk2": ({}, 1e-2), "kvaerno3": ({"rtol": 1e-4, "atol": 1e-8}, 1e-3),
+             "sdirk4": ({"rtol": 3e-5, "atol": 1e-8}, 1e-3),
+             "trbdf2": ({"rtol": 1e-4, "atol": 1e-8}, 5e-3),
+             "scipy_solver": ({"rtol": 1e-6, "atol": 1e-10}, 1e-4)}
+# the demo's own limit on the drift of y1 + y2 + y3 (sdirk4 in float32 at
+# rtol 3e-5 on the CPU: 5.3e-6; at rtol 1e-5 it rounds past 1e-5, 1.3e-5)
+MASS_TOL = 1e-5
+# odeint_adjoint with kvaerno3 against direct autograd, both on the card in
+# float64 (the gradient of Robertson's species to its log rate constants
+# over [0, 1e-3] at rtol 1e-5): the two are O(rtol) approximations of the
+# same derivative (1.3e-5 apart on the CPU)
+ROBERTSON_ADJ_TOL = 1e-3
+# the bouncing ball's event time and dt*/dh0 against their closed forms
+# (the JAX demo's limit)
+EVENT_TOL = 1e-4
+# the rest against the CPU's float64 solve of the same problem (their CPU
+# float32 measures: Fisher-KPP D = 256 2.4e-7; the Adams solves on the
+# spiral 6.3e-6 and 7.1e-6; the CNF 2.2e-7; the per-element solve 2.9e-5 of
+# the closed form; the dopri5 tangent 2.3e-7 from a central difference in
+# float64), and the preconditioned Newton residual of the D = 8191 front
+ZOO_TOL = {"kpp256": 1e-5, "kpp_newton": 1e-4, "adams": 1e-4, "cnf": 1e-4, "per_element": 1e-4,
+           "jvp": 1e-4}
+KPP = {"nu": 1e-3, "t1": 4.0, "outputs": 9}
+PENDULUM = {"q0": 1.5, "h": 0.25, "steps": 10_000}
+PER_ELEMENT = {"batch": 4096, "rtol": 1e-5, "atol": 1e-8}
+CNF = {"samples": 2048, "width": 64, "grid": 16}
+
+
+def robertson_field(torch, k=None):
+    def f(t, y):
+        k1, k2, k3 = (0.04, 1.0e4, 3.0e7) if k is None else (k[0], k[1], k[2])
+        r1, r2, r3 = k1 * y[0], k2 * y[1] * y[2], k3 * y[1] * y[1]
+        return torch.stack([-r1 + r2, r1 - r2 - r3, r3])
+
+    return f
+
+
+def kpp_field(torch, d, nu):
+    dx = 1.0 / (d + 1)
+
+    def f(t, u):
+        up = torch.nn.functional.pad(u, (1, 1))
+        return nu * (up[2:] - 2.0 * up[1:-1] + up[:-2]) / dx**2 + u * (1.0 - u)
+
+    return f
+
+
+def kpp_problem(torch, d, dtype, device):
+    dx = 1.0 / (d + 1)
+    x = torch.arange(1, d + 1, dtype=dtype, device=device) * dx
+    t = torch.linspace(0.0, KPP["t1"], KPP["outputs"], dtype=dtype, device=device)
+    return torch.exp(-200.0 * (x - 0.2) ** 2), t, dx
+
+
+def species_err(got, want):
+    return max(norm_err(got[..., i].double().cpu(), want[..., i].double()) for i in range(3))
+
+
+def zoo_run(torch, dev, fn, steps=None, profile=True):
+    """Run ``fn`` once and measure that run: ``(out, figures)`` with the
+    host clock, the host-device synchronisations (CUDA's sync debug mode,
+    with the lines that made them), the engine's host reads and, with
+    ``profile``, the device time and CUDA launches from a ``torch.profiler``
+    trace of the same run (so the host clock includes the profiler's own
+    cost, a few µs a launch), the idle share and, given ``steps``, launches
+    and steps per second."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from paddlexde_tpu_torch.solver import adaptive
+
+    cuda = dev.type == "cuda"
+    trace = profiler(activities=[ProfilerActivity.CUDA]) if cuda and profile else None
+    adaptive.reset_host_reads()
+    if cuda:
+        torch.cuda.synchronize()
+    with (device_syncs(torch) if cuda else contextlib.nullcontext([])) as where, (
+            trace if trace is not None else contextlib.nullcontext()):
+        start = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    fig = {"wall_ms": wall, "syncs": len(where), "sync_lines": Counter(where).most_common(3),
+           "reads": dict(adaptive.HOST_READS)}
+    if trace is not None:
+        events = [e for e in trace.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.device_time for e in events) / 1e3
+        fig.update(device_ms=device_ms, launches=len(events), idle=1.0 - device_ms / wall)
+        if steps:
+            fig["launches_per_step"] = len(events) / steps
+    if steps:
+        fig.update(steps=steps, steps_per_s=steps / (wall / 1e3))
+    return out, fig
+
+
+def zoo_sliced(torch, dev, fig, fn, steps, total):
+    """Launches a step, device time and idle share of a long run from a
+    profiled run of its first ``steps`` steps (``fn`` runs them), scaled to
+    its ``total`` steps: a trace of ~10^5-10^6 launches costs more than the
+    run it measures."""
+    _, short = zoo_run(torch, dev, fn, steps=steps)
+    if "idle" in short:
+        fig.update(launches_per_step=short["launches_per_step"], idle=short["idle"],
+                   device_ms=short["device_ms"] * total / steps,
+                   launches=short["launches"] * total / steps)
+    return fig
+
+
+def zoo_line(label, fig, extra=""):
+    parts = [f"{fig['wall_ms']:.1f} ms host clock"]
+    if "steps" in fig:
+        parts.append(f"{fig['steps']} steps, {fig['steps_per_s']:.0f} steps/s")
+    if "device_ms" in fig:
+        parts.append(f"device {fig['device_ms']:.2f} ms in {fig['launches']:.0f} launches"
+                     + (f" ({fig['launches_per_step']:.0f} a step)" if "launches_per_step" in fig
+                        else "") + f", idle share {fig['idle']:.1%}")
+    reads = fig["reads"]
+    attempted = fig.get("attempted")
+    parts.append(f"{fig['syncs']} host syncs {fig['sync_lines']}" + (
+        f", {reads['step']} engine reads for {attempted} attempted steps "
+        f"({reads['step'] / max(attempted, 1):.2f} a step) + {reads['setup']} setup"
+        if attempted is not None else ""))
+    print(f"  {label}: {extra}; " + "; ".join(parts), flush=True)
+
+
+def robertson_runs(torch, dev):
+    """(a) Robertson on the demo's grid: sdirk2, kvaerno3, sdirk4, trbdf2,
+    LSODA from a card state; the kvaerno3 adjoint gradient."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import odeint, odeint_adjoint
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    ts_np = np.concatenate([np.zeros(1), np.logspace(-5, 2, 40)])
+    ref = odeint(robertson_field(torch), torch.tensor([1.0, 0.0, 0.0], dtype=f64),
+                 torch.tensor(ts_np), "scipy_solver", rtol=1e-10, atol=1e-14, time_axis=0)
+    out = {}
+    for name, (kw, tol) in ROBERTSON.items():
+        dtype = f64 if name == "scipy_solver" else torch.float32
+        y0 = torch.zeros(3, dtype=dtype, device=dev)
+        y0[0] = 1.0
+        t = torch.cat([torch.zeros(1, dtype=dtype, device=dev),
+                       torch.logspace(-5, 2, 40, dtype=dtype, device=dev)])
+        adaptive = name in ("kvaerno3", "sdirk4", "trbdf2")
+        opts = {"return_stats": True} if adaptive else None
+
+        def solve(name=name, kw=kw, y0=y0, t=t, opts=opts):
+            return odeint(robertson_field(torch), y0, t, name, time_axis=0, options=opts, **kw)
+
+        res, fig = zoo_run(torch, dev, solve, profile=name != "scipy_solver")
+        sol, stats = res if adaptive else (res, None)
+        require(sol.shape == (41, 3) and bool(torch.isfinite(sol).all()),
+                f"Robertson {name}: shape {tuple(sol.shape)} or non-finite values")
+        drift = (sol.double().sum(-1) - 1.0).abs().max().item()
+        err = species_err(sol, ref)
+        require(drift < MASS_TOL, f"Robertson {name}: mass drift {drift:.3e}, limit {MASS_TOL}")
+        require(err <= tol, f"Robertson {name}: {err:.3e} from the CPU's LSODA at rtol 1e-10, "
+                f"limit {tol}")
+        if adaptive:
+            require(stats.status == 0, f"Robertson {name}: status {stats.status}")
+            fig["attempted"] = stats.n_accept + stats.n_reject
+            require(fig["reads"]["step"] == fig["attempted"],
+                    f"Robertson {name}: {fig['reads']} host reads for {fig['attempted']} steps")
+            fig.update(steps=fig["attempted"],
+                       steps_per_s=fig["attempted"] / (fig["wall_ms"] / 1e3))
+            if "launches" in fig:
+                fig["launches_per_step"] = fig["launches"] / fig["attempted"]
+        elif name == "sdirk2":
+            fig.update(steps=40, steps_per_s=40 / (fig["wall_ms"] / 1e3))
+            if "launches" in fig:
+                fig["launches_per_step"] = fig["launches"] / 40
+        zoo_line(f"Robertson {name}", fig,
+                 f"{'float64 card state, ' if name == 'scipy_solver' else ''}mass drift "
+                 f"{drift:.2e} (limit {MASS_TOL}), {err:.2e} from LSODA at rtol 1e-10 (limit "
+                 f"{tol})" + (f", stats {tuple(stats)}" if stats else ""))
+        out[name] = fig
+
+    # the kvaerno3 adjoint against direct autograd (float64 on the card)
+    grads = []
+    for adjoint in (False, True):
+        k = torch.tensor([0.04, 1.0e4, 3.0e7], dtype=f64, device=dev, requires_grad=True)
+        y0 = torch.zeros(3, dtype=f64, device=dev)
+        y0[0] = 1.0
+        t = torch.linspace(0.0, 1e-3, 2, dtype=f64, device=dev)
+        kw = {"adjoint_params": (k,)} if adjoint else {}
+        solve = odeint_adjoint if adjoint else odeint
+        start = time.perf_counter()
+        ys = solve(robertson_field(torch, k), y0, t, "kvaerno3", rtol=1e-5, atol=1e-9,
+                   time_axis=0, **kw)
+        (g,) = torch.autograd.grad(ys[-1][1] * 1e4 + ys[-1][2], k)
+        grads.append((g * k.detach()).cpu())
+        out["adjoint_ms" if adjoint else "direct_ms"] = (time.perf_counter() - start) * 1e3
+    err = norm_err(grads[1], grads[0])
+    require(bool(torch.isfinite(grads[1]).all()) and err <= ROBERTSON_ADJ_TOL,
+            f"Robertson kvaerno3 adjoint gradient {grads[1].tolist()} is {err:.3e} from direct "
+            f"autograd {grads[0].tolist()}, limit {ROBERTSON_ADJ_TOL}")
+    print(f"  Robertson kvaerno3 gradient to log k over [0, 1e-3] (float64): odeint_adjoint "
+          f"{err:.2e} from direct autograd (limit {ROBERTSON_ADJ_TOL}); forward + backward "
+          f"{out['adjoint_ms']:.0f} ms adjoint, {out['direct_ms']:.0f} ms direct", flush=True)
+    return out
+
+
+def kpp_runs(torch, dev):
+    """(b) Fisher-KPP fronts: D = 256 unpreconditioned implicit Euler
+    Newton-Krylov against the CPU; D = 8191 preconditioned, implicit Euler
+    and SDIRK2."""
+    from paddlexde_tpu_torch import odeint
+    from paddlexde_tpu_torch.solver.implicit import (
+        make_implicit_euler_krylov_step,
+        make_sdirk2_step,
+    )
+    from paddlexde_tpu_torch.utils.preconditioners import dirichlet_heat_preconditioner
+
+    nu = KPP["nu"]
+    u0_64, t64, _ = kpp_problem(torch, 256, torch.float64, torch.device("cpu"))
+    ref = odeint(kpp_field(torch, 256, nu), u0_64, t64, "implicit_euler_krylov", time_axis=0)
+    u0, t, _ = kpp_problem(torch, 256, torch.float32, dev)
+    sol, fig = zoo_run(torch, dev, lambda: odeint(kpp_field(torch, 256, nu), u0, t,
+                                                  "implicit_euler_krylov", time_axis=0),
+                       steps=KPP["outputs"] - 1, profile=False)
+    zoo_sliced(torch, dev, fig, lambda: odeint(kpp_field(torch, 256, nu), u0, t[:2],
+                                               "implicit_euler_krylov", time_axis=0),
+               1, KPP["outputs"] - 1)
+    cover = (sol > 0.5).float().mean(-1)
+    err = norm_err(sol.double().cpu(), ref)
+    require(bool(torch.isfinite(sol).all()) and cover[-1] > cover[0] and err <= ZOO_TOL["kpp256"],
+            f"Fisher-KPP D=256: coverage {cover.tolist()}, {err:.3e} from the CPU's float64 solve "
+            f"(limit {ZOO_TOL['kpp256']})")
+    zoo_line("Fisher-KPP D=256 implicit_euler_krylov (device time, launches and idle share of "
+             "the first step, scaled)", fig,
+             f"front coverage {[round(c, 3) for c in cover.tolist()]}, {err:.2e} from the CPU's "
+             f"float64 solve (limit {ZOO_TOL['kpp256']})")
+    out = {"kpp256": fig}
+
+    d = 8191
+    u0, t, dx = kpp_problem(torch, d, torch.float32, dev)
+    dt = KPP["t1"] / (KPP["outputs"] - 1)
+    f = kpp_field(torch, d, nu)
+    g = 1.0 - 0.5 * 2.0**0.5  # SDIRK2's gamma: its stage operator is I - g dt J
+    # implicit Euler on the demo's 8 steps of 0.5; SDIRK2 on 4 steps of 1.0
+    # (its two stages double the implicit solves, and the host clock sets
+    # the phase's time); each preconditioner inverts its stage operator,
+    # I - dt J and I - g dt J
+    steps = {
+        "implicit_euler_krylov": (make_implicit_euler_krylov_step(
+            preconditioner=dirichlet_heat_preconditioner(d, dx, dt, nu=nu)), t),
+        "sdirk2_krylov": (make_sdirk2_step(krylov=True, preconditioner=(
+            dirichlet_heat_preconditioner(d, dx, g * 2 * dt, nu=nu))), t[::2]),
+    }
+    # the Newton residual of the last implicit Euler step, u1 - u0 - dt f(u1),
+    # in float64 on the CPU and mapped back to the state's units by the
+    # preconditioner (the correction a further Newton iteration would make;
+    # unmapped, the float32 rounding of u times dt nu 4/dx^2 ~ 1e5 hides it)
+    f64 = kpp_field(torch, d, nu)
+    m64 = dirichlet_heat_preconditioner(d, dx, dt, nu=nu, dtype=torch.float64)
+    for name, (step, tt) in steps.items():
+        sol, fig = zoo_run(torch, dev, lambda step=step, tt=tt: odeint(f, u0, tt, step,
+                                                                       time_axis=0),
+                           steps=tt.shape[0] - 1, profile=False)
+        zoo_sliced(torch, dev, fig, lambda step=step, tt=tt: odeint(f, u0, tt[:2], step,
+                                                                    time_axis=0),
+                   1, tt.shape[0] - 1)
+        cover = (sol > 0.5).float().mean(-1)
+        require(bool(torch.isfinite(sol).all()) and cover[-1] > cover[0],
+                f"Fisher-KPP D={d} {name} (preconditioned): finite "
+                f"{bool(torch.isfinite(sol).all())}, coverage {cover.tolist()}")
+        extra = ""
+        if name == "implicit_euler_krylov":
+            u1, u0_ = sol[-1].double().cpu(), sol[-2].double().cpu()
+            resid = m64(u1 - u0_ - dt * f64(t[-1].double().cpu(), u1)).abs().max().item() / \
+                u1.abs().max().item()
+            require(resid <= ZOO_TOL["kpp_newton"], f"Fisher-KPP D={d}: the last step's "
+                    f"preconditioned Newton residual {resid:.3e}, limit {ZOO_TOL['kpp_newton']}")
+            extra = (f", the last step's Newton residual (preconditioned, float64) {resid:.2e} of "
+                     f"max |u| (limit {ZOO_TOL['kpp_newton']})")
+            fig["residual"] = resid
+        zoo_line(f"Fisher-KPP D={d} {name}, Dirichlet heat preconditioner (device time, "
+                 f"launches and idle share of the first step, scaled)", fig,
+                 f"front coverage {[round(c, 3) for c in cover.tolist()]}{extra}")
+        out[name] = dict(fig, coverage=cover.tolist())
+    return out
+
+
+def event_runs(torch, dev):
+    """(c) The bouncing ball: t* and dt*/dh0 against the closed forms."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import odeint_event, odeint_event_grad
+
+    g, h0 = 9.81, 10.0
+
+    def f(t, y):
+        return torch.stack([y[1], -g * torch.ones_like(y[0])])
+
+    def ground(t, y):
+        return y[0]
+
+    y0 = torch.zeros(2, device=dev)
+    y0[0] = h0
+    res, fig = zoo_run(torch, dev, lambda: odeint_event(f, y0, 0.0, ground, "dopri5", t_max=10.0))
+    t_star = res.t_event.item()
+    closed = float(np.sqrt(2 * h0 / g))
+    h = torch.full((), h0, device=dev, requires_grad=True)
+    r = odeint_event_grad(f, torch.stack([h, torch.zeros((), device=dev)]), 0.0, ground, "dopri5",
+                          t_max=10.0)
+    (dt_dh,) = torch.autograd.grad(r.t_event, h)
+    closed_grad = 1.0 / np.sqrt(2.0 * g * h0)
+    require(res.event_fired and abs(t_star - closed) <= EVENT_TOL
+            and abs(dt_dh.item() - closed_grad) <= EVENT_TOL,
+            f"bouncing ball: t* {t_star} (closed form {closed}), dt*/dh0 {dt_dh.item()} (closed "
+            f"form {closed_grad}), limit {EVENT_TOL}")
+    fig["attempted"] = fig["reads"]["step"]
+    zoo_line("bouncing ball, odeint_event dopri5 (float32)", fig,
+             f"t* {t_star:.7f} vs {closed:.7f}, dt*/dh0 {dt_dh.item():.7f} vs {closed_grad:.7f} "
+             f"(limit {EVENT_TOL}); the sign test rides in the step's read")
+    return {"event": fig}
+
+
+def pendulum_and_adams_runs(torch, dev):
+    """(d) yoshida4, leapfrog and rk4 on the pendulum over 1e4 steps; the
+    Adams solvers on bench.py's spiral."""
+    from paddlexde_tpu_torch import odeint
+
+    def field(t, y):
+        return y[1], -torch.sin(y[0])
+
+    steps, h = PENDULUM["steps"], PENDULUM["h"]
+    t = torch.linspace(0.0, steps * h, steps + 1, device=dev)
+    q0 = torch.full((1,), PENDULUM["q0"], device=dev)
+    drift, out = {}, {}
+    for name in ("yoshida4", "leapfrog", "rk4"):
+        (q, p), fig = zoo_run(torch, dev, lambda name=name: odeint(
+            field, (q0, torch.zeros_like(q0)), t, name, time_axis=0), steps=steps, profile=False)
+        zoo_sliced(torch, dev, fig, lambda name=name: odeint(
+            field, (q0, torch.zeros_like(q0)), t[:201], name, time_axis=0), 200, steps)
+        energy = (0.5 * p.double() ** 2 + 1.0 - torch.cos(q.double()))[:, 0]
+        err = (energy - energy[0]).abs()
+        half = steps // 2
+        drift[name] = (err[:half].max().item(), err[half:].max().item(), err[-1].item())
+        zoo_line(f"pendulum {name} (device time, launches and idle share of 200 steps, "
+                 f"scaled)", fig, f"|H - H0| max over the first half "
+                 f"{drift[name][0]:.2e}, over the second {drift[name][1]:.2e}, at t = "
+                 f"{steps * h:.0f} {drift[name][2]:.2e}")
+        out[name] = fig
+    y4, rk = drift["yoshida4"], drift["rk4"]
+    require(y4[1] <= 2.0 * y4[0] and rk[1] > 1.5 * rk[0] and rk[2] > 5 * y4[1],
+            f"pendulum energy: yoshida4 {y4}, rk4 {rk} (first-half max, second-half max, end): "
+            "yoshida4's must stay bounded and rk4's grow past it")
+
+    p32, _ = spiral_problem(torch, torch.float32, dev)
+    p64, _ = spiral_problem(torch, torch.float64, torch.device("cpu"))
+    for name in ("adams", "implicit_adams"):
+        def solve(p, dtype, device, name=name):
+            y0 = torch.full((1, 2), 0.0, dtype=dtype, device=device)
+            y0[0, 0] = 2.0
+            tt = torch.linspace(0.0, SPIRAL["t1"], SPIRAL["n_points"], dtype=dtype, device=device)
+            return odeint(spiral_field(torch, p), y0, tt, name, time_axis=0)
+
+        ref = solve(p64, torch.float64, torch.device("cpu"))
+        sol, fig = zoo_run(torch, dev, lambda: solve(p32, torch.float32, dev),
+                           steps=SPIRAL["n_points"] - 1)
+        err = norm_err(sol.double().cpu(), ref)
+        require(bool(torch.isfinite(sol).all()) and err <= ZOO_TOL["adams"],
+                f"spiral {name}: {err:.3e} from the CPU's float64 solve, limit {ZOO_TOL['adams']}")
+        zoo_line(f"spiral {name} (bench.py's field, 999 steps of 0.025)", fig,
+                 f"{err:.2e} from the CPU's float64 solve (limit {ZOO_TOL['adams']})")
+        out[name] = fig
+    return out
+
+
+def per_element_cnf_jvp_runs(torch, dev):
+    """(e) odeint_per_element on 4096 elements of y' = -y^2 with y0 in
+    [1, 160]; the exact-divergence CNF over 2048 samples with rk4;
+    torch.func.jvp through a dopri5 spiral solve against a central
+    difference."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import odeint, odeint_per_element
+    from paddlexde_tpu_torch.utils.divergence import cnf_aug_dynamics
+
+    n = PER_ELEMENT["batch"]
+    y0 = torch.linspace(1.0, 160.0, n, device=dev)[:, None]
+    t = torch.linspace(0.0, 1.0, 5, device=dev)
+    (sol, stats), fig = zoo_run(torch, dev, lambda: odeint_per_element(
+        lambda t, y: -y * y, y0, t, "dopri5", rtol=PER_ELEMENT["rtol"],
+        atol=PER_ELEMENT["atol"], options={"return_stats": True}, time_axis=0))
+    exact = (y0[:, None, :] / (1.0 + y0[:, None, :] * t[None, :, None])).double()
+    err = ((sol.double() - exact).abs() / exact.abs()).max().item()
+    nfe = stats.nfe.cpu()
+    # an attempted step of the batched controller: one iteration, in which
+    # every element still short of the current output attempts one step
+    most = int((stats.n_accept + stats.n_reject).max())
+    iterations = fig["reads"]["step"]
+    fig.update(attempted=iterations, steps=iterations,
+               steps_per_s=iterations / (fig["wall_ms"] / 1e3))
+    if "launches" in fig:
+        fig["launches_per_step"] = fig["launches"] / iterations
+    # one read a controller step (the engine's counter), and no other sync
+    # but the span's read and at most one an output evaluation
+    syncs_ok = dev.type != "cuda" or fig["syncs"] <= iterations + fig["reads"]["setup"] + 4
+    require(bool((stats.status == 0).all()) and err <= ZOO_TOL["per_element"]
+            and most <= iterations and syncs_ok and int(nfe.max()) > int(nfe.min()) + 10
+            and fig["reads"]["step"] == iterations,
+            f"odeint_per_element: error {err:.3e} (limit {ZOO_TOL['per_element']}), nfe "
+            f"{int(nfe.min())}..{int(nfe.max())}, {fig['reads']} reads and {fig['syncs']} syncs "
+            f"for {iterations} iterations (an element's most attempts {most})")
+    zoo_line(f"odeint_per_element dopri5, {n} elements y' = -y^2, y0 in [1, 160]", fig,
+             f"an element's attempts at most {most}, per-element nfe {int(nfe.min())}.."
+             f"{int(nfe.max())} (median "
+             f"{int(nfe.median())}), max relative error {err:.2e} against y0/(1 + y0 t) (limit "
+             f"{ZOO_TOL['per_element']})")
+    out = {"per_element": dict(fig, nfe=(int(nfe.min()), int(nfe.max())))}
+
+    rng = np.random.RandomState(0)
+    w = CNF["width"]
+    raw = {"w1": rng.randn(3, w) * np.sqrt(2.0 / (3 + w)), "b1": np.zeros(w),
+           "w2": rng.randn(w, w) * np.sqrt(1.0 / w), "b2": np.zeros(w),
+           "w3": rng.randn(w, 2) * np.sqrt(2.0 / (w + 2)) * 0.01, "b3": np.zeros(2)}
+    z_np = rng.randn(CNF["samples"], 2)
+
+    def cnf_solve(dtype, device):
+        p = {k: torch.tensor(v, dtype=dtype, device=device) for k, v in raw.items()}
+
+        def f(t, z):
+            h = torch.cat([z, t.expand(z.shape[:-1] + (1,)).to(z.dtype)], -1)
+            h = torch.tanh(h @ p["w1"] + p["b1"])
+            h = torch.tanh(h @ p["w2"] + p["b2"])
+            return h @ p["w3"] + p["b3"]
+
+        z = torch.tensor(z_np, dtype=dtype, device=device)
+        grid = torch.linspace(0.0, 1.0, CNF["grid"] + 1, dtype=dtype, device=device)
+        return odeint(cnf_aug_dynamics(f, "exact"), (z, torch.zeros(z.shape[0], dtype=dtype,
+                                                                     device=device)),
+                      grid[[0, -1]], "rk4", options={"grid": grid}, time_axis=0)
+
+    ref = cnf_solve(torch.float64, torch.device("cpu"))
+    (zs, lp), fig = zoo_run(torch, dev, lambda: cnf_solve(torch.float32, dev), steps=CNF["grid"])
+    err = max(norm_err(zs.double().cpu(), ref[0]), norm_err(lp.double().cpu(), ref[1]))
+    require(bool(torch.isfinite(zs).all() and torch.isfinite(lp).all()) and err <= ZOO_TOL["cnf"],
+            f"CNF: {err:.3e} from the CPU's float64 solve, limit {ZOO_TOL['cnf']}")
+    zoo_line(f"CNF exact divergence, {CNF['samples']} samples, width {w}, rk4 on "
+             f"{CNF['grid']} steps", fig, f"{err:.2e} from the CPU's float64 solve (limit "
+             f"{ZOO_TOL['cnf']}), mean log-density change {lp[-1].mean().item():.4f}")
+    out["cnf"] = fig
+
+    # torch.func.jvp through dopri5 against a central difference (float64)
+    p64, _ = spiral_problem(torch, torch.float64, dev)
+    tt = torch.linspace(0.0, 5.0, 50, dtype=torch.float64, device=dev)
+
+    def spiral(y):
+        return odeint(spiral_field(torch, p64), y, tt, "dopri5", rtol=1e-10, atol=1e-12,
+                      time_axis=0)
+
+    y0 = torch.zeros(1, 2, dtype=torch.float64, device=dev)
+    y0[0, 0] = 2.0
+    v = torch.zeros_like(y0)
+    v[0, 0], v[0, 1] = 0.6, -0.8
+    eps = 1e-5
+    start = time.perf_counter()
+    _, tangent = torch.func.jvp(spiral, (y0,), (v,))
+    jvp_ms = (time.perf_counter() - start) * 1e3
+    fd = (spiral(y0 + eps * v) - spiral(y0 - eps * v)) / (2 * eps)
+    err = norm_err(tangent.cpu(), fd.cpu())
+    require(err <= ZOO_TOL["jvp"], f"torch.func.jvp through dopri5: {err:.3e} from the central "
+            f"difference, limit {ZOO_TOL['jvp']}")
+    print(f"  torch.func.jvp of a dopri5 spiral solve (float64, rtol 1e-10, t in [0, 5]): "
+          f"{err:.2e} from a central difference at eps {eps} (limit {ZOO_TOL['jvp']}); "
+          f"{jvp_ms:.0f} ms", flush=True)
+    return out
+
+
+def ode_zoo_phase(torch, dev):
+    """Phase 9 (module docstring): the JAX package's stiff, event,
+    Hamiltonian, multistep, per-element and CNF workloads on the card."""
+    from paddlexde_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    print(f"phase 9: the rest of the ODE solver zoo (float32 on the card unless marked; each "
+          f"against the port's float64 solve on the CPU); card {card_line()}", flush=True)
+    start = time.perf_counter()
+    out = {}
+    out.update(robertson_runs(torch, dev))
+    out.update(kpp_runs(torch, dev))
+    out.update(event_runs(torch, dev))
+    out.update(pendulum_and_adams_runs(torch, dev))
+    out.update(per_element_cnf_jvp_runs(torch, dev))
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(not launched, f"phase 9 launched port kernels: {launched}")
+    print(f"phase 9 took {time.perf_counter() - start:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not (HERE / "paddlexde_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"paddlexde_tpu_torch/ not found beside {Path(__file__).name}")
@@ -3032,6 +3564,7 @@ def main():
           flush=True)
     spiral_phase(torch, dev)
     ref_served, cli_train, dde_adjoint = dde_extras_phase(torch, dev)
+    ode_zoo_phase(torch, dev)
     pems = [serve_launches, bf16_launches, train_launches, bf16_train_launches,
             *(d[0] for d in dropout.values()), ref_served, dde_adjoint]
     # the CLI's synthetic configuration has SYNTH's widths (D = 64)

@@ -32,6 +32,9 @@ from .functional import (  # noqa: F401
     odeint,
     odeint_adjoint,
     odeint_dense,
+    odeint_event,
+    odeint_event_grad,
+    odeint_per_element,
 )
 from .interpolation import (  # noqa: F401
     BezierSpline,
@@ -41,7 +44,11 @@ from .interpolation import (  # noqa: F401
 )
 from .solver import (  # noqa: F401
     RK4,
+    SDIRK2,
+    SDIRK3,
     TABLEAUS,
+    TRBDF2,
+    AdamsBashforthMoulton,
     AdaptiveHeun,
     AdaptiveStats,
     Bosh3,
@@ -51,9 +58,17 @@ from .solver import (  # noqa: F401
     Dopri8,
     Euler,
     Fehlberg2,
+    ImplicitEuler,
+    ImplicitEulerKrylov,
+    ImplicitMidpoint,
+    Kvaerno3,
+    Leapfrog,
     Midpoint,
+    ScipyWrapperODESolver,
+    SDIRK4Adaptive,
     SolverSpec,
     Tsit5,
+    Yoshida4,
     resolve_solver,
     solve_adaptive,
     solve_adaptive_dense,
@@ -67,4 +82,4 @@ from .xde import (  # noqa: F401
     ode_term,
 )
 
-__version__ = "0.1.0"
+from .version import __version__  # noqa: F401

@@ -9,8 +9,8 @@ every leaf (``time_axis=0`` for time-first).
 Where it runs: where ``y0`` lies (CPU tensors run on the CPU, as the tests
 do); numpy or list data goes to the card, and with no card that raises.
 ``t_span`` may lie on the card or the host: its values are read to the host
-once. ``odeint_per_element`` (a per-element step controller) is not ported
-yet (ROADMAP.md, queue 1, item 7).
+once. ``odeint_per_element`` steps every batch element with its own
+adaptive control.
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ from torch.utils._pytree import tree_leaves, tree_map
 from .._device import input_device, place
 from ..solver.adaptive import host_times
 from ..solver.adaptive_dense import DenseSolution, solve_adaptive_dense
+from ..solver.per_element import solve_adaptive_per_element
 from ..solver.registry import require_ported, resolve_solver
+from ..utils.norms import rms_norm
 from ..xde.term import ode_term
 from .solve import integrate_term
 
@@ -143,9 +145,76 @@ def odeint_dense(
     return (dense, stats) if stats is not None else dense
 
 
-def odeint_per_element(*args, **kwargs):
-    """Not ported yet: independent step control per batch element needs a
-    batched controller (a data-dependent loop cannot be vmapped in torch)."""
-    raise NotImplementedError(
-        "odeint_per_element is not ported to PyTorch yet (ROADMAP.md, queue 1, item 7)"
-    )
+_PER_ELEMENT_KEYS = {"return_stats", "first_step", "safety", "ifactor", "dfactor", "min_step",
+                     "max_step", "max_num_steps", "norm", "time_dtype"}
+
+
+def _per_element_layout(solution, time_axis):
+    """``[T, B, ...]`` -> the batch first and, in each element, time at
+    ``time_axis`` (the layout of ``jax.vmap`` over ``odeint``)."""
+
+    def leaf(arr):
+        arr = torch.movedim(arr, 1, 0)
+        elem_dim = arr.dim() - 1
+        if elem_dim <= 1:
+            return arr
+        axis = time_axis if time_axis >= 0 else elem_dim + time_axis
+        return torch.movedim(arr, 1, 1 + axis)
+
+    return tree_map(leaf, solution)
+
+
+def odeint_per_element(func, y0, t_span, solver="dopri5", *, rtol=1e-7, atol=1e-9,
+                       options: Optional[dict] = None, time_axis: int = -2):
+    """``odeint`` with independent adaptive step control per batch element.
+
+    ``odeint`` on a batched state shares one error norm, so the stiffest
+    element sets every element's step. Here each element of the leading
+    axis of every leaf steps at its own pace (the JAX package ``jax.vmap``s
+    the whole solve; :mod:`~paddlexde_tpu_torch.solver.per_element` is the
+    batched controller that does it here, with one device-to-host read per
+    attempted step). ``func`` is called under ``torch.func.vmap``: it sees a
+    scalar ``t`` and one element's state, and must not read values on the
+    host. The explicit adaptive solvers take ``options`` ``first_step``,
+    ``safety``, ``ifactor``, ``dfactor``, ``min_step``, ``max_step``,
+    ``max_num_steps``, ``norm``, ``time_dtype`` and ``return_stats`` (then
+    the stats are ``[B]`` tensors: ``stats.nfe`` shows the spread). An
+    explicit fixed-grid solver runs on the shared grid with the field
+    vmapped. The implicit, Adams and SciPy solvers are refused (use
+    ``odeint``).
+
+    Returns the solution with the batch first and each element laid out as
+    ``odeint`` lays out one element's solution (time at ``time_axis``)."""
+    spec = resolve_solver(solver)
+    require_ported(spec)
+    opts = dict(options or {})
+    device = input_device(*tree_leaves(y0))
+    y0 = tree_map(lambda a: place(a, device), y0)
+    t_span = torch.as_tensor(t_span)
+    batched = torch.func.vmap(func, in_dims=(None, 0))
+    if spec.kind == "fixed" and not spec.implicit:
+        sol = integrate_term(ode_term(batched), y0, t_span, spec, options=opts, time_axis=0)
+        return _per_element_layout(sol, time_axis)
+    if spec.kind != "adaptive" or spec.implicit:
+        raise ValueError(
+            f"odeint_per_element runs the explicit adaptive and fixed-grid solvers, not "
+            f"{spec.name!r} ({spec.kind}{', implicit' if spec.implicit else ''}); use odeint")
+    unknown = set(opts) - _PER_ELEMENT_KEYS
+    if unknown:
+        raise ValueError(f"odeint_per_element got unknown option(s) {sorted(unknown)}; known: "
+                         f"{sorted(_PER_ELEMENT_KEYS)}")
+    return_stats = opts.pop("return_stats", False)
+    opts.setdefault("norm", rms_norm)
+    t_host = host_times(t_span)
+    term = ode_term(func)
+    if t_host.size >= 2 and t_host[-1] < t_host[0]:
+        inner = func
+
+        def reversed_func(s, y):
+            return tree_map(torch.negative, inner(-s, y))
+
+        term, t_span, t_host = ode_term(reversed_func), -t_span, -t_host
+    sol, stats = solve_adaptive_per_element(term, y0, t_span, method=spec.name, rtol=rtol,
+                                            atol=atol, _t_host=t_host, **opts)
+    sol = _per_element_layout(sol, time_axis)
+    return (sol, stats) if return_stats else sol

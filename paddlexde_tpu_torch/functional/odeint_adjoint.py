@@ -104,13 +104,19 @@ def _make_adjoint_norm(option) -> Callable:
 
 def _augmented_dynamics(func, params):
     """``(t, aug) -> (-a.df/dt, f, -a.df/dy, -a.df/dp)`` by one
-    ``torch.autograd.grad`` of a re-evaluated ``func``."""
+    ``torch.autograd.grad`` of a re-evaluated ``func``. When the augmented
+    state itself carries a graph (an implicit adjoint solver linearizes
+    this field), the vector-Jacobian product is taken with
+    ``create_graph`` and stays differentiable in ``y`` and ``a``."""
 
     def dynamics(t, aug):
         _, y, adj_y, _ = aug
+        graph = torch.is_grad_enabled() and any(
+            leaf.requires_grad for leaf in tree_leaves((y, adj_y)))
         with torch.enable_grad():
             t_ = t.detach().requires_grad_(True)
-            y_ = tree_map(lambda a: a.detach().requires_grad_(True), y)
+            y_ = tree_map(lambda a: a if graph and a.requires_grad
+                          else a.detach().requires_grad_(True), y)
             fval = func(t_, y_)
             inputs = [t_] + tree_leaves(y_) + list(params)
             pairs = [(f, -a) for f, a in zip(tree_leaves(fval), tree_leaves(adj_y))
@@ -118,12 +124,14 @@ def _augmented_dynamics(func, params):
             grads = [None] * len(inputs)
             if pairs:
                 grads = torch.autograd.grad([f for f, _ in pairs], inputs,
-                                            [a for _, a in pairs], allow_unused=True)
+                                            [a for _, a in pairs], allow_unused=True,
+                                            create_graph=graph)
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
         n_y = len(tree_leaves(y_))
         _, y_spec = tree_flatten(y)
-        return (grads[0], tree_map(torch.detach, fval),
-                tree_unflatten(grads[1:1 + n_y], y_spec), tuple(grads[1 + n_y:]))
+        out_f = fval if graph else tree_map(torch.detach, fval)
+        return (grads[0], out_f, tree_unflatten(grads[1:1 + n_y], y_spec),
+                tuple(grads[1 + n_y:]))
 
     return dynamics
 

@@ -6,8 +6,9 @@ so a typo raises ``ValueError``), reverse-time canonicalisation (a
 decreasing span is integrated in ``s = -t`` with a negated field, and the
 time-valued options follow), the dispatch into the fixed-grid engine, the
 adaptive engine or, with ``options["max_steps"]``, the buffered-dense
-adaptive engine (``solve.py:221-262``), and the output layout (time moved
-from axis 0 to ``time_axis``).
+adaptive engine (``solve.py:221-262``), the Adams engine and the SciPy
+bridge (``solve.py:263-276``), and the output layout (time moved from axis
+0 to ``time_axis``).
 """
 
 from __future__ import annotations
@@ -18,10 +19,13 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from .._device import input_device, place
+from ..solver.adams import solve_adams
 from ..solver.adaptive import host_times, solve_adaptive
 from ..solver.adaptive_dense import solve_adaptive_dense
 from ..solver.fixed import solve_fixed
+from ..solver.scipy_wrapper import solve_scipy
 from ..solver.registry import SolverSpec, require_ported, resolve_solver
+from ..utils.misc import host_array
 from ..utils.norms import rms_norm
 from ..xde.term import XDETerm
 
@@ -43,7 +47,7 @@ def _is_decreasing(t_span: torch.Tensor) -> bool:
     caller put ``t_span`` on the card)."""
     if t_span.numel() < 2:
         return False
-    first, last = t_span[[0, -1]].tolist()
+    first, last = host_array(t_span[[0, -1]]).tolist()
     return last < first
 
 
@@ -88,7 +92,8 @@ def format_solution(solution, time_axis: int = -2):
     return tree_map(leaf, solution)
 
 
-def _solve(term, y0, t_span, method, options, time_axis):
+def _solve(term, y0, t_span, method, options, time_axis, kind="fixed", rtol=None, atol=None,
+           implicit=False):
     # time stays where the caller put it: numpy/list times become host
     # tensors (the grid is read on the host; a 0-dim host time mixes freely
     # with device states); the state goes to the device of its first tensor
@@ -97,8 +102,17 @@ def _solve(term, y0, t_span, method, options, time_axis):
     device = input_device(*tree_leaves(y0))
     y0 = tree_map(lambda a: place(a, device), y0)
     term, t_span, options = _canonicalize_direction(term, t_span, options)
-    kw = {k: v for k, v in options.items() if k in _FIXED_KEYS}
-    return format_solution(solve_fixed(term, y0, t_span, method=method, **kw), time_axis)
+    if kind == "adams":
+        kw = {k: v for k, v in options.items() if k in _ADAMS_KEYS}
+        implicit = implicit or kw.pop("implicit", False)
+        sol = solve_adams(term, y0, t_span, rtol=rtol, atol=atol, implicit=implicit, **kw)
+    elif kind == "scipy":
+        kw = {k: v for k, v in options.items() if k == "scipy_method"}
+        sol = solve_scipy(term, y0, t_span, rtol=rtol, atol=atol, **kw)
+    else:
+        kw = {k: v for k, v in options.items() if k in _FIXED_KEYS}
+        sol = solve_fixed(term, y0, t_span, method=method, **kw)
+    return format_solution(sol, time_axis)
 
 
 def _solve_adaptive(term, y0, t_span, method, options, time_axis, rtol, atol):
@@ -172,4 +186,5 @@ def integrate_term(
     require_ported(spec)
     if spec.kind == "adaptive":
         return _solve_adaptive(term, y0, t_span, spec.name, options, time_axis, rtol, atol)
-    return _solve(term, y0, t_span, spec.name, options, time_axis)
+    return _solve(term, y0, t_span, spec.name, options, time_axis, spec.kind, rtol, atol,
+                  implicit=spec.name == "implicit_adams")

@@ -39,8 +39,9 @@ step) and the same ``RuntimeWarning`` is raised when a differentiated solve
 accepts more than ``grid_buffer`` steps (``overflow_warn=False`` silences
 it). ``direct_grad=False`` runs the engine under ``torch.no_grad``.
 
-The implicit (DIRK) stages of the JAX engine are not ported
-(``solver/registry.py::require_ported``).
+The implicit tableaus (kvaerno3, sdirk4, trbdf2) solve their diagonal
+stages by dense Newton iterations (``make_rk_core``; ``implicit.py``), in
+this engine, the buffered-dense one and ``odeint_adjoint``'s backward.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
+from ..utils.misc import host_array
 from ..utils.norms import rms_norm
 from ..utils.ode_utils import (
     compute_error_ratio,
@@ -61,6 +63,7 @@ from ..utils.ode_utils import (
     select_initial_step,
 )
 from ..xde.term import XDETerm
+from .implicit import ravel, stage_newton_solve
 from .tableaus import TABLEAUS, ButcherTableau
 
 __all__ = ["solve_adaptive", "AdaptiveStats", "RKState", "make_rk_core", "make_adaptive_step",
@@ -86,7 +89,7 @@ def reset_host_reads() -> None:
 def host_values(x: torch.Tensor, kind: str = "setup"):
     """``x`` as host values (a list), counted in ``HOST_READS[kind]``."""
     HOST_READS[kind] += 1
-    return x.detach().tolist()
+    return host_array(x).tolist()
 
 
 def np_dtype(dtype: torch.dtype):
@@ -128,17 +131,23 @@ class RKState(NamedTuple):
     n_reject: int
     status: int
     t1_host: float
+    watch: Optional[float] = None  # ``watch(t1, y1)`` read with the step
 
 
 class _Coefficients:
     """A tableau's weights as tensors, once per (dtype, device)."""
 
+    # one copy per (tableau, dtype, device) for the process: a solve makes no
+    # host-to-device copy of its weights after the first
+    _cache: Dict[Any, Dict[str, torch.Tensor]] = {}
+
     def __init__(self, tableau: ButcherTableau):
         self.tableau = tableau
-        self._cache = {}
 
     def __call__(self, dtype, device):
-        key = (dtype, device)
+        # keyed by the tableau object (each entry keeps it alive, so its id
+        # stays its own)
+        key = (id(self.tableau), dtype, device)
         if key not in self._cache:
             tab = self.tableau
 
@@ -146,7 +155,8 @@ class _Coefficients:
                 return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=device)
 
             self._cache[key] = {"beta": as_t(tab.beta), "c_sol": as_t(tab.c_sol),
-                                "c_error": as_t(tab.c_error), "c_mid": as_t(tab.c_mid)}
+                                "c_error": as_t(tab.c_error), "c_mid": as_t(tab.c_mid),
+                                "tableau": tab}
         return self._cache[key]
 
 
@@ -160,34 +170,75 @@ def _weighted(coef, stack):
     return torch.tensordot(coef, stack, dims=([0], [0]))
 
 
-def make_rk_core(term: XDETerm, tableau: ButcherTableau):
+def make_rk_core(term: XDETerm, tableau: ButcherTableau, newton_iters: int = 6):
     """The single-step math of the engine: ``runge_kutta_step(y0, f0, t0,
     dt, t1) -> (y1, f1, y1_error, k)`` with ``k`` a tree of ``[S, ...]``
-    stage stacks, and ``interp_fit_step(y0, y1, k, dt, f0) -> coeff``."""
-    if tableau.implicit:
-        raise NotImplementedError(
-            f"the implicit adaptive tableau {tableau.name!r} is not ported to PyTorch yet "
-            "(ROADMAP.md, queue 1, item 7)"
-        )
+    stage stacks, and ``interp_fit_step(y0, y1, k, dt, f0) -> coeff``.
+
+    An implicit ((E)SDIRK) tableau solves each diagonal stage ``Y_i = y0 +
+    dt (beta_i . k) + dt g_i f(t_i, Y_i)`` by ``newton_iters`` dense Newton
+    iterations (``implicit.stage_newton_solve``) and recovers the stage
+    derivative from the solved equation, ``f_i = (Y_i - base_i) / (g_i
+    dt)``, with no extra field call. An explicit first stage (ESDIRK) reuses
+    the step-entry derivative ``f0``; an implicit one (sdirk4) solves
+    ``Y_0 = y0 + g_0 dt f(t0 + g_0 dt, Y_0)`` first."""
     n_stages = tableau.n_stages
     weights = _Coefficients(tableau)
 
-    def runge_kutta_step(y0_, f0_, t0_, dt_, t1_):
+    def base_of(y0_l, ks, i, dt_):
+        out = []
+        for j, y in enumerate(y0_l):
+            w = weights(y.dtype, y.device)["beta"][i, : i + 1]
+            stack = torch.stack([k[j] for k in ks])
+            out.append(y + _weighted(w, stack) * dt_.to(y.dtype))
+        return out
+
+    def explicit_stages(y0_, f0_, t0_, dt_, t1_):
         y0_l, spec = tree_flatten(y0_)
         ks = [tree_leaves(f0_)]
         yi_l = y0_l
         for i in range(n_stages - 1):
             alpha_i = float(tableau.alpha[i])
             ti = t1_ if alpha_i == 1.0 else t0_ + alpha_i * dt_
-            yi_l = []
-            for j, y in enumerate(y0_l):
-                w = weights(y.dtype, y.device)["beta"][i, : i + 1]
-                stack = torch.stack([k[j] for k in ks])
-                yi_l.append(y + _weighted(w, stack) * dt_.to(y.dtype))
+            yi_l = base_of(y0_l, ks, i, dt_)
             ks.append(tree_leaves(term.move(ti, dt_, tree_unflatten(yi_l, spec))))
+        return ks, yi_l
+
+    def stage_solve(ti, dt_, base, gamma):
+        base_flat, unravel = ravel(base)
+        gdt = dt_.to(base_flat.dtype) * gamma  # gamma rounded to the state's dtype
+
+        def f_at(y_flat):
+            return ravel(term.move(ti, dt_, unravel(y_flat)))[0]
+
+        y_flat = stage_newton_solve(f_at, base_flat, gdt, base_flat, newton_iters)
+        safe = torch.where(gdt == 0, torch.ones_like(gdt), gdt)
+        return tree_leaves(unravel((y_flat - base_flat) / safe)), tree_leaves(unravel(y_flat))
+
+    def dirk_stages(y0_, f0_, t0_, dt_, t1_):
+        y0_l, spec = tree_flatten(y0_)
+        g0 = float(tableau.diag[0])
+        if g0 == 0.0:
+            ks = [tree_leaves(f0_)]
+        else:  # c_1 = a_11 = g0; f0 is not a stage derivative here
+            ks = [stage_solve(t0_ + g0 * dt_, dt_, y0_, g0)[0]]
+        yi_l = y0_l
+        for i in range(n_stages - 1):
+            alpha_i = float(tableau.alpha[i])
+            ti = t1_ if alpha_i == 1.0 else t0_ + alpha_i * dt_
+            base = tree_unflatten(base_of(y0_l, ks, i, dt_), spec)
+            k_i, yi_l = stage_solve(ti, dt_, base, float(tableau.diag[i + 1]))
+            ks.append(k_i)
+        return ks, yi_l
+
+    stages = dirk_stages if tableau.implicit else explicit_stages
+
+    def runge_kutta_step(y0_, f0_, t0_, dt_, t1_):
+        y0_l, spec = tree_flatten(y0_)
+        ks, yi_l = stages(y0_, f0_, t0_, dt_, t1_)
         k_l = [torch.stack([k[j] for k in ks]) for j in range(len(y0_l))]
         if tableau.fsal:
-            y1_l = yi_l  # Dormand-Prince: the last stage input is the solution
+            y1_l = yi_l  # the last stage input is the solution
         else:
             y1_l = [y + _weighted(weights(y.dtype, y.device)["c_sol"], k) * dt_.to(y.dtype)
                     for y, k in zip(y0_l, k_l)]
@@ -213,16 +264,24 @@ def _all_finite(tree) -> torch.Tensor:
 
 
 def make_adaptive_step(term, tableau, rtol, atol, norm, safety, ifactor, dfactor,
-                       min_step, max_step, step_t=None, jump_t=None):
+                       min_step, max_step, step_t=None, jump_t=None, newton_iters=6,
+                       watch=None):
     """The ``RKState -> RKState`` step (the JAX engine's ``adaptive_step``),
     shared by the per-output engine, the buffered-dense engine and the
     adjoint's single-pass backward.
 
     ``step_t``/``jump_t``: sorted host arrays of the time dtype (or None).
-    Each call makes one device-to-host read."""
+    ``watch``: an optional ``(t1, y1) -> 0-dim tensor`` evaluated at every
+    attempted step's end and read back in the same transfer as the accept
+    flag (``RKState.watch``; the event search's sign test). Each call makes
+    one device-to-host read."""
     order = tableau.order
-    n_stages = tableau.n_stages
-    runge_kutta_step, interp_fit_step = make_rk_core(term, tableau)
+    runge_kutta_step, interp_fit_step = make_rk_core(term, tableau, newton_iters)
+    # field evaluations per attempted step (an implicit stage counts its
+    # Newton iterations; sdirk4's implicit first stage is one more stage)
+    stage_evals = tableau.n_stages - 1
+    if tableau.implicit:
+        stage_evals = (stage_evals + (float(tableau.diag[0]) != 0.0)) * newton_iters
     has_step_t = step_t is not None and len(step_t) > 0
     has_jump_t = jump_t is not None and len(jump_t) > 0
     check_max = not np.isposinf(max_step)
@@ -265,7 +324,11 @@ def make_adaptive_step(term, tableau, rtol, atol, norm, safety, ifactor, dfactor
         dt_next = torch.clamp(dt_next, min_step, max_step)
 
         flags = [accept] + flags + [f for f in (on_step, on_jump) if f is not None]
-        packed = torch.cat([torch.stack(flags).to(t1_.dtype), t1_.detach().reshape(1)])
+        extra = [t1_.detach().reshape(1)]
+        if watch is not None:
+            extra.insert(0, watch(t1_.detach(), tree_map(torch.detach, y1_)).detach().reshape(
+                1).to(t1_.dtype))
+        packed = torch.cat([torch.stack(flags).to(t1_.dtype)] + extra)
         vals = host_values(packed, "step")
         accepted = vals[0] != 0.0
         status = s.status | (DT_UNDERFLOW if vals[1] else 0) | (NON_FINITE if vals[2] else 0)
@@ -277,11 +340,14 @@ def make_adaptive_step(term, tableau, rtol, atol, norm, safety, ifactor, dfactor
             hit_jump = vals[pos] != 0.0
         hit_step = hit_step and not hit_jump
 
-        nfe = s.nfe + n_stages - 1
+        nfe = s.nfe + stage_evals
         next_step_index, next_jump_index = s.next_step_index, s.next_jump_index
+        watched = s.watch
         if accepted:
             coeff = interp_fit_step(y0_, y1_, k, dt_, f0_)
             y_next, f_next, t_next, t_next_host = y1_, f1_, t1_.detach(), vals[-1]
+            if watch is not None:
+                watched = vals[-2]
             if hit_jump:
                 f_next = term.move(t_next, torch.zeros_like(t_next), y_next)
                 nfe += 1
@@ -296,7 +362,7 @@ def make_adaptive_step(term, tableau, rtol, atol, norm, safety, ifactor, dfactor
             y1=y_next, f1=f_next, t0=t0_, t1=t_next, dt=dt_next, interp_coeff=coeff,
             next_step_index=next_step_index, next_jump_index=next_jump_index, nfe=nfe,
             n_accept=s.n_accept + int(accepted), n_reject=s.n_reject + int(not accepted),
-            status=status, t1_host=t_next_host,
+            status=status, t1_host=t_next_host, watch=watched,
         )
 
     return adaptive_step
@@ -333,7 +399,7 @@ def host_times(t_span: torch.Tensor, t_host=None):
     if t_host is not None:
         return np.asarray(t_host, np_dtype(t_span.dtype))
     if t_span.device.type == "cpu":
-        return t_span.detach().numpy()
+        return host_array(t_span)
     return np.asarray(host_values(t_span, "setup"), np_dtype(t_span.dtype))
 
 
@@ -349,7 +415,7 @@ def prepare_times(y0, t_span, time_dtype=None, t_host=None):
 def _sorted_host(tvals, t0_host, dtype):
     """``sort_tvals`` on the host: values before ``t0`` become +inf."""
     if isinstance(tvals, torch.Tensor):
-        tvals = tvals.detach().cpu().numpy() if tvals.device.type == "cpu" else np.asarray(
+        tvals = host_array(tvals) if tvals.device.type == "cpu" else np.asarray(
             host_values(tvals, "setup"))
     arr = np.asarray(tvals, dtype).reshape(-1)
     arr = np.where(arr >= dtype(t0_host), arr, dtype(np.inf))
@@ -402,21 +468,21 @@ def solve_adaptive(
 
     Returns a time-first ``[T, ...]`` tree (plus :class:`AdaptiveStats` when
     ``return_stats``). ``max_num_steps`` bounds the attempted steps per
-    output interval, as in the JAX engine. ``newton_iters`` is accepted for
-    the option vocabulary (the implicit stages are not ported)."""
-    del newton_iters
+    output interval, as in the JAX engine. ``newton_iters``: the Newton
+    iterations of an implicit stage (the DIRK tableaus)."""
     tableau = TABLEAUS[method] if isinstance(method, str) else method
     with torch.set_grad_enabled(torch.is_grad_enabled() and direct_grad):
         sol, stats = _solve_adaptive(term, y0, t_span, tableau, rtol, atol, norm, first_step,
                                      safety, ifactor, dfactor, min_step, max_step,
-                                     max_num_steps, step_t, jump_t, time_dtype, _t_host)
+                                     max_num_steps, step_t, jump_t, time_dtype, _t_host,
+                                     newton_iters)
     warn_grid_overflow(sol, stats, grid_buffer, overflow_warn)
     return (sol, stats) if return_stats else sol
 
 
 def _solve_adaptive(term, y0, t_span, tableau, rtol, atol, norm, first_step, safety, ifactor,
                     dfactor, min_step, max_step, max_num_steps, step_t, jump_t, time_dtype,
-                    t_host):
+                    t_host, newton_iters):
     t_dev, t_host = prepare_times(y0, t_span, time_dtype, t_host)
     time_dtype = t_dev.dtype
     ndt = np_dtype(time_dtype)
@@ -436,7 +502,7 @@ def _solve_adaptive(term, y0, t_span, tableau, rtol, atol, norm, first_step, saf
         jump_index=idx_init(jump_t_h) if jump_t_h is not None else 0,
     )
     step = make_adaptive_step(term, tableau, rtol, atol, norm, safety, ifactor, dfactor,
-                              min_step, max_step, step_t_h, jump_t_h)
+                              min_step, max_step, step_t_h, jump_t_h, newton_iters)
 
     def evaluate(s, start, stop):
         # the outputs [start, stop), covered by the current step, in one pass

@@ -148,27 +148,28 @@ def solve_adaptive_dense(
     """Adaptive solve with buffered dense output; returns ``[T, ...]`` (or a
     callable :class:`DenseSolution` with ``return_dense=True``), plus
     :class:`~paddlexde_tpu_torch.solver.adaptive.AdaptiveStats` with
-    ``return_stats``. ``direct_grad=False`` runs without autograd."""
-    del newton_iters
+    ``return_stats``. ``direct_grad=False`` runs without autograd;
+    ``newton_iters``: the Newton iterations of an implicit stage."""
     tableau = TABLEAUS[method] if isinstance(method, str) else method
     with torch.set_grad_enabled(torch.is_grad_enabled() and direct_grad):
         out, stats = _solve_dense(term, y0, t_span, tableau, rtol, atol, norm, max_steps,
                                   first_step, safety, ifactor, dfactor, min_step, max_step,
-                                  time_dtype, return_dense, _t_host)
+                                  time_dtype, return_dense, _t_host, newton_iters)
     if not return_dense:
         warn_grid_overflow(out, stats, grid_buffer, overflow_warn)
     return (out, stats) if return_stats else out
 
 
 def _solve_dense(term, y0, t_span, tableau, rtol, atol, norm, max_steps, first_step, safety,
-                 ifactor, dfactor, min_step, max_step, time_dtype, return_dense, t_host):
+                 ifactor, dfactor, min_step, max_step, time_dtype, return_dense, t_host,
+                 newton_iters):
     t_dev, t_host = prepare_times(y0, t_span, time_dtype, t_host)
     time_dtype = t_dev.dtype
     t0, t_end, t_end_host = t_dev[0], t_dev[-1], float(t_host[-1])
     state = initial_state(term, tableau, y0, t0, t_end, t_host[0], rtol, atol, norm,
                           first_step, time_dtype)
     step = make_adaptive_step(term, tableau, rtol, atol, norm, safety, ifactor, dfactor,
-                              min_step, max_step)
+                              min_step, max_step, newton_iters=newton_iters)
 
     steps = []  # (t0, t1, coeff) of every accepted step
     while state.t1_host < t_end_host and len(steps) < max_steps and state.status == 0:

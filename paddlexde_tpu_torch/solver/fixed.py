@@ -1,6 +1,8 @@
 """Fixed-grid solvers.
 
-Counterpart of ``paddlexde_tpu/solver/fixed.py`` (euler, midpoint, rk4).
+Counterpart of ``paddlexde_tpu/solver/fixed.py``: euler, midpoint, rk4,
+and in the step table the symplectic (``symplectic.py``) and implicit
+(``implicit.py``) steps.
 The JAX package runs the grid as one ``lax.scan``; here it is a Python loop
 over the grid steps (PyTorch runs eagerly). Dense output collects
 ``(y_i, dy_i)`` at every node, then evaluates all requested output times at
@@ -19,7 +21,9 @@ import torch
 import torch.utils.checkpoint
 from torch.utils._pytree import tree_map
 
+from ..utils.misc import host_array
 from ..xde.term import XDETerm
+from . import implicit, symplectic
 
 __all__ = ["euler_step", "midpoint_step", "rk4_step", "make_grid", "solve_fixed",
            "FIXED_STEP_FNS"]
@@ -71,6 +75,16 @@ FIXED_STEP_FNS = {
     "euler": (euler_step, 1),
     "midpoint": (midpoint_step, 2),
     "rk4": (rk4_step, 4),
+    "leapfrog": (symplectic.leapfrog_step, 2),
+    "velocity_verlet": (symplectic.leapfrog_step, 2),
+    "yoshida4": (symplectic.yoshida4_step, 4),
+    "implicit_euler": (implicit.implicit_euler_step, 1),
+    "implicit_midpoint": (implicit.implicit_midpoint_step, 2),
+    "gauss_legendre1": (implicit.implicit_midpoint_step, 2),
+    "implicit_euler_krylov": (implicit.implicit_euler_krylov_step, 1),
+    "sdirk2": (implicit.sdirk2_step, 2),
+    "sdirk2_krylov": (implicit.sdirk2_krylov_step, 2),
+    "sdirk3": (implicit.sdirk3_step, 3),
 }
 
 
@@ -87,7 +101,7 @@ def make_grid(t_span, step_size=None, grid_constructor: Optional[Callable] = Non
         return torch.as_tensor(grid_constructor(t_span), device=t_span.device)
     if step_size is None:
         return t_span
-    ct = t_span.detach().cpu().numpy()
+    ct = host_array(t_span)
     start, end = float(ct[0]), float(ct[-1])
     n = int(np.ceil(abs(end - start) / float(abs(step_size)) + 1.0))
     sign = 1.0 if end >= start else -1.0
@@ -145,7 +159,7 @@ def solve_fixed(
         # output times coincide with grid nodes: every mode is the step endpoint
         return ys_all
 
-    first, last = grid[[0, -1]].tolist()
+    first, last = host_array(grid[[0, -1]]).tolist()
     direction = 1 if last >= first else -1
     idx = (
         torch.searchsorted((direction * grid).contiguous(), (direction * t_span).contiguous(),

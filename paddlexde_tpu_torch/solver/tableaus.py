@@ -9,9 +9,8 @@ embedded weights are derived at import, as in the JAX package.
 
 ``beta`` is one dense, zero-padded ``[S-1, S]`` lower-triangular matrix, so
 a stage combination is one contraction against the ``[S, ...]`` stage
-buffer. The implicit tableaus (kvaerno3, sdirk4, trbdf2) are carried for
-their constants; the engine that steps them is not ported yet
-(``solver/registry.py::require_ported``).
+buffer. The implicit tableaus (kvaerno3, sdirk4, trbdf2) carry their
+diagonals in ``diag``; ``adaptive.make_rk_core`` solves those stages.
 """
 
 from __future__ import annotations

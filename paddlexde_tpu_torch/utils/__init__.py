@@ -10,3 +10,6 @@ from .ode_utils import (  # noqa: F401
     sort_tvals,
 )
 from .data import prefetch  # noqa: F401
+from .divergence import cnf_aug_dynamics, exact_divergence, hutchinson_divergence  # noqa: F401
+from .divergence import rademacher_probes  # noqa: F401
+from .profiling import RunningAverageMeter, Timer, trace  # noqa: F401

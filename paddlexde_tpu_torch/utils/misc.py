@@ -10,8 +10,24 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
-__all__ = ["flat_to_shape"]
+__all__ = ["flat_to_shape", "host_array"]
+
+
+def host_array(x: torch.Tensor) -> np.ndarray:
+    """``x``'s primal value as a numpy array (a device-to-host copy for a
+    card tensor): the ``torch.func`` wrappers (jvp, vmap levels) and a
+    forward-AD dual are peeled off first. The solvers read their grids and
+    step decisions through it, so that ``torch.func.jvp``/``jacfwd`` run
+    through a solve with its grid frozen (the JAX package's treatment of
+    the grid as non-differentiable data)."""
+    from torch._C import _functorch
+
+    while _functorch.is_functorch_wrapped_tensor(x):
+        x = _functorch.get_unwrapped(x)
+    with torch._C._DisableFuncTorch():
+        return fwAD.unpack_dual(x).primal.detach().cpu().numpy()
 
 
 def flat_to_shape(tensor, length, shapes):

@@ -83,17 +83,40 @@ def _bf16_close(got, want):
 # (2, 6, 3, 32) with x float32 (0.09% of elements one ulp apart, 7.1e-5),
 # (2, 17, 12, 64) with x bfloat16 (0.01%, 2.0e-5) and (1, 70, 4, 128) (0.003%;
 # 1.8e-4 with x float32, 5.7e-3 = one ulp at the top binade with x bfloat16)
-@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 6, 3, 32), (2, 17, 12, 64), (1, 70, 4, 128)])
-def test_gcn_plain_matches_tpu_kernel(shape, x_dtype):
+@pytest.fixture(scope="module")
+def tpu_refs():
+    """The TPU kernels' results (interpret mode) by their inputs' key: a
+    test that makes the same call as another takes its result."""
+    return {}
+
+
+def _gcn_case(shape):
     rng = np.random.RandomState(sum(shape))
     x = rng.randn(*shape).astype(np.float32)
     gate = (0.5 * rng.rand(shape[1], shape[1])).astype(np.float32)
+    return x, gate
+
+
+def _tpu_gcn(refs, shape, x_dtype):
+    """K2 bf16 in interpret mode on ``_gcn_case(shape)``, x in ``x_dtype``."""
+    key = ("gcn", shape, x_dtype)
+    if key not in refs:
+        x, gate = _gcn_case(shape)
+        jx = jnp.asarray(x) if x_dtype == "float32" else jnp.asarray(x).astype(jnp.bfloat16)
+        refs[key] = gcn_pallas.gcn_spatial_mix(jx, jnp.asarray(gate), shape[-1] ** -0.5,
+                                               "bfloat16", True, True, False)
+    return refs[key]
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 6, 3, 32), (2, 17, 12, 64), (1, 70, 4, 128)])
+def test_gcn_plain_matches_tpu_kernel(shape, x_dtype, tpu_refs):
+    x, gate = _gcn_case(shape)
     scale2 = shape[-1] ** -0.5
-    jx, tx = jnp.asarray(x), torch.tensor(x)
+    tx = torch.tensor(x)
     if x_dtype == "bfloat16":
-        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
-    want = gcn_pallas.gcn_spatial_mix(jx, jnp.asarray(gate), scale2, "bfloat16", True, True, False)
+        tx = tx.to(torch.bfloat16)
+    want = _tpu_gcn(tpu_refs, shape, x_dtype)
     got = gcn.gcn_spatial_mix(tx, torch.tensor(gate), scale2, "bfloat16")
     _bf16_close(got, want)
 
@@ -108,19 +131,33 @@ FLAGS = {
 # K4: the plain bfloat16 version against _fwd_kernel in interpret mode.
 # Measured: bit for bit but the masked flag set at 4 heads (0.03% of
 # elements one ulp apart, 1.1e-4)
-@pytest.mark.parametrize("heads", [2, 4])
-@pytest.mark.parametrize("name", sorted(FLAGS))
-def test_attention_plain_matches_tpu_kernel(name, heads):
-    rng = np.random.RandomState(10 + heads)
+def _attention_case(seed):
+    rng = np.random.RandomState(seed)
     d, ks = 32, 3
     bound = np.sqrt(6.0 / (2 * ks * d))
     arrays = [rng.randn(2, 5, 12, d).astype(np.float32) for _ in range(3)]
     for _ in range(4):
         arrays.append(rng.uniform(-bound, bound, (ks, d, d)).astype(np.float32))
         arrays.append((0.1 * rng.randn(d)).astype(np.float32))
+    return arrays
+
+
+def _tpu_attention(refs, seed, name, heads):
+    """K4 bf16 in interpret mode on ``_attention_case(seed)``."""
+    key = ("attn", seed, name, heads)
+    if key not in refs:
+        refs[key] = attn_pallas.fused_temporal_attention(
+            *[jnp.asarray(a) for a in _attention_case(seed)], *FLAGS[name], heads, "bfloat16",
+            True, True, False)
+    return refs[key]
+
+
+@pytest.mark.parametrize("heads", [2, 4])
+@pytest.mark.parametrize("name", sorted(FLAGS))
+def test_attention_plain_matches_tpu_kernel(name, heads, tpu_refs):
+    arrays = _attention_case(10 + heads)
     flags = FLAGS[name]
-    want = attn_pallas.fused_temporal_attention(*[jnp.asarray(a) for a in arrays], *flags, heads,
-                                                "bfloat16", True, True, False)
+    want = _tpu_attention(tpu_refs, 10 + heads, name, heads)
     got = attn.fused_temporal_attention(*[torch.tensor(a) for a in arrays], *flags, heads,
                                         "bfloat16")
     _bf16_close(got, want)
@@ -153,30 +190,22 @@ def _parent_attention(mq, mk, vs, wq, bq, wk, bk, wv, bv, wo, bo, causal_q, caus
     return _parent_conv(x, wo, bo, False)
 
 
-def test_the_measure_catches_the_parent_rounding_points():
+def test_the_measure_catches_the_parent_rounding_points(tpu_refs):
     """The bfloat16 measure tells the repaired plain versions from the
     port's earlier ones (ROADMAP.md section 3): the attention summing its
     taps in bfloat16 and the GCN taking bfloat16 scores of a bfloat16 x
     differ from the TPU kernels on 4% to 72% of elements (measured: the
     attention inputs above, 66% to 72%; the GCN shapes above, 3.7% to
     18%)."""
-    rng = np.random.RandomState(12)
-    d, ks = 32, 3
-    bound = np.sqrt(6.0 / (2 * ks * d))
-    arrays = [rng.randn(2, 5, 12, d).astype(np.float32) for _ in range(3)]
-    for _ in range(4):
-        arrays.append(rng.uniform(-bound, bound, (ks, d, d)).astype(np.float32))
-        arrays.append((0.1 * rng.randn(d)).astype(np.float32))
-    want = attn_pallas.fused_temporal_attention(*[jnp.asarray(a) for a in arrays], *FLAGS[
-        "encoder_self"], 2, "bfloat16", True, True, False)
+    # the inputs (and so the TPU kernels' results) of the 2-head encoder case
+    # and the (1, 70, 4, 128) bfloat16 case above
+    arrays = _attention_case(12)
+    want = _tpu_attention(tpu_refs, 12, "encoder_self", 2)
     got = _parent_attention(*[torch.tensor(a) for a in arrays], *FLAGS["encoder_self"], 2)
     assert bf16_errors(got, torch.tensor(np.asarray(want.astype(jnp.float32))))[2] > 0.5
     shape = (1, 70, 4, 128)
-    rng = np.random.RandomState(sum(shape))
-    x = rng.randn(*shape).astype(np.float32)
-    gate = (0.5 * rng.rand(shape[1], shape[1])).astype(np.float32)
-    want = gcn_pallas.gcn_spatial_mix(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(gate),
-                                      shape[-1] ** -0.5, "bfloat16", True, True, False)
+    x, gate = _gcn_case(shape)
+    want = _tpu_gcn(tpu_refs, shape, "bfloat16")
     xb = torch.tensor(x).to(torch.bfloat16)
     score = torch.softmax((torch.einsum("bntd,bmtd->btnm", xb, xb) / np.sqrt(128)).float(), -1)
     got = torch.einsum("btnm,bmtd->bntd", (score * shape[-1] ** -0.5).to(torch.bfloat16)

@@ -367,11 +367,12 @@ def test_spiral_float32_matches_jax(capsys):
 
 def test_checkpoint_option_and_unported_names():
     """``options={"checkpoint": True}`` gives the fixed solvers' gradients
-    unchanged (the JAX package's per-step rematerialisation); the DIRK
-    adaptive solvers, ``odeint_per_element``, adams and scipy still raise
-    ``NotImplementedError`` naming ROADMAP; ``odeint_dense`` refuses a fixed
-    solver; a typo'd option raises; without a card, numpy data makes the
-    entry points raise."""
+    unchanged (the JAX package's per-step rematerialisation); the names this
+    test once saw refused (the DIRK adaptive solvers, adams, scipy,
+    ``odeint_per_element``) now run (their parity with the JAX package:
+    ``test_torch_ode_zoo.py``, ``test_torch_ode_events.py``); ``odeint_dense``
+    refuses a fixed solver; a typo'd option raises; without a card, numpy
+    data makes the entry points raise."""
     t = torch.linspace(0.0, 1.0, 5, dtype=F64)
     grads = []
     for options in ({"step_size": 0.1}, {"step_size": 0.1, "checkpoint": True}):
@@ -383,10 +384,10 @@ def test_checkpoint_option_and_unported_names():
 
     f = port_field(torch.tensor(W))
     for name in ("kvaerno3", "sdirk4", "trbdf2", "adams", "scipy_solver"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.odeint(f, torch.tensor(Y0), t, name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.functional.odeint_per_element(f, torch.tensor(Y0), t)
+        out = pt.odeint(f, torch.tensor(Y0), t, name, rtol=1e-4, atol=1e-6)
+        assert out.shape == (2, 5, 3) and torch.isfinite(out).all(), name
+    out = pt.functional.odeint_per_element(f, torch.tensor(Y0), t)
+    assert out.shape == (2, 5, 3) and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="adaptive"):
         pt.odeint_dense(f, torch.tensor(Y0), t, "rk4")
     with pytest.raises(ValueError, match="unknown solver option"):
