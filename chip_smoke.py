@@ -2,9 +2,10 @@
 """Drive the PyTorch port on one CUDA card: D3STN serving and training, the
 adaptive ODE solvers on bench.py's spiral neural ODE, the rest of D3STN
 and the DDE extras (a reference checkpoint, the training CLI,
-``ddeint_adjoint``, ``ddeint_mos``, ``prefetch``), and the rest of the ODE
+``ddeint_adjoint``, ``ddeint_mos``, ``prefetch``), the rest of the ODE
 solver zoo (stiff, event, symplectic, Adams, per-element and CNF
-workloads).
+workloads), and the CDE half and the SDE core (the Brownian tree,
+``sdeint``, ``cdeint``, the log-ODE method).
 
 Run from the repository root with no arguments::
 
@@ -19,7 +20,7 @@ spline or GCN kernel spills, if a float32 K2 or K3 tensor-core kernel has
 no HGMMA, if a bfloat16 kernel spills or has no HGMMA, checked by
 name for K5 bf16's conv kernel and each of K4 bf16's twelve
 instantiations, or if a D = 64 instantiation of the float32 attention
-forward, with or without dropout, spills or has no HGMMA), and runs nine
+forward, with or without dropout, spills or has no HGMMA), and runs ten
 phases (PyTorch's
 TF32 off throughout, and cuBLAS's reduced-precision bfloat16 sums off; the
 float32 GCN and attention kernels run their products in 3xTF32, the
@@ -143,7 +144,33 @@ bfloat16 ones in bfloat16):
    against a central difference. Each run prints its host-clock time
    (under the profiler), steps/s, host syncs with their lines, device time,
    launches per step and the idle share (the pendulum's from its first 200
-   steps, the Krylov fronts' from their first step, scaled).
+   steps, the Krylov fronts' from their first step, scaled);
+10. CDEs and the SDE core (``sde_cde_phase``; no kernel of its own, and it
+   must launch none of the port's), the JAX package's SDE and CDE examples
+   at full size, float32 unless marked: the launches and host time of one
+   Brownian query in each tree mode; (a) the noisy spiral of
+   ``examples/sde_demo.py`` (4096 paths, 1000 outputs over [0, 25], key 0)
+   with euler, milstein, sriw1 and heun_stratonovich, the first 64 paths
+   held against the CPU's float32 solve and its float64 solve of the same
+   path (float32 normals, ``virtual_tree._noise_dtype``) over the first 250
+   steps and, from the card's state, over the last 250, and the tree's W
+   against both; (b) strong
+   orders in float64 on the card: euler and milstein on GBM against its
+   closed form (dt 2^-4..2^-8, 4096 paths, within ORDER_BAND of 0.5 and
+   1.0), sra1 against itself at dt / 64 (dt 2^-2..2^-4, within
+   SRA1_ORDER), milstein's
+   float64 path against the CPU's; (c) ``examples/sde_general_demo.py``'s
+   milstein_general with Davie areas (2048 paths, key 42), its terminal
+   log-return covariance within 4 standard errors of L L^T, and foster2
+   on the (W, I10, K) tree; (d) ``examples/cde_demo.py``'s neural CDE on
+   4096 samples, its loss and parameter gradient by autograd and by
+   ``adjoint=True`` with the peak memory of each; (e)
+   ``examples/logode_dde_demo.py``'s log-ODE over a 4096-knot walk at
+   depth 1, 2, 3 against the fine oracle (float64, on the CPU; the error
+   must fall with depth), and the natural spline's build over the same
+   knots. Each run prints its agreement, steps/s, launches a step (long
+   runs: from a profiled run of their first steps), host syncs and the
+   idle share.
 
 Launch counts are checked by the wrappers' counters and by ``torch.profiler``
 traces. It prints:
@@ -3524,6 +3551,539 @@ def ode_zoo_phase(torch, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: the CDE half and the SDE core (no kernel of their own): the JAX
+# package's SDE and CDE examples at full size on the card, in float32 unless
+# marked, each against the port's float64 solve on the CPU from the same key
+# (the CPU tests tie that solve to the JAX package)
+# --------------------------------------------------------------------------
+
+# the workloads' sizes: the examples' own, batched (the demos run one sample
+# or a few paths; here 2048-4096 of them at once)
+SDE_SIZES = {
+    # examples/sde_demo.py:28-42 and its solver list (:80)
+    "spiral_batch": 4096, "spiral_outputs": 1000, "spiral_t1": 25.0, "spiral_sigma": 0.02,
+    # the spiral's leading trajectories held against the CPU, over the
+    # card's first 250 steps and (started from the card's state) its last
+    # 250: the late steps query the tree after its plan cache has turned
+    # over
+    "spiral_rows": 64, "spiral_check_steps": 250,
+    # strong order: GBM dS = mu S dt + sigma S dW against its closed form
+    # over [0, 1] at dt = 2^-4 .. 2^-8; sra1 on a nonlinear drift with
+    # time-dependent additive noise at dt = 2^-2 .. 2^-4 against itself at
+    # the finest dt / 64
+    "order_paths": 4096, "gbm_mu": 0.5, "gbm_sigma": 0.8, "gbm_levels": (4, 5, 6, 7, 8),
+    "sra1_levels": (2, 3, 4), "sra1_ref_factor": 64,
+    # examples/sde_general_demo.py:55-66
+    "general_paths": 2048, "general_outputs": 65, "general_rows": 32,
+    # examples/cde_demo.py:55-68 (HIDDEN 16, 32 observations, rk4 on 65 nodes)
+    "cde_samples": 4096, "cde_hidden": 16, "cde_obs": 32, "cde_grid": 65,
+    # examples/logode_dde_demo.py:40-58
+    "logode_knots": 4096, "logode_windows": 16, "logode_substeps": 8,
+}
+# the card's float32 against the CPU, max |diff| over the reference's max
+# |value|, on the leading rows of each batch (a batch's leading rows are a
+# smaller batch's path with the same key). Two references from the same
+# key: the CPU's float32 solve (the same plan, bits and arithmetic: only the
+# card's rounding differs, a few ulps of log1p in a normal), and the CPU's
+# float64 solve of the same path (drawn under
+# ``virtual_tree._noise_dtype(float32)``: JAX draws a float32 normal from 32
+# bits and a float64 one from 64, so without it the two would be different
+# paths). Against float64 the float32 tree's own resolution shows: it
+# resolves query times and midpoints in float32, and at depth 24 over a
+# span of 25 its deepest level (25 / 2^24 = 1.5e-6) is below float32's
+# spacing past t = 16 (1.9e-6), so the deepest midpoints round. One rounded
+# level moves W by about sqrt(1.5e-6) = 1.2e-3, 6e-5 of max |W| ~ 20 over
+# 4096 paths; tree_w (3e-4) allows a few such levels (at t = 0.025, 2.5,
+# 12.5 and 25: 4.0e-5 for the CPU's float32 tree on the first 64 paths,
+# which the card's follows within tree_w_f32). The spiral's last 250 steps lie
+# past t = 18.7, where every query rounds so, and its |y| has decayed to
+# ~0.3 of its start: spiral_late against float64 there (the CPU's float32
+# solve, which the card's follows within spiral_f32, measured 1.37e-4 for
+# euler and milstein, 2.67e-4 for sriw1, 3.07e-4 for heun_stratonovich),
+# spiral over the first 250 steps
+SDE_TOL = {"spiral_f32": 1e-5, "spiral": 1e-4, "spiral_late": 1e-3,
+           "tree_w_f32": 1e-5, "tree_w": 3e-4,
+           "general_f32": 1e-5, "general": 2e-5, "foster2_f32": 1e-5, "foster2": 2e-5,
+           "cde": 1e-5, "cde_grad": 2e-5, "logode": 1e-5, "order_f64": 1e-10}
+# a long run's launches a step and idle share come from a profiled run of
+# its first steps (``zoo_sliced``): a trace of every launch of a 999-step
+# solve (~10^5-10^6 launches) costs more than the solve
+PROFILED_STEPS = 50
+# the neural CDE's profiled run: the forward and gradient on a 9-node grid
+CDE_PROFILED_GRID = 9
+# the fitted strong orders against the registry's (the issue's band)
+ORDER_BAND = 0.15
+SRA1_ORDER = (1.25, 1.75)
+# the CDE gradient by the adjoint against autograd's, both on the card:
+# both approximate the same derivative on the 64-step grid (the adjoint
+# integrates the augmented system backward; measured on the CPU in float64)
+CDE_ADJOINT_TOL = 1e-2
+
+
+def _rel_err(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-300))
+
+
+def bm_query_launches(torch, dev, mode, size, dtype, n=20):
+    """Launches per Brownian query (profiler) and host time per query of a
+    bm of ``mode``, from ``n`` queries of its richest kind."""
+    from paddlexde_tpu_torch import BrownianInterval
+
+    kw = {"none": {}, "space-time": {"return_U": True},
+          "space-time-time": {"return_U": True, "return_K": True},
+          "davie": {"return_U": True, "return_A": True}}[mode]
+    bm = BrownianInterval(0.0, 1.0, size=size, dtype=dtype, key=3,
+                          levy_area_approximation=mode, device=dev)
+    bm(0.0, 0.5, **kw)  # the first query's tables and allocations
+    _, fig = zoo_run(torch, dev, lambda: [bm(i / n, (i + 1) / n, **kw) for i in range(n)],
+                     steps=n)
+    return fig
+
+
+def spiral_sde_runs(torch, dev):
+    """(a) The noisy spiral of examples/sde_demo.py with euler, milstein,
+    sriw1 and heun_stratonovich, key 0, and the tree's W on the card."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import BrownianInterval, sdeint
+    from paddlexde_tpu_torch.brownian.virtual_tree import _noise_dtype
+
+    sizes = SDE_SIZES
+    n, outputs, t1 = sizes["spiral_batch"], sizes["spiral_outputs"], sizes["spiral_t1"]
+    sigma = sizes["spiral_sigma"]
+    a_np = np.array([[-0.1, 2.0], [-2.0, -0.1]])
+    rows, check = sizes["spiral_rows"], sizes["spiral_check_steps"]
+    t = np.linspace(0.0, t1, outputs)
+    # the first and the last ``check`` steps
+    windows = (slice(0, check + 1), slice(outputs - 1 - check, outputs))
+
+    def problem(dtype, device, count):
+        a = torch.tensor(a_np, dtype=dtype, device=device)
+        y0 = torch.zeros(count, 2, dtype=dtype, device=device)
+        y0[:, 0] = 2.0
+        return (lambda t, y: y @ a), (lambda t, y: torch.full_like(y, sigma)), y0
+
+    f32, g32, y32 = problem(torch.float32, dev, n)
+    cpu = torch.device("cpu")
+    refs = {dtype: problem(dtype, cpu, rows)[:2] for dtype in (torch.float32, torch.float64)}
+    out = {}
+    for name in ("euler", "milstein", "sriw1", "heun_stratonovich"):
+        mode = "space-time" if name == "sriw1" else "none"
+        sol, fig = zoo_run(torch, dev, lambda: sdeint(f32, g32, y32, t, name, key=0,
+                                                       time_axis=0), steps=outputs - 1,
+                           profile=False)
+        zoo_sliced(torch, dev, fig, lambda: sdeint(f32, g32, y32, t[:PROFILED_STEPS + 1], name,
+                                                   key=0, time_axis=0),
+                   PROFILED_STEPS, outputs - 1)
+        errs = {}
+        for dtype, (f, g) in refs.items():
+            bm = BrownianInterval(0.0, t1, size=(rows, 2), dtype=dtype, key=0,
+                                  levy_area_approximation=mode, device=cpu)
+            for w in windows:
+                card = sol[w, :rows]
+                with _noise_dtype(torch.float32):
+                    ref = sdeint(f, g, card[0].to(cpu, dtype), t[w], name, bm=bm, time_axis=0)
+                errs[dtype, w.start] = _rel_err(card, ref)
+        e32 = max(errs[torch.float32, w.start] for w in windows)
+        early, late = (errs[torch.float64, w.start] for w in windows)
+        limits = (SDE_TOL["spiral_f32"], SDE_TOL["spiral"], SDE_TOL["spiral_late"])
+        require(bool(torch.isfinite(sol).all())
+                and all(e <= lim for e, lim in zip((e32, early, late), limits)),
+                f"spiral {name}: {e32:.3e} from the CPU's float32 solve of {rows} rows, "
+                f"{early:.3e} / {late:.3e} from its float64 solve over the first / last {check} "
+                f"steps (limits {limits})")
+        zoo_line(f"noisy spiral {name}, {n} paths, {outputs} outputs over [0, {t1:g}]", fig,
+                 f"the first {rows} paths {e32:.2e} from the CPU's float32 solve, {early:.2e} / "
+                 f"{late:.2e} from its float64 solve over the first / last {check} steps (limits "
+                 f"{limits[0]}, {limits[1]} / {limits[2]}); y(25) spread "
+                 f"{sol[-1].std(0).mean().item():.4f}")
+        out[f"spiral_{name}"] = fig
+    # the tree itself: W(0, t_i) on the card in float32 against the CPU's
+    bm32 = BrownianInterval(0.0, t1, size=(n, 2), dtype=torch.float32, key=0, device=dev)
+    w_errs = []
+    for dtype in (torch.float32, torch.float64):
+        ref_bm = BrownianInterval(0.0, t1, size=(rows, 2), dtype=dtype, key=0, device=cpu)
+        with _noise_dtype(torch.float32):
+            w_errs.append(max(_rel_err(bm32(0.0, float(ti))[:rows], ref_bm(0.0, float(ti)))
+                              for ti in t[[1, 100, 500, 999]]))
+    require(w_errs[0] <= SDE_TOL["tree_w_f32"] and w_errs[1] <= SDE_TOL["tree_w"],
+            f"the tree's W on the card: {w_errs[0]:.3e} / {w_errs[1]:.3e} from the CPU's float32 "
+            f"/ float64, limits {SDE_TOL['tree_w_f32']} / {SDE_TOL['tree_w']}")
+    print(f"  the tree's W(t) at 4 query times, float32 on the card: {w_errs[0]:.2e} / "
+          f"{w_errs[1]:.2e} from the CPU's float32 / float64 (limits {SDE_TOL['tree_w_f32']} / "
+          f"{SDE_TOL['tree_w']})", flush=True)
+    return out
+
+
+def fitted_order(dts, errs):
+    import numpy as np
+
+    return float(np.polyfit(np.log(dts), np.log(errs), 1)[0])
+
+
+def strong_order_runs(torch, dev):
+    """(b) Strong orders on the card in float64: euler and milstein on GBM
+    against its closed form, sra1 on an OU problem against itself at dt/64."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import BrownianInterval, sdeint
+
+    sizes = SDE_SIZES
+    f64 = torch.float64
+    n = sizes["order_paths"]
+    mu, sig = sizes["gbm_mu"], sizes["gbm_sigma"]
+    bm = BrownianInterval(0.0, 1.0, size=(n, 1), dtype=f64, key=1, device=dev)
+    y0 = torch.ones(n, 1, dtype=f64, device=dev)
+    exact = torch.exp((mu - 0.5 * sig**2) + sig * bm(0.0, 1.0))
+    out = {}
+    for name, want in (("euler", 0.5), ("milstein", 1.0)):
+        errs, dts, figs = [], [], []
+        for k in sizes["gbm_levels"]:
+            t = np.linspace(0.0, 1.0, 2**k + 1)
+            sol, fig = zoo_run(torch, dev, lambda: sdeint(
+                lambda t, y: mu * y, lambda t, y: sig * y, y0, t, name, bm=bm, time_axis=0),
+                steps=2**k, profile=False)
+            errs.append((sol[-1] - exact).abs().mean().item())
+            dts.append(2.0**-k)
+            figs.append(fig)
+        zoo_sliced(torch, dev, figs[-1], lambda: sdeint(
+            lambda t, y: mu * y, lambda t, y: sig * y, y0, t[:PROFILED_STEPS + 1], name, bm=bm,
+            time_axis=0), PROFILED_STEPS, 2 ** sizes["gbm_levels"][-1])
+        order = fitted_order(dts, errs)
+        require(abs(order - want) <= ORDER_BAND, f"GBM {name}: fitted strong order {order:.3f}, "
+                f"registry {want} +- {ORDER_BAND} (errors {errs})")
+        zoo_line(f"GBM {name} (float64), {n} paths, dt 2^-{sizes['gbm_levels'][0]}.."
+                 f"2^-{sizes['gbm_levels'][-1]}", figs[-1],
+                 f"strong order {order:.3f} (registry {want}), E|S - S_exact| "
+                 + ", ".join(f"{e:.2e}" for e in errs) + "; the finest level's figures")
+        out[f"gbm_{name}"] = dict(figs[-1], order=order)
+    # the card's float64 solve against the CPU's on the leading rows
+    rows = 32
+    t = np.linspace(0.0, 1.0, 2 ** sizes["gbm_levels"][-1] + 1)
+    bm_cpu = BrownianInterval(0.0, 1.0, size=(rows, 1), dtype=f64, key=1, device="cpu")
+    card = sdeint(lambda t, y: mu * y, lambda t, y: sig * y, y0, t, "milstein", bm=bm,
+                  time_axis=0)
+    cpu = sdeint(lambda t, y: mu * y, lambda t, y: sig * y, y0[:rows].cpu(), t, "milstein",
+                 bm=bm_cpu, time_axis=0)
+    err64 = _rel_err(card[:, :rows], cpu)
+    require(err64 <= SDE_TOL["order_f64"], f"GBM milstein float64: {err64:.3e} from the CPU's, "
+            f"limit {SDE_TOL['order_f64']}")
+
+    # sra1: dy = -2 sin(y) dt + 2 (1 + t) dW against itself at the finest
+    # dt / 64 (a linear drift shows order ~2 on these steps, its drift error
+    # leading; this nonlinear one ~1.45 on the CPU at 512 paths)
+    bm_st = BrownianInterval(0.0, 1.0, size=(n, 1), dtype=f64, key=2,
+                             levy_area_approximation="space-time", device=dev)
+    drift = lambda t, y: -2.0 * torch.sin(y)  # noqa: E731
+    diffusion = lambda t, y: 2.0 * (1.0 + t) + 0.0 * y  # noqa: E731
+    finest = sizes["sra1_levels"][-1]
+    n_ref = 2**finest * sizes["sra1_ref_factor"]
+    ref, ref_fig = zoo_run(torch, dev, lambda: sdeint(
+        drift, diffusion, y0, np.linspace(0.0, 1.0, n_ref + 1), "sra1", bm=bm_st,
+        time_axis=0)[-1], steps=n_ref, profile=False)
+    zoo_sliced(torch, dev, ref_fig, lambda: sdeint(
+        drift, diffusion, y0, np.linspace(0.0, 1.0, n_ref + 1)[:PROFILED_STEPS + 1], "sra1",
+        bm=bm_st, time_axis=0), PROFILED_STEPS, n_ref)
+    errs, dts = [], []
+    for k in sizes["sra1_levels"]:
+        sol = sdeint(drift, diffusion, y0, np.linspace(0.0, 1.0, 2**k + 1), "sra1", bm=bm_st,
+                     time_axis=0)[-1]
+        errs.append((sol - ref).abs().mean().item())
+        dts.append(2.0**-k)
+    order = fitted_order(dts, errs)
+    require(SRA1_ORDER[0] <= order <= SRA1_ORDER[1], f"sra1: fitted strong order {order:.3f}, "
+            f"band {SRA1_ORDER} (errors {errs})")
+    zoo_line(f"sra1 (float64), dy = -2 sin(y) dt + 2(1 + t) dW, {n} paths, dt 2^-"
+             f"{sizes['sra1_levels'][0]}..2^-{finest} against dt 2^-{finest} / "
+             f"{sizes['sra1_ref_factor']}", ref_fig,
+             f"strong order {order:.3f} (registry 1.5), errors "
+             + ", ".join(f"{e:.2e}" for e in errs) + f"; milstein's card float64 against the "
+             f"CPU's {err64:.1e}; the reference solve's figures")
+    out["sra1"] = dict(ref_fig, order=order)
+    return out
+
+
+def general_noise_runs(torch, dev):
+    """(c) examples/sde_general_demo.py: milstein_general with Davie areas
+    (key 42, noise_dim 2), the terminal log-return covariance against
+    L L^T T; foster2 with the space-time-time tree on an additive problem."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import BrownianInterval, sdeint
+    from paddlexde_tpu_torch.brownian.virtual_tree import _noise_dtype
+
+    sizes = SDE_SIZES
+    n, outputs = sizes["general_paths"], sizes["general_outputs"]
+    rows = sizes["general_rows"]
+    mu_np = np.array([0.05, 0.03])
+    l_np = np.array([[0.30, 0.0], [0.12, 0.25]])
+    t = np.linspace(0.0, 1.0, outputs)
+
+    def problem(dtype, device, count):
+        mu = torch.tensor(mu_np, dtype=dtype, device=device)
+        l_mat = torch.tensor(l_np, dtype=dtype, device=device)
+        return ((lambda t, s: mu * s), (lambda t, s: s[..., :, None] * l_mat),
+                torch.ones(count, 2, dtype=dtype, device=device))
+
+    f32, g32, s32 = problem(torch.float32, dev, n)
+    cpu = torch.device("cpu")
+    sol, fig = zoo_run(torch, dev, lambda: sdeint(
+        f32, g32, s32, t, "milstein_general", key=42, noise_dim=2, time_axis=0,
+        levy_area_approximation="davie"), steps=outputs - 1)
+    errs = []
+    for dtype in (torch.float32, torch.float64):
+        f, g, s0 = problem(dtype, cpu, rows)
+        bm = BrownianInterval(0.0, 1.0, size=(rows, 2), dtype=dtype, key=42, device=cpu,
+                              levy_area_approximation="davie")
+        with _noise_dtype(torch.float32):
+            errs.append(_rel_err(sol[:, :rows], sdeint(f, g, s0, t, "milstein_general", bm=bm,
+                                                       time_axis=0)))
+    log_r = torch.log(sol[-1]).double().cpu().numpy()
+    cov = np.cov(log_r.T)
+    want = l_np @ l_np.T
+    # the standard error of a sample covariance entry: sqrt((S_ii S_jj + S_ij^2) / n)
+    se = np.sqrt((np.outer(np.diag(want), np.diag(want)) + want**2) / n)
+    z = float(np.max(np.abs(cov - want) / se))
+    require(errs[0] <= SDE_TOL["general_f32"] and errs[1] <= SDE_TOL["general"] and z <= 4.0,
+            f"milstein_general: {errs[0]:.3e} / {errs[1]:.3e} from the CPU's float32 / float64 "
+            f"rows (limits {SDE_TOL['general_f32']} / {SDE_TOL['general']}); covariance "
+            f"{cov.round(5).tolist()} against L L^T {want.round(5).tolist()}, {z:.2f} standard "
+            f"errors (limit 4)")
+    zoo_line(f"milstein_general + Davie areas, {n} paths, {outputs} outputs, key 42", fig,
+             f"{errs[0]:.2e} / {errs[1]:.2e} from the CPU's float32 / float64 on {rows} rows "
+             f"(limits {SDE_TOL['general_f32']} / {SDE_TOL['general']}); log-return covariance "
+             f"{cov.round(4).tolist()} vs L L^T {want.round(4).tolist()} ({z:.2f} standard "
+             f"errors at most)")
+    out = {"milstein_general": fig}
+
+    # foster2: dy = -y dt + 0.3 (1 + t) dW, diagonal, the (W, I10, K) triple
+    drift = lambda t, y: -y  # noqa: E731
+    diffusion = lambda t, y: 0.3 * (1.0 + t) + 0.0 * y  # noqa: E731
+    y32 = torch.ones(n, 2, device=dev)
+    sol, fig = zoo_run(torch, dev, lambda: sdeint(drift, diffusion, y32, t, "foster2", key=5,
+                                                  time_axis=0), steps=outputs - 1)
+    errs = []
+    for dtype in (torch.float32, torch.float64):
+        bm = BrownianInterval(0.0, 1.0, size=(rows, 2), dtype=dtype, key=5, device=cpu,
+                              levy_area_approximation="space-time-time")
+        with _noise_dtype(torch.float32):
+            errs.append(_rel_err(sol[:, :rows], sdeint(drift, diffusion, torch.ones(
+                rows, 2, dtype=dtype), t, "foster2", bm=bm, time_axis=0)))
+    require(errs[0] <= SDE_TOL["foster2_f32"] and errs[1] <= SDE_TOL["foster2"],
+            f"foster2: {errs[0]:.3e} / {errs[1]:.3e} from the CPU's float32 / float64 rows, "
+            f"limits {SDE_TOL['foster2_f32']} / {SDE_TOL['foster2']}")
+    zoo_line(f"foster2 (space-time-time tree), OU with 0.3(1 + t) noise, {n} x 2, {outputs} "
+             f"outputs", fig, f"{errs[0]:.2e} / {errs[1]:.2e} from the CPU's float32 / float64 "
+             f"on {rows} rows (limits {SDE_TOL['foster2_f32']} / {SDE_TOL['foster2']})")
+    out["foster2"] = fig
+    return out
+
+
+def cde_data(np, sizes, seed=0):
+    """examples/cde_demo.py's dataset and parameters (make_dataset,
+    init_params) at ``cde_samples`` samples, from one seeded generator."""
+    rng = np.random.RandomState(seed)
+    n, n_obs, hidden = sizes["cde_samples"], sizes["cde_obs"], sizes["cde_hidden"]
+    ts = np.sort(rng.rand(n, n_obs), axis=1) * 4 * np.pi
+    label = rng.randint(0, 2, n)
+    sign = np.where(label == 0, 1.0, -1.0)[:, None]
+    x = np.stack([np.cos(sign * ts) + rng.randn(n, n_obs) * 0.05,
+                  np.sin(sign * ts) + rng.randn(n, n_obs) * 0.05, ts / (4 * np.pi)], axis=-1)
+    params = {"in_w": rng.randn(3, hidden) * 0.3, "f_w1": rng.randn(hidden, 64) * 0.1,
+              "f_b1": np.zeros(64), "f_w2": rng.randn(64, hidden * 3) * 0.1,
+              "out_w": rng.randn(hidden, 1) * 0.3}
+    return x, label.astype(np.float64), params
+
+
+def cde_inputs(torch, x_np, label_np, params_np, sizes, dtype, device):
+    """The demo's tensors on ``device``: parameters (leaves that need a
+    gradient), the series, the labels and the normalised knots."""
+    p = {k: torch.tensor(v, dtype=dtype, device=device, requires_grad=True)
+         for k, v in params_np.items()}
+    return (p, torch.tensor(x_np, dtype=dtype, device=device),
+            torch.tensor(label_np, dtype=dtype, device=device),
+            torch.linspace(0.0, 1.0, sizes["cde_obs"], dtype=dtype, device=device))
+
+
+def cde_loss(torch, inputs, sizes, adjoint=False):
+    """The demo's model on the whole batch: the series' cubic Hermite
+    control over 32 normalised knots, y0 = x_0 @ in_w, cdeint with rk4 on
+    the 65-node grid, the logit sol[-1] @ out_w; the mean binary
+    cross-entropy, its parameter gradients and y(1)."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import CubicHermiteSpline, cdeint
+
+    p, x, label, knots = inputs
+    hidden = sizes["cde_hidden"]
+    control = CubicHermiteSpline(x, knots)
+    y0 = x[:, 0] @ p["in_w"]
+
+    def field(t, y):
+        h = torch.tanh(y @ p["f_w1"] + p["f_b1"])
+        return torch.tanh(h @ p["f_w2"]).reshape(y.shape[:-1] + (hidden, 3))
+
+    grid = np.linspace(0.0, 1.0, sizes["cde_grid"])
+    kw = {"adjoint_params": [p["f_w1"], p["f_b1"], p["f_w2"]]} if adjoint else {}
+    sol = cdeint(field, y0, np.array([0.0, 1.0]), control, "rk4", options={"grid": grid},
+                 adjoint=adjoint, time_axis=0, **kw)
+    logit = (sol[-1] @ p["out_w"])[:, 0]
+    loss = torch.nn.functional.binary_cross_entropy_with_logits(logit, label)
+    grads = torch.autograd.grad(loss, list(p.values()))
+    return loss.detach(), dict(zip(p, grads)), sol[-1].detach()
+
+
+def neural_cde_runs(torch, dev):
+    """(d) examples/cde_demo.py's neural CDE on 4096 samples: the forward
+    and the parameter gradient by autograd and by the adjoint, with peak
+    memory, against the CPU's float64."""
+    import numpy as np
+
+    sizes = SDE_SIZES
+    x, label, params = cde_data(np, sizes)
+    inputs = cde_inputs(torch, x, label, params, sizes, torch.float32, dev)
+    runs = {}
+    for adjoint in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        (loss, grads, y1), fig = zoo_run(torch, dev, lambda: cde_loss(
+            torch, inputs, sizes, adjoint), steps=sizes["cde_grid"] - 1, profile=False)
+        fig["peak_mb"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        short = dict(sizes, cde_grid=CDE_PROFILED_GRID)
+        zoo_sliced(torch, dev, fig, lambda: cde_loss(torch, inputs, short, adjoint),
+                   CDE_PROFILED_GRID - 1, sizes["cde_grid"] - 1)
+        runs[adjoint] = (loss, grads, y1, fig)
+    loss64, grads64, y64 = cde_loss(torch, cde_inputs(torch, x, label, params, sizes,
+                                                      torch.float64, torch.device("cpu")), sizes)
+    loss, grads, y1, fig = runs[False]
+    err = _rel_err(y1, y64)
+    grad_err = max(_rel_err(grads[k], grads64[k]) for k in grads)
+    adj_gap = max(_rel_err(runs[True][1][k], grads[k]) for k in grads)
+    require(err <= SDE_TOL["cde"] and grad_err <= SDE_TOL["cde_grad"]
+            and adj_gap <= CDE_ADJOINT_TOL,
+            f"neural CDE: y(1) {err:.3e} from the CPU's float64 (limit {SDE_TOL['cde']}), "
+            f"gradient {grad_err:.3e} (limit {SDE_TOL['cde_grad']}), adjoint against autograd "
+            f"{adj_gap:.3e} (limit {CDE_ADJOINT_TOL})")
+    zoo_line(f"neural CDE, {sizes['cde_samples']} samples x {sizes['cde_obs']} observations, "
+             f"hidden {sizes['cde_hidden']}, rk4 on {sizes['cde_grid']} nodes, loss + autograd "
+             f"gradient", fig,
+             f"loss {loss.item():.5f} (float64 {loss64.item():.5f}); y(1) {err:.2e} and the "
+             f"gradient {grad_err:.2e} from the CPU's float64 (limits {SDE_TOL['cde']}, "
+             f"{SDE_TOL['cde_grad']}); peak {fig['peak_mb']:.1f} MiB")
+    afig = runs[True][3]
+    zoo_line("the same gradient by adjoint=True", afig,
+             f"{adj_gap:.2e} from autograd's (limit {CDE_ADJOINT_TOL}); peak "
+             f"{afig['peak_mb']:.1f} MiB against autograd's {fig['peak_mb']:.1f}")
+    return {"cde": fig, "cde_adjoint": afig}
+
+
+def logode_runs(torch, dev):
+    """(e) examples/logode_dde_demo.py's log-ODE part: the 4096-knot random
+    walk, 16 windows x 8 substeps at depth 1, 2, 3 against the fine oracle
+    (cdeint, rk4 at the knot spacing on the linear interpolation, in
+    float64 on the CPU); the natural spline's build over the same knots."""
+    import numpy as np
+
+    from paddlexde_tpu_torch import LinearInterpolation, NaturalCubicSpline, cdeint, cdeint_logode
+
+    knots, windows, substeps = (SDE_SIZES["logode_knots"], SDE_SIZES["logode_windows"],
+                                SDE_SIZES["logode_substeps"])
+    rng = np.random.default_rng(1)
+    b1 = np.array([[0.0, 1.0], [0.0, 0.0]]) * 0.8
+    b2 = np.array([[0.0, 0.0], [1.0, 0.0]]) * 0.8
+    x_np = rng.normal(size=(knots + 1, 2)).cumsum(0) * 0.016
+    tx = np.linspace(0.0, 1.0, knots + 1)
+    ts = np.linspace(0.0, 1.0, windows + 1)
+
+    def setup(dtype, device):
+        b1t = torch.tensor(b1, dtype=dtype, device=device)
+        b2t = torch.tensor(b2, dtype=dtype, device=device)
+        f = lambda t, y: torch.stack([y @ b1t.T, y @ b2t.T], dim=-1)  # noqa: E731
+        x = torch.tensor(x_np, dtype=dtype, device=device)
+        knot_t = torch.tensor(tx, dtype=dtype, device=device)
+        y0 = torch.tensor([1.0, 0.5], dtype=dtype, device=device)
+        return f, x, knot_t, y0
+
+    f32, x32, t32, y32 = setup(torch.float32, dev)
+    f64, x64, t64, y64 = setup(torch.float64, torch.device("cpu"))
+
+    def oracle(f, x, knot_t, y0):
+        return cdeint(f, y0, np.array([0.0, 1.0]), LinearInterpolation(x, knot_t), "rk4",
+                      options={"step_size": 1.0 / knots}, time_axis=0)[-1]
+
+    # the oracle in float64 on the CPU (on the card it is 4096 rk4 steps of
+    # host-bound launches, ~11 s; neural_cde_runs drives cdeint there)
+    start = time.perf_counter()
+    ref64 = oracle(f64, x64, t64, y64)
+    print(f"  the fine CDE oracle, rk4 over {knots} knots in float64 on the CPU: y(1) "
+          f"{ref64.numpy().round(6).tolist()} ({(time.perf_counter() - start) * 1e3:.0f} ms)",
+          flush=True)
+    out = {}
+    errs = []
+    for depth in (1, 2, 3):
+        sol, fig = zoo_run(torch, dev, lambda: cdeint_logode(
+            f32, y32, ts, (x32, t32), depth=depth, substeps=substeps, time_axis=0),
+            steps=windows * substeps, profile=False)
+        zoo_sliced(torch, dev, fig, lambda: cdeint_logode(
+            f32, y32, ts[:3], (x32, t32), depth=depth, substeps=substeps, time_axis=0),
+            2 * substeps, windows * substeps)
+        sol64 = cdeint_logode(f64, y64, ts, (x64, t64), depth=depth, substeps=substeps,
+                              time_axis=0)
+        cpu_err = _rel_err(sol, sol64)
+        errs.append(float((sol[-1].double().cpu() - ref64).abs().max()))
+        require(cpu_err <= SDE_TOL["logode"], f"log-ODE depth {depth}: {cpu_err:.3e} from the "
+                f"CPU's float64, limit {SDE_TOL['logode']}")
+        zoo_line(f"log-ODE depth {depth}, {windows} windows x {substeps} rk4 substeps", fig,
+                 f"error {errs[-1]:.2e} against the float64 oracle; {cpu_err:.2e} from the "
+                 f"CPU's float64 solve (limit {SDE_TOL['logode']})")
+        out[f"logode_{depth}"] = fig
+    require(errs[0] > errs[1] > errs[2], f"the log-ODE error must fall with depth: {errs}")
+    spline, fig = zoo_run(torch, dev, lambda: NaturalCubicSpline(x32, t32), steps=1)
+    d_err = _rel_err(spline.derivative(torch.tensor(tx[1:-1:97], dtype=torch.float32,
+                                                    device=dev)),
+                     NaturalCubicSpline(x64, t64).derivative(torch.tensor(tx[1:-1:97])))
+    require(d_err <= SDE_TOL["logode"], f"NaturalCubicSpline over {knots + 1} knots: derivative "
+            f"{d_err:.3e} from the CPU's float64, limit {SDE_TOL['logode']}")
+    zoo_line(f"NaturalCubicSpline build over {knots + 1} knots (cyclic reduction)", fig,
+             f"its derivative {d_err:.2e} from the CPU's float64 (limit {SDE_TOL['logode']})")
+    out["natural_spline"] = fig
+    return out
+
+
+def sde_cde_phase(torch, dev):
+    """Phase 10 (module docstring): the CDE half and the SDE core, the JAX
+    package's SDE and CDE examples at full size on the card."""
+    from paddlexde_tpu_torch.ops import _build
+
+    sizes = SDE_SIZES
+    _build.reset_launches()
+    print(f"phase 10: CDEs and the SDE core (float32 on the card unless marked; each against "
+          f"the port's float64 solve on the CPU from the same key); card {card_line()}",
+          flush=True)
+    start = time.perf_counter()
+    out = {}
+    for mode, size in (("none", (sizes["spiral_batch"], 2)),
+                       ("space-time", (sizes["spiral_batch"], 2)),
+                       ("space-time-time", (sizes["general_paths"], 2)),
+                       ("davie", (sizes["general_paths"], 2))):
+        fig = bm_query_launches(torch, dev, mode, size, torch.float32)
+        zoo_line(f"Brownian queries, mode {mode}, size {size}, float32", fig,
+                 "a step here is one query")
+        out[f"query_{mode}"] = fig
+    out.update(spiral_sde_runs(torch, dev))
+    out.update(strong_order_runs(torch, dev))
+    out.update(general_noise_runs(torch, dev))
+    out.update(neural_cde_runs(torch, dev))
+    out.update(logode_runs(torch, dev))
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(not launched, f"phase 10 launched port kernels: {launched}")
+    print(f"phase 10 took {time.perf_counter() - start:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not (HERE / "paddlexde_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"paddlexde_tpu_torch/ not found beside {Path(__file__).name}")
@@ -3565,6 +4125,7 @@ def main():
     spiral_phase(torch, dev)
     ref_served, cli_train, dde_adjoint = dde_extras_phase(torch, dev)
     ode_zoo_phase(torch, dev)
+    sde_cde_phase(torch, dev)
     pems = [serve_launches, bf16_launches, train_launches, bf16_train_launches,
             *(d[0] for d in dropout.values()), ref_served, dde_adjoint]
     # the CLI's synthetic configuration has SYNTH's widths (D = 64)

@@ -18,29 +18,54 @@ explicit adaptive solvers adaptive_heun, fehlberg2, bosh3, dopri5, dopri8,
 tsit5, with autograd through the solve), ``odeint_dense`` and
 ``odeint_adjoint``, which run no kernel of their own; and the DDE extras
 ``ddeint_adjoint`` (adjoint gradients of ``ddeint``, the lag gradient
-included) and ``ddeint_mos`` (true DDEs by the method of steps).
+included) and ``ddeint_mos`` (true DDEs by the method of steps); the rest of
+the ODE solver zoo; the CDE half (``cdeint``, the log-signatures and
+``cdeint_logode``, ``NaturalCubicSpline``, ``rectilinear_interpolation``,
+``fill_forward``) and the SDE core (the virtual Brownian tree on a threefry
+whose bits equal JAX's, ``sdeint`` with Euler-Maruyama and the explicit
+schemes, the Itô/Stratonovich conversions), which run no kernel of their
+own.
 """
 
-from . import ops  # noqa: F401
+from . import brownian, ops  # noqa: F401
 from ._device import resolve_device  # noqa: F401
+from .brownian import (  # noqa: F401
+    AntitheticBrownian,
+    BaseBrownian,
+    BrownianInterval,
+    BrownianPath,
+    BrownianTree,
+    ReverseBrownian,
+    brownian_interval_like,
+)
 from .functional import (  # noqa: F401
+    cdeint,
+    cdeint_logode,
     ddeint,
     ddeint_adjoint,
     ddeint_mos,
     format_solution,
     integrate_term,
+    ito_to_stratonovich,
+    logsignature_windows,
     odeint,
     odeint_adjoint,
     odeint_dense,
     odeint_event,
     odeint_event_grad,
     odeint_per_element,
+    piecewise_logsignature,
+    piecewise_logsignature3,
+    piecewise_signature3,
+    sdeint,
+    stratonovich_to_ito,
 )
 from .interpolation import (  # noqa: F401
     BezierSpline,
     CubicHermiteSpline,
     InterpolationBase,
     LinearInterpolation,
+    NaturalCubicSpline,
 )
 from .solver import (  # noqa: F401
     RK4,
@@ -76,10 +101,12 @@ from .solver import (  # noqa: F401
 from .xde import (  # noqa: F401
     HistoryIndex,
     XDETerm,
+    cde_term,
     dde_term,
     history_index,
     history_index_pair,
     ode_term,
+    sde_term,
 )
 
 from .version import __version__  # noqa: F401

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
-__all__ = ["flat_to_shape", "host_array"]
+__all__ = ["flat_to_shape", "host_array", "to_device"]
 
 
 def host_array(x: torch.Tensor) -> np.ndarray:
@@ -28,6 +28,17 @@ def host_array(x: torch.Tensor) -> np.ndarray:
         x = _functorch.get_unwrapped(x)
     with torch._C._DisableFuncTorch():
         return fwAD.unpack_dual(x).primal.detach().cpu().numpy()
+
+
+def to_device(array: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: on the card through pinned
+    memory and an asynchronous copy, so that no host sync is made (a copy
+    from pageable memory blocks the host)."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    device = torch.device(device)
+    if device.type == "cpu":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def flat_to_shape(tensor, length, shapes):

@@ -1,14 +1,17 @@
 """The XDE problem abstraction: the move/fuse two-hook contract.
 
-Counterpart of ``paddlexde_tpu/xde/term.py`` (ODE and DDE families). A
-problem is an :class:`XDETerm` of two functions closed over the user's vector
-field: ``move(t, dt, y)`` computes a derivative-like quantity and
-``fuse(dy, dt, y)`` applies it, so one solver zoo serves every family.
-States are tensors or nested tuples/lists/dicts of tensors.
+Counterpart of ``paddlexde_tpu/xde/term.py``. A problem is an
+:class:`XDETerm` of two functions closed over the user's vector field:
+``move(t, dt, y)`` computes a derivative-like quantity and ``fuse(dy, dt,
+y)`` applies it, so one solver zoo serves every family. States are tensors
+or nested tuples/lists/dicts of tensors.
 
 - ODE: move = f(t, y);  fuse = y + dy * dt.
+- SDE: move = (f(t, y), g(t, y) * dW) with dW = bm(t, t + dt);  fuse = y +
+  f * dt + g dW (Euler-Maruyama).
 - DDE: move = func(y_lags, y) - damping * y (the damping folded into the
   field);  fuse = y + dy * dt.
+- CDE: move = f(t, y) @ dX/dt(t);  fuse = y + dy * dt.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Any, Callable
 
 from torch.utils._pytree import tree_map
 
-__all__ = ["XDETerm", "ode_term", "dde_term"]
+__all__ = ["XDETerm", "ode_term", "sde_term", "dde_term", "cde_term"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +33,7 @@ class XDETerm:
         move: ``(t, dt, y) -> dy``.
         fuse: ``(dy, dt, y) -> y_new``; affine in ``dy``.
         additive: True when ``fuse(dy, dt, y) == y + dt * dy``.
-        kind: "ode" | "dde", for diagnostics.
+        kind: "ode" | "sde" | "dde" | "cde", for diagnostics.
     """
 
     move: Callable[[Any, Any, Any], Any]
@@ -51,6 +54,26 @@ def ode_term(func: Callable) -> XDETerm:
         return func(t, y)
 
     return XDETerm(move=move, fuse=_euler_fuse, additive=True, kind="ode")
+
+
+def sde_term(drift: Callable, diffusion: Callable, bm: Callable) -> XDETerm:
+    """dy = f dt + g dW with Euler-Maruyama semantics: ``bm(ta, tb)`` gives
+    W(tb) - W(ta) (:mod:`paddlexde_tpu_torch.brownian`), ``move`` returns
+    the pair ``(f(t, y), g(t, y) * dW)`` and ``fuse`` scales only the drift
+    by ``dt``."""
+
+    def move(t, dt, y):
+        d_w = bm(t, t + dt)
+        f_val = drift(t, y)
+        g_val = diffusion(t, y)
+        g_dw = tree_map(lambda g, w: g * w, g_val, d_w)
+        return (f_val, g_dw)
+
+    def fuse(dy, dt, y):
+        f_val, g_dw = dy
+        return tree_map(lambda yl, fl, gl: yl + dt * fl + gl, y, f_val, g_dw)
+
+    return XDETerm(move=move, fuse=fuse, additive=False, kind="sde")
 
 
 def _dde_call(func: Callable):
@@ -89,3 +112,18 @@ def dde_term(func: Callable, lags, y_lags, damping: float = 1e-3) -> XDETerm:
         return tree_map(lambda d, yl: d - damping * yl, dy, y)
 
     return XDETerm(move=move, fuse=_euler_fuse, additive=True, kind="dde")
+
+
+def cde_term(func: Callable, control_deriv: Callable) -> XDETerm:
+    """Neural controlled DE: dy = f(t, y) @ dX/dt dt, with ``func(t, y) ->
+    [..., D_y, D_x]`` (a matrix field) and ``control_deriv(t) -> [..., D_x]``
+    (the derivative of the interpolated control, e.g.
+    ``CubicHermiteSpline(...).derivative``)."""
+
+    def move(t, dt, y):
+        del dt
+        mat = func(t, y)
+        d_x = control_deriv(t)
+        return tree_map(lambda m, dx: (m @ dx.unsqueeze(-1)).squeeze(-1), mat, d_x)
+
+    return XDETerm(move=move, fuse=_euler_fuse, additive=True, kind="cde")

@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from paddlexde_tpu_torch import (
+    BrownianInterval,
     CubicHermiteSpline,
+    NaturalCubicSpline,
+    cdeint,
     ddeint,
     ddeint_adjoint,
     ddeint_mos,
@@ -20,6 +23,7 @@ from paddlexde_tpu_torch import (
     integrate_term,
     ode_term,
     resolve_device,
+    sdeint,
 )
 from paddlexde_tpu_torch.models.d3stn import D3STNConfig, Predictor, Trainer
 from paddlexde_tpu_torch.ops.spline import hermite_gather_eval
@@ -125,6 +129,15 @@ _NUMPY_CALLS = {
     "integrate_term": lambda his, lags, y0: integrate_term(
         ode_term(lambda t, y: -y), y0, [0.0, 0.5, 1.0], "euler"),
     "CubicHermiteSpline": lambda his, lags, y0: CubicHermiteSpline(his).evaluate(lags),
+    "NaturalCubicSpline": lambda his, lags, y0: NaturalCubicSpline(his).evaluate(lags),
+    "sdeint": lambda his, lags, y0: sdeint(
+        lambda t, y: -y, lambda t, y: 0.1 + 0.0 * y, y0[:, 0], [0.0, 0.5, 1.0], "milstein"),
+    "cdeint": lambda his, lags, y0: cdeint(
+        lambda t, y: 0.1 * y[..., :, None] * y[..., None, :], y0[:, 0], [0.0, 15.0],
+        (his, np.arange(16.0)), "rk4"),
+    "BrownianInterval": lambda his, lags, y0: BrownianInterval(
+        0.0, 1.0, size=(2, 3), W=his[:, 0], levy_area_approximation="davie")(
+        0.2, 0.7, return_U=True, return_A=True)[2],
     "hermite_gather_eval": lambda his, lags, y0: hermite_gather_eval(his, np.arange(16.0), lags),
 }
 
